@@ -1,0 +1,125 @@
+"""CLI train entry point of the port:
+``python -m llm_bci_tpu_torch.main -c configs/trainer_ctc_ndt1.yaml -k a.b=1 ...``
+
+The counterpart of the repo's ``main.py`` (which imports the JAX trainer):
+the same configs and dotted ``-k`` overrides, the ``file`` and
+``speechbci`` datasets (G2P phoneme labels through ``data.vocab_file``),
+the CTC CER metric fns and ``n_channels`` inference for NDT1. The ``ibl``
+loader, the stat-behaviour and end-to-end metrics and the iTransformer /
+PatchTST config surgery belong to later slices and raise
+``NotImplementedError``. ``--device`` defaults to CUDA; the trainer raises
+when there is no card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pickle
+from typing import List, Optional
+
+from llm_bci_tpu.config import ParseKwargs, config_from_kwargs, resolve_path, update_config
+from llm_bci_tpu.data.speechbci import create_phonemes_ctc_labels, load_competition_data
+from llm_bci_tpu.eval.eval_bci import format_ctc, word_error_count
+from llm_bci_tpu_torch import not_ported
+from llm_bci_tpu_torch.training.trainer import Trainer, default_trainer_config
+
+
+def make_cer_fns(vocab, blank_id: int):
+    """(train CER with a ``prepare`` hook, eval CER that prints examples)."""
+
+    def cer(model, model_inputs, unused_inputs, outputs, **kwargs):
+        # argmax on the device, then one host copy of (B, T') ints
+        prepared = kwargs.get("prepared")
+        preds = (
+            prepared if prepared is not None
+            else outputs["preds"].argmax(-1).cpu().numpy()
+        )
+        pred_strs = [" ".join(format_ctc(p, vocab, blank_id)) for p in preds]
+        phonemes = [" ".join(p) for p in unused_inputs["phonemes"]]
+        errors, n_phonemes = word_error_count(pred_strs, phonemes)
+        for i in range(min(kwargs.get("n_print", 0), len(pred_strs))):
+            print(
+                pred_strs[i].replace(" ", "").replace("SIL", " SIL "), "\n#####\n ",
+                phonemes[i].replace(" ", "").replace("SIL", " SIL "), "\n#####\n ",
+                unused_inputs["sentence"][i], "\n#####\n\n ",
+            )
+        return errors / n_phonemes
+
+    def train_cer(model, model_inputs, unused_inputs, outputs, **kwargs):
+        return cer(model, model_inputs, unused_inputs, outputs, **{**kwargs, "n_print": 0})
+
+    train_cer.prepare = lambda outputs: outputs["preds"].argmax(-1)
+    return train_cer, cer
+
+
+def main(args: argparse.Namespace) -> Trainer:
+    config = update_config(
+        default_trainer_config(), args.config_file if args.config_file != "none" else None
+    )
+    config = update_config(config, config_from_kwargs(args.kwargs))
+    method = config.method.model_kwargs.get("method_name")
+    metric_fns, eval_metric_fns = {}, {}
+    vocab = None
+
+    if config.data.data_load == "file":
+        path = os.path.join(config.data.data_dir, config.data.data_file)
+        if not path.endswith((".pkl", ".pickle")):
+            raise not_ported(f"data_load 'file' for {path!r} (pickles only)",
+                             "Queue 1, slice 1, item 6")
+        with open(path, "rb") as f:
+            dataset = pickle.load(f)
+    elif config.data.data_load == "speechbci":
+        dataset = load_competition_data(**config.data)
+        if config["data"].get("vocab_file"):
+            vocab_file = resolve_path(config.data.vocab_file)
+            with open(vocab_file) as f:
+                vocab = json.load(f)
+            oov = "lts" if config["data"].get("allow_g2p_fallback") else str(
+                config["data"].get("g2p_oov", "warn")
+            )
+            dataset = create_phonemes_ctc_labels(dataset, vocab_file, oov=oov)
+        if config["data"].get("tokenizer_path"):
+            raise not_ported("LLM labels (data.tokenizer_path)", "Queue 1, slice 3, item 9")
+    elif config.data.data_load == "ibl":
+        raise not_ported("The IBL loader", "Queue 1, slice 2, item 8")
+    else:
+        raise ValueError(f"Unknown data_load {config.data.data_load!r}")
+
+    if method == "ctc":
+        if vocab is None:
+            print("CTC method without data.vocab_file: skipping the CER metric.", flush=True)
+        else:
+            metric_fns["CER"], eval_metric_fns["CER"] = make_cer_fns(
+                vocab, config.method.model_kwargs.blank_id
+            )
+    elif method in ("stat_behaviour", "dyn_behaviour", "endtoend"):
+        raise not_ported(f"The {method!r} method and its metrics", "Queue 1, slices 3-4")
+
+    if config.model.model_class == "NDT1":
+        config["model"]["encoder"]["embedder"]["n_channels"] = dataset["train"][0][
+            "spikes"
+        ].shape[1]
+    else:
+        raise not_ported(f"Model class {config.model.model_class!r}", "Queue 1, slices 3-4")
+
+    trainer = Trainer(
+        config, dataset=dataset, metric_fns=metric_fns or None,
+        eval_metric_fns=eval_metric_fns or None, device=args.device,
+    )
+    trainer.train()
+    return trainer
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("-c", "--config_file", type=str, default="none",
+                        help="File (.yaml) with configuration for training")
+    parser.add_argument("-k", "--kwargs", nargs="*", action=ParseKwargs)
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device (default: cuda; no card raises)")
+    return parser.parse_args(argv)
+
+
+if __name__ == "__main__":
+    main(parse_args())

@@ -1,0 +1,107 @@
+"""The port imports torch and never JAX.
+
+The check runs in a subprocess: this test process has JAX loaded already
+(``tests/conftest.py`` imports it). The subprocess forbids ``jax``, ``flax``
+and ``optax`` outright, imports every module of ``llm_bci_tpu_torch``, runs
+a tiny NDT1-CTC forward and backward on the CPU, and then checks that no
+JAX module was loaded."""
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "llm_bci_tpu_torch")
+
+SCRIPT = r'''
+import importlib, pkgutil, sys
+
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax")
+for name in list(sys.modules):
+    if name.split(".")[0] in BLOCKED:
+        del sys.modules[name]
+
+
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"the port must not import {name}")
+        return None
+
+
+sys.meta_path.insert(0, Block())
+
+import numpy as np
+import torch
+import llm_bci_tpu_torch
+
+for mod in pkgutil.walk_packages(llm_bci_tpu_torch.__path__, "llm_bci_tpu_torch."):
+    importlib.import_module(mod.name)
+
+from llm_bci_tpu_torch.models.ndt1 import NDT1
+
+cfg = {"encoder": {
+    "masker": {"neuron": {"active": False}},
+    "embedder": {"n_channels": 6, "input_dim": 8, "max_F": 64,
+                 "stack": {"active": True, "size": 4, "stride": 2}},
+    "transformer": {"n_layers": 1, "hidden_size": 16, "n_heads": 2, "inter_size": 16},
+}}
+model = NDT1.from_config(cfg, method_name="ctc", vocab_size=11)
+rng = np.random.default_rng(0)
+B, T = 2, 30
+out = model(
+    spikes=torch.from_numpy(rng.normal(size=(B, T, 6)).astype(np.float32)),
+    spikes_mask=torch.ones(B, T, dtype=torch.int64),
+    spikes_timestamp=torch.arange(T).expand(B, T),
+    spikes_lengths=torch.tensor([T, T - 5]),
+    targets=torch.tensor([[1, 2, 3], [4, 4, 0]]),
+    targets_lengths=torch.tensor([3, 2]),
+    generator=torch.Generator().manual_seed(0),
+)
+out.loss.backward()
+assert torch.isfinite(out.loss)
+assert all(p.grad is not None for p in model.parameters())
+assert tuple(out.preds.shape) == (B, 14, 11)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
+assert "jax" not in sys.modules
+print("PORT_OK")
+'''
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "PORT_OK" in proc.stdout
+
+
+def test_no_source_file_imports_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b", re.M)
+    offenders = []
+    for root, _, files in os.walk(PKG):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(root, name)
+                with open(path) as f:
+                    if pattern.search(f.read()):
+                        offenders.append(os.path.relpath(path, REPO))
+    assert not offenders, offenders
+
+
+def test_trainer_without_cuda_raises(monkeypatch):
+    from llm_bci_tpu.config import DictConfig
+    from llm_bci_tpu_torch.training.trainer import Trainer
+
+    # no card (this holds on a machine with one too)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(DictConfig({}), device=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(DictConfig({}), device="cuda")
