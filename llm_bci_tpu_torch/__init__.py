@@ -2,12 +2,16 @@
 
 The JAX package ``llm_bci_tpu`` stays the reference; this package mirrors
 its module layout and names so each counterpart is easy to find. It imports
-``torch`` and never ``jax``. Host-side code that imports no JAX is shared
-with the JAX package as it is: ``config``, ``data`` (datasets, speechbci
-loader, G2P), ``eval`` (CER/WER, CTC decoding) and ``native``.
+``torch`` and never ``jax``, and nothing of ``llm_bci_tpu``: host-side
+code that imports no JAX is kept here as a copy under the same relative
+name (``config``, ``registry``, ``data``: datasets, speechbci loader, G2P;
+``eval.eval_bci``: CER / WER; ``native``: the C edit distance).
 
 Slice 1 covers NDT1-CTC phoneme decoding trained on speechbci; the CTC
-loss runs through a hand-written CUDA kernel (``csrc/ctc.cu``).
+loss runs through hand-written CUDA kernels (``csrc/ctc.cu``). Slice 2
+covers NDT1 masked-spike pretraining (``mlm``) and the autoregressive
+method at the unstacked length; attention there runs through hand-written
+banded flash-attention kernels (``csrc/flash_attention.cu``).
 """
 
 

@@ -1,11 +1,15 @@
 """CLI train entry point of the port:
 ``python -m llm_bci_tpu_torch.main -c configs/trainer_ctc_ndt1.yaml -k a.b=1 ...``
+(NDT1-CTC on speechbci files) or ``-c configs/trainer_ssl_ndt1.yaml -k
+data.data_load=file ...`` (NDT1 masked-spike pretraining on a pickle
+``{split: [{"spikes": (T, N) float32, ...}]}``).
 
 The counterpart of the repo's ``main.py`` (which imports the JAX trainer):
 the same configs and dotted ``-k`` overrides, the ``file`` and
 ``speechbci`` datasets (G2P phoneme labels through ``data.vocab_file``),
-the CTC CER metric fns and ``n_channels`` inference for NDT1. The ``ibl``
-loader, the stat-behaviour and end-to-end metrics and the iTransformer /
+the CTC CER metric fns, ``method.model_kwargs`` (``method_name``, ``loss``,
+``log_input``) handed to the model, and ``n_channels`` inference for NDT1.
+The ``ibl`` loader, the stat-behaviour and end-to-end metrics and the iTransformer /
 PatchTST config surgery belong to later slices and raise
 ``NotImplementedError``. ``--device`` defaults to CUDA; the trainer raises
 when there is no card.
@@ -18,9 +22,9 @@ import os
 import pickle
 from typing import List, Optional
 
-from llm_bci_tpu.config import ParseKwargs, config_from_kwargs, resolve_path, update_config
-from llm_bci_tpu.data.speechbci import create_phonemes_ctc_labels, load_competition_data
-from llm_bci_tpu.eval.eval_bci import format_ctc, word_error_count
+from llm_bci_tpu_torch.config import ParseKwargs, config_from_kwargs, resolve_path, update_config
+from llm_bci_tpu_torch.data.speechbci import create_phonemes_ctc_labels, load_competition_data
+from llm_bci_tpu_torch.eval.eval_bci import format_ctc, word_error_count
 from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.training.trainer import Trainer, default_trainer_config
 
@@ -82,7 +86,7 @@ def main(args: argparse.Namespace) -> Trainer:
         if config["data"].get("tokenizer_path"):
             raise not_ported("LLM labels (data.tokenizer_path)", "Queue 1, slice 3, item 9")
     elif config.data.data_load == "ibl":
-        raise not_ported("The IBL loader", "Queue 1, slice 2, item 8")
+        raise not_ported("The IBL loader (data/ibl.py)", "Queue 1, slice 3")
     else:
         raise ValueError(f"Unknown data_load {config.data.data_load!r}")
 

@@ -1,0 +1,242 @@
+"""Banded flash attention through the hand-written CUDA kernels of
+``csrc/flash_attention.cu``.
+
+Replaces the Pallas TPU kernels of ``llm_bci_tpu/ops/flash_attention.py``
+(``_fwd_kernel`` via ``_flash_fwd``, ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` via ``_flash_bwd``, and the custom VJP ``_flash_core``).
+The forward kernel writes ``out`` and ``lse``; the backward recomputes the
+probabilities from ``lse`` in two kernels, one owning query tiles (dQ) and
+one owning key tiles (dK, dV; no atomics), with ``delta = rowsum(dO * O)``
+taken here as a plain tensor expression. See the ``.cu`` file for the
+design and what bounds it.
+
+The kernels read the public ``(B, T, H, D)`` layout directly and take head
+sizes 32, 64 and 128; any other ``D`` is zero-padded here to the next of
+those (the logits do not change: ``scale`` comes from the true ``D``), and a
+``D`` above 128 raises. bf16 and float32 are taken, any ``T``. The wrapper
+checks device, dtype, shape and contiguity and raises on the rest; there is
+no fallback to the plain version. ``FWD_LAUNCHES``, ``BWD_DQ_LAUNCHES`` and
+``BWD_DKV_LAUNCHES`` count the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from llm_bci_tpu_torch.ops import _build
+from llm_bci_tpu_torch.ops.flash_attention import _band_bounds, dropout_threshold
+
+FWD_LAUNCHES = 0
+BWD_DQ_LAUNCHES = 0
+BWD_DKV_LAUNCHES = 0
+
+HEAD_SIZES = (32, 64, 128)
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("flash_attention")
+        p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+        tail = [i, i, i, i, i, i, i, f, u, f, i, p]   # B T H D bf16 fwd bwd scale thresh inv use stream
+        lib.flash_fwd_launch.argtypes = [p, p, p, p, p, p, p] + tail
+        lib.flash_dq_launch.argtypes = [p, p, p, p, p, p, p, p, p] + tail
+        lib.flash_dkv_launch.argtypes = [p, p, p, p, p, p, p, p, p, p] + tail
+        for fn in (lib.flash_fwd_launch, lib.flash_dq_launch, lib.flash_dkv_launch):
+            fn.restype = i
+        _LIB = lib
+    return _LIB
+
+
+def reset_counters() -> None:
+    global FWD_LAUNCHES, BWD_DQ_LAUNCHES, BWD_DKV_LAUNCHES
+    FWD_LAUNCHES = 0
+    BWD_DQ_LAUNCHES = 0
+    BWD_DKV_LAUNCHES = 0
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"flash kernel: {name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"flash kernel: {name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"flash kernel: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"flash kernel: {name} must be contiguous")
+
+
+def _raise_if_failed(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"flash kernel: {what} launch failed with CUDA error {rc}")
+
+
+def kernel_meta(q: torch.Tensor, fwd: int, bwd: int, scale: float, drop_p: float) -> tuple:
+    """The scalar arguments shared by the three launchers: B, T, H, D,
+    is_bf16, band widths, scale, the keep threshold, 1 / (1 - p), use_drop."""
+    B, T, H, D = q.shape
+    return (
+        B, T, H, D, int(q.dtype == torch.bfloat16), int(fwd), int(bwd), float(scale),
+        dropout_threshold(drop_p) if drop_p > 0.0 else 0,
+        1.0 / (1.0 - drop_p) if drop_p > 0.0 else 1.0, int(drop_p > 0.0),
+    )
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """``out = attention(q, k, v)`` under the band + key-padding mask.
+
+    Takes contiguous ``(B, T, H, D)`` tensors of one dtype (bf16 or float32)
+    on one CUDA device with ``D`` in ``HEAD_SIZES``, ``key_valid`` ``(B, T)``
+    int32 or ``None``, ``seed`` a one-element int32 tensor on the device or
+    ``None`` (no dropout). ``scale`` is passed in because ``D`` may be padded."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, q, k, v, key_valid, seed, fwd: int, bwd: int, scale: float,
+                drop_p: float):
+        device = q.device
+        if device.type != "cuda":
+            raise ValueError(f"flash kernel: q is on {device}, expected a CUDA device")
+        if q.dtype not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"flash kernel: dtype {q.dtype} not taken (bfloat16, float32)")
+        if q.dim() != 4:
+            raise ValueError("flash kernel: expected q, k, v of shape (B, T, H, D)")
+        B, T, H, D = q.shape
+        if D not in HEAD_SIZES:
+            raise ValueError(f"flash kernel: head size {D} not in {HEAD_SIZES}")
+        if B < 1 or T < 1 or H < 1:
+            raise ValueError(f"flash kernel: empty input {tuple(q.shape)}")
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check(t, name, q.dtype, (B, T, H, D), device)
+        if key_valid is not None:
+            _check(key_valid, "key_valid", torch.int32, (B, T), device)
+        use_drop = drop_p > 0.0 and seed is not None
+        if use_drop:
+            _check(seed, "seed", torch.int32, (1,), device)
+        if not (0 <= fwd <= T and 0 <= bwd <= T):
+            raise ValueError(f"flash kernel: band widths ({fwd}, {bwd}) outside [0, {T}]")
+        ctx.meta = kernel_meta(q, fwd, bwd, scale, drop_p if use_drop else 0.0)
+        out, lse = flash_fwd(q, k, v, key_valid, seed if use_drop else None, ctx.meta)
+        ctx.has_valid, ctx.has_seed = key_valid is not None, use_drop
+        saved = [q, k, v, out, lse]
+        saved += [key_valid] if ctx.has_valid else []
+        saved += [seed] if ctx.has_seed else []
+        ctx.save_for_backward(*saved)
+        return out
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dout):
+        q, k, v, out, lse, *rest = ctx.saved_tensors
+        key_valid = rest.pop(0) if ctx.has_valid else None
+        seed = rest.pop(0) if ctx.has_seed else None
+        B, T, H, D = ctx.meta[:4]
+        dout = dout.to(q.dtype).contiguous()   # arrives strided after a transpose
+        _check(dout, "dout", q.dtype, (B, T, H, D), q.device)
+        # delta = rowsum(dO * O) in float32, in the (B, H, T) layout of lse
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = flash_dq(q, k, v, key_valid, seed, dout, lse, delta, ctx.meta)
+        dk, dv = flash_dkv(q, k, v, key_valid, seed, dout, lse, delta, ctx.meta)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_fwd(q, k, v, key_valid, seed, meta):
+    """Launches the forward kernel on tensors :class:`FlashAttentionFunction`
+    has checked; ``meta`` is :func:`kernel_meta`'s tuple. Returns ``out``
+    and ``lse`` ``(B, H, T)`` float32."""
+    global FWD_LAUNCHES
+    B, T, H, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        rc = _lib().flash_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            key_valid.data_ptr() if key_valid is not None else None,
+            seed.data_ptr() if seed is not None else None,
+            out.data_ptr(), lse.data_ptr(), *meta, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, "forward")
+    FWD_LAUNCHES += 1
+    return out, lse
+
+
+def _backward_args(q, k, v, key_valid, seed, dout, lse, delta):
+    return (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        key_valid.data_ptr() if key_valid is not None else None,
+        seed.data_ptr() if seed is not None else None,
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+    )
+
+
+def flash_dq(q, k, v, key_valid, seed, dout, lse, delta, meta) -> torch.Tensor:
+    """Launches the dQ kernel; see :func:`flash_fwd`."""
+    global BWD_DQ_LAUNCHES
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = _lib().flash_dq_launch(
+            *_backward_args(q, k, v, key_valid, seed, dout, lse, delta), dq.data_ptr(), *meta,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, "dQ")
+    BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def flash_dkv(q, k, v, key_valid, seed, dout, lse, delta, meta):
+    """Launches the dK/dV kernel; see :func:`flash_fwd`."""
+    global BWD_DKV_LAUNCHES
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        rc = _lib().flash_dkv_launch(
+            *_backward_args(q, k, v, key_valid, seed, dout, lse, delta), dk.data_ptr(),
+            dv.data_ptr(), *meta, torch.cuda.current_stream().cuda_stream,
+        )
+    _raise_if_failed(rc, "dK/dV")
+    BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def banded_flash_attention_cuda(
+    q: torch.Tensor,                           # (B, T, H, D), CUDA
+    k: torch.Tensor,
+    v: torch.Tensor,
+    key_valid: Optional[torch.Tensor] = None,  # (B, T)
+    context_forward: Optional[int] = None,
+    context_backward: Optional[int] = None,
+    dropout_rate: float = 0.0,
+    seed: Union[None, int, torch.Tensor] = None,
+) -> torch.Tensor:
+    """Brings the arguments to what the kernels take (contiguous, one dtype,
+    int32 ``key_valid``, a one-element int32 seed tensor, ``D`` zero-padded to
+    32 / 64 / 128) and applies :class:`FlashAttentionFunction`."""
+    B, T, H, D = q.shape
+    if D > HEAD_SIZES[-1]:
+        raise ValueError(f"flash kernel: head size {D} > {HEAD_SIZES[-1]} is not taken")
+    fwd, bwd = _band_bounds(context_forward, context_backward, T)
+    if fwd < 0 or bwd < 0:
+        raise ValueError(f"flash kernel: negative band widths ({fwd}, {bwd})")
+    scale = 1.0 / math.sqrt(D)
+    Dp = next(s for s in HEAD_SIZES if s >= D)
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    if Dp != D:
+        q, k, v = (F.pad(x, (0, Dp - D)) for x in (q, k, v))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if key_valid is not None:
+        key_valid = (key_valid != 0).to(torch.int32).contiguous()
+    drop_p = float(dropout_rate)
+    if drop_p > 0.0 and seed is not None:
+        if not torch.is_tensor(seed):
+            seed = torch.tensor([int(seed)], dtype=torch.int32, device=q.device)
+        seed = seed.to(device=q.device, dtype=torch.int32).reshape(1).contiguous()
+    else:
+        seed, drop_p = None, 0.0
+    out = FlashAttentionFunction.apply(q, k, v, key_valid, seed, fwd, bwd, scale, drop_p)
+    return out[..., :D] if Dp != D else out

@@ -11,8 +11,8 @@ itself — the sum over the batch, not a mean.
 
 Changed for PyTorch: the jitted step is an eager step under
 ``torch.autocast`` with ``precision.compute_dtype`` (float32 master
-weights); dropout and noise draw from one ``torch.Generator`` seeded from
-``config.seed``; a checkpoint is the model's and the optimizer's
+weights); dropout, noise and maskers draw from one ``torch.Generator`` on
+the device, seeded from ``config.seed`` and advanced by every step; a checkpoint is the model's and the optimizer's
 ``state_dict`` plus ``trainer_config.yaml`` under ``STEP{n}/``. Metric fns
 are read back every step (no lag).
 
@@ -34,10 +34,10 @@ import numpy as np
 import torch
 import yaml
 
-from llm_bci_tpu.config import DictConfig, resolve_path, to_plain_dict, update_config
-from llm_bci_tpu.data.datasets import pad_collate_fn
+from llm_bci_tpu_torch.config import DictConfig, resolve_path, to_plain_dict, update_config
+from llm_bci_tpu_torch.data.datasets import pad_collate_fn
 from llm_bci_tpu_torch import not_ported
-import llm_bci_tpu.data  # noqa: F401  (fills NAME2DATASET)
+import llm_bci_tpu_torch.data  # noqa: F401  (fills NAME2DATASET)
 from llm_bci_tpu_torch.registry import NAME2DATASET, NAME2MODEL
 import llm_bci_tpu_torch.models  # noqa: F401  (fills NAME2MODEL)
 from llm_bci_tpu_torch.training.dataloader import HostDataLoader, freeze_pad_lengths
@@ -138,7 +138,7 @@ class Trainer:
         """Batch columns that go to the model: the parameters of its
         ``forward``."""
         sig = inspect.signature(type(self.model).forward)
-        skip = {"self", "generator"}
+        skip = {"self", "generator", "masker_overrides"}
         self.model_inputs = [p for p in sig.parameters if p not in skip]
 
     def build_dataloaders(self) -> None:

@@ -1,0 +1,215 @@
+"""Banded flash attention of the port against the JAX package, on the CPU.
+
+The JAX side is ``llm_bci_tpu.ops.flash_attention.banded_flash_attention``
+with its Pallas kernels in interpret mode, as ``tests/test_flash_attention.py``
+runs it. The port side is the plain version of its CUDA kernels, reached
+through the public function on CPU tensors. The same numpy inputs go to
+both, in float32.
+
+Tolerances: forward atol 2e-5 (that file's own, float32 sums in another
+order); gradients atol/rtol 1e-4 with a loss weighted by O(1) normal draws
+(tighter than that file's 1e-3, which covers its weights up to ~1500); the
+keep mask bit for bit.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_bci_tpu.ops import flash_attention as jfa
+from llm_bci_tpu_torch.ops import flash_attention as tfa
+from tests.test_flash_attention import _np_keep_mask
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode():
+    jfa.set_interpret_mode(True)
+    yield
+    jfa.set_interpret_mode(False)
+
+
+def make_inputs(B=2, T=24, H=2, D=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(3))
+
+
+def padding(kind, B, T):
+    valid = np.ones((B, T), np.int32)
+    if kind == "right":
+        valid[0, T - 6:] = 0
+        valid[1, T - 1:] = 0
+    elif kind == "left":
+        valid[0, :6] = 0
+        valid[1, :11] = 0
+    elif kind == "dead":          # one example with no valid key at all
+        valid[0, :] = 0
+        valid[1, :3] = 0
+    return valid
+
+
+def jax_out(q, k, v, valid, fwd, bwd, **kw):
+    return np.asarray(jfa.banded_flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        None if valid is None else jnp.asarray(valid),
+        context_forward=fwd, context_backward=bwd, block_q=8, block_k=8, **kw))
+
+
+def port_out(q, k, v, valid, fwd, bwd, **kw):
+    t = torch.from_numpy
+    return tfa.banded_flash_attention(
+        t(q), t(k), t(v), None if valid is None else t(valid),
+        context_forward=fwd, context_backward=bwd, **kw).numpy()
+
+
+BANDS = [(None, None), (0, None), (3, 5), (0, 0)]
+
+
+@pytest.mark.parametrize("fwd,bwd", BANDS)
+@pytest.mark.parametrize("pad", ["none", "right", "left"])
+def test_forward_matches_jax_kernel(fwd, bwd, pad):
+    q, k, v = make_inputs()
+    valid = padding(pad, *q.shape[:2])
+    np.testing.assert_allclose(port_out(q, k, v, valid, fwd, bwd),
+                               jax_out(q, k, v, valid, fwd, bwd), atol=2e-5)
+
+
+def test_key_valid_none_is_all_valid():
+    q, k, v = make_inputs(T=16)
+    np.testing.assert_allclose(port_out(q, k, v, None, 2, 2),
+                               jax_out(q, k, v, None, 2, 2), atol=2e-5)
+
+
+def test_dead_rows_are_exactly_zero():
+    q, k, v = make_inputs(T=16)
+    valid = padding("dead", 2, 16)
+    out = port_out(q, k, v, valid, None, None)
+    assert (out[0] == 0.0).all()
+    np.testing.assert_allclose(out, jax_out(q, k, v, valid, None, None), atol=2e-5)
+    # left padding under a causal band narrower than the padding: the first
+    # valid queries see keys, the padded ones see none
+    valid = padding("left", 2, 16)
+    out = port_out(q, k, v, valid, 0, 2)
+    assert (out[1, :11] == 0.0).all() and np.abs(out[1, 11:]).min() > 0.0
+    np.testing.assert_allclose(out, jax_out(q, k, v, valid, 0, 2), atol=2e-5)
+
+
+def test_odd_length_and_head_dim():
+    q, k, v = make_inputs(T=13, D=5)
+    valid = np.ones((2, 13), np.int32)
+    np.testing.assert_allclose(port_out(q, k, v, valid, None, None),
+                               jax_out(q, k, v, valid, None, None), atol=2e-5)
+
+
+def grads(q, k, v, valid, fwd, bwd, w, jax_kw, port_kw):
+    def jloss(q, k, v):
+        out = jfa.banded_flash_attention(
+            q, k, v, jnp.asarray(valid), context_forward=fwd, context_backward=bwd,
+            block_q=8, block_k=8, **jax_kw)
+        return jnp.sum(out * jnp.asarray(w))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = tfa.banded_flash_attention(tq, tk, tv, torch.from_numpy(valid), context_forward=fwd,
+                                     context_backward=bwd, **port_kw)
+    (out * torch.from_numpy(w)).sum().backward()
+    return [np.asarray(g) for g in jg], [x.grad.numpy() for x in (tq, tk, tv)]
+
+
+@pytest.mark.parametrize("pad", ["right", "left", "dead"])
+@pytest.mark.parametrize("fwd,bwd", [(4, 6), (None, None), (0, None)])
+def test_gradients_match_jax_kernels(fwd, bwd, pad):
+    q, k, v = make_inputs(T=16, D=8)
+    valid = padding(pad, 2, 16)
+    w = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    jg, tg = grads(q, k, v, valid, fwd, bwd, w, {}, {})
+    for name, a, b in zip("qkv", tg, jg):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
+    if pad == "dead":
+        assert all((g[0] == 0.0).all() for g in tg)
+
+
+# ---------------------------------------------------------------- dropout
+
+@pytest.mark.parametrize("drop_p", [0.4, 0.05, 0.999])
+@pytest.mark.parametrize("seed", [0, 12345, 2**31 - 2])
+def test_keep_mask_equals_jax_bit_for_bit(seed, drop_p):
+    BH, T = 6, 37
+    pos = np.arange(T)
+    ref = np.asarray(jfa._keep_mask(
+        jnp.uint32(seed), jnp.arange(BH, dtype=jnp.int32)[:, None, None],
+        jnp.asarray(pos, jnp.int32)[None, :, None], jnp.asarray(pos, jnp.int32)[None, None, :],
+        drop_p))
+    tpos = torch.arange(T)
+    ours = tfa.keep_mask(seed, torch.arange(BH)[:, None, None], tpos[None, :, None],
+                         tpos[None, None, :], drop_p).numpy()
+    np.testing.assert_array_equal(ours, ref)
+    np.testing.assert_array_equal(ours, _np_keep_mask(seed, BH, T, drop_p))
+    # a seed tensor, as the CUDA wrapper keeps it, gives the same mask
+    again = tfa.keep_mask(torch.tensor([seed], dtype=torch.int32), torch.arange(BH)[:, None, None],
+                          tpos[None, :, None], tpos[None, None, :], drop_p).numpy()
+    np.testing.assert_array_equal(again, ours)
+
+
+def jax_seed(rng):
+    """The seed the JAX wrapper draws from its key."""
+    return int(jax.random.randint(rng, (1,), 0, np.iinfo(np.int32).max, jnp.int32)[0])
+
+
+@pytest.mark.parametrize("fwd,bwd", [(None, None), (3, 5)])
+def test_dropout_forward_matches_jax_kernel(fwd, bwd):
+    q, k, v = make_inputs(T=16)
+    valid = padding("left", 2, 16)
+    rng = jax.random.PRNGKey(11)
+    ref = jax_out(q, k, v, valid, fwd, bwd, dropout_rate=0.4, dropout_rng=rng)
+    out = port_out(q, k, v, valid, fwd, bwd, dropout_rate=0.4, seed=jax_seed(rng))
+    np.testing.assert_allclose(out, ref, atol=3e-5)
+    assert np.abs(out - port_out(q, k, v, valid, fwd, bwd)).max() > 1e-3
+
+
+def test_dropout_gradients_match_jax_kernels():
+    q, k, v = make_inputs(T=16, seed=3)
+    valid = padding("right", 2, 16)
+    rng = jax.random.PRNGKey(5)
+    w = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    jg, tg = grads(q, k, v, valid, 3, 5, w, dict(dropout_rate=0.3, dropout_rng=rng),
+                   dict(dropout_rate=0.3, seed=jax_seed(rng)))
+    for name, a, b in zip("qkv", tg, jg):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4, err_msg=f"d{name}")
+
+
+def test_dropout_from_a_generator():
+    q, k, v = (torch.from_numpy(x) for x in make_inputs(T=16))
+    run = lambda s: tfa.banded_flash_attention(
+        q, k, v, dropout_rate=0.4, generator=torch.Generator().manual_seed(s))
+    assert torch.equal(run(0), run(0))
+    assert not torch.equal(run(0), run(1))
+    # a rate with neither generator nor seed drops nothing, as in the JAX package
+    assert torch.equal(tfa.banded_flash_attention(q, k, v, dropout_rate=0.4),
+                       tfa.banded_flash_attention(q, k, v))
+    keep = tfa.keep_mask(7, torch.arange(64)[:, None, None], torch.arange(128)[None, :, None],
+                         torch.arange(128)[None, None, :], 0.4)
+    assert abs(keep.float().mean().item() - 0.6) < 0.01
+
+
+def test_flash_attention_generic_entry():
+    q, k, v = make_inputs(T=16)
+    for causal in (False, True):
+        ref = np.asarray(jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                             is_causal=causal))
+        out = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)), is_causal=causal)
+        np.testing.assert_allclose(out.numpy(), ref, atol=2e-5)
+    with pytest.raises(NotImplementedError):
+        tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                            mask=torch.ones(16, 16, dtype=torch.bool))
+
+
+def test_shape_checks_and_cuda_wrapper_refuses_cpu_tensors():
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+    q, k, v = (torch.from_numpy(x) for x in make_inputs(T=8, D=32))
+    with pytest.raises(ValueError, match="no GQA"):
+        tfa.banded_flash_attention(q, k[:, :, :1], v[:, :, :1])
+    with pytest.raises(ValueError, match="CUDA"):
+        fc.banded_flash_attention_cuda(q, k, v)
+    assert fc._LIB is None and (fc.FWD_LAUNCHES, fc.BWD_DQ_LAUNCHES, fc.BWD_DKV_LAUNCHES) == (0, 0, 0)

@@ -1,10 +1,12 @@
-"""The port imports torch and never JAX.
+"""The port imports torch, never JAX and nothing of the JAX package.
 
 The check runs in a subprocess: this test process has JAX loaded already
-(``tests/conftest.py`` imports it). The subprocess forbids ``jax``, ``flax``
-and ``optax`` outright, imports every module of ``llm_bci_tpu_torch``, runs
-a tiny NDT1-CTC forward and backward on the CPU, and then checks that no
-JAX module was loaded."""
+(``tests/conftest.py`` imports it). The subprocess forbids ``jax``, ``flax``,
+``optax``, ``orbax``, ``triton`` and the exact top-level name ``llm_bci_tpu``
+outright, imports every module of ``llm_bci_tpu_torch``, runs a tiny
+NDT1-CTC and a tiny NDT1-mlm forward and backward on the CPU (the latter
+through the flash branch), and then checks that none of those was loaded
+and that no kernel was built."""
 import os
 import re
 import subprocess
@@ -17,9 +19,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "llm_bci_tpu_torch")
 
 SCRIPT = r'''
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "llm_bci_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -39,7 +41,9 @@ import torch
 import llm_bci_tpu_torch
 
 for mod in pkgutil.walk_packages(llm_bci_tpu_torch.__path__, "llm_bci_tpu_torch."):
-    importlib.import_module(mod.name)
+    # native/_editdistance.so is a ctypes library built at first use, not a module
+    if importlib.util.find_spec(mod.name).origin.endswith(".py"):
+        importlib.import_module(mod.name)
 
 from llm_bci_tpu_torch.models.ndt1 import NDT1
 
@@ -65,6 +69,32 @@ out.loss.backward()
 assert torch.isfinite(out.loss)
 assert all(p.grad is not None for p in model.parameters())
 assert tuple(out.preds.shape) == (B, 14, 11)
+
+# NDT1-mlm through the flash branch (the plain version of the kernels here)
+cfg = {"encoder": {
+    "masker": {"neuron": {"active": True, "mode": "random", "ratio": 0.3}},
+    "embedder": {"n_channels": 6, "input_dim": 8, "max_F": 64, "stack": {"active": False}},
+    "transformer": {"n_layers": 1, "hidden_size": 16, "n_heads": 2, "inter_size": 16,
+                    "flash_attention": True},
+}}
+model = NDT1.from_config(cfg, method_name="mlm")
+assert model.encoder._use_flash_now(T)
+mask = torch.ones(B, T, dtype=torch.int64)
+mask[1, :7] = 0
+out = model(
+    spikes=torch.from_numpy(rng.poisson(1.0, size=(B, T, 6)).astype(np.float32)),
+    spikes_mask=mask,
+    spikes_timestamp=torch.arange(T).expand(B, T),
+    spikes_lengths=torch.tensor([T, T - 7]),
+    generator=torch.Generator().manual_seed(0),
+)
+out.loss.backward()
+assert torch.isfinite(out.loss) and int(out.n_examples) > 0
+assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+
+# importing the CUDA wrappers built and loaded nothing
+from llm_bci_tpu_torch.ops import _build, ctc_cuda, flash_attention_cuda
+assert flash_attention_cuda._LIB is None and ctc_cuda._LIB is None and not _build._LOADED
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 assert "jax" not in sys.modules
@@ -82,21 +112,43 @@ def test_port_runs_without_jax():
     assert "PORT_OK" in proc.stdout
 
 
-def test_no_source_file_imports_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b", re.M)
-    offenders = []
+IMPORT_PATTERN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|llm_bci_tpu)(\.|\s|$)", re.M)
+
+
+def port_sources():
+    yield os.path.join(REPO, "chip_smoke.py")
     for root, _, files in os.walk(PKG):
         for name in files:
             if name.endswith(".py"):
-                path = os.path.join(root, name)
-                with open(path) as f:
-                    if pattern.search(f.read()):
-                        offenders.append(os.path.relpath(path, REPO))
+                yield os.path.join(root, name)
+
+
+def test_no_source_file_imports_jax():
+    offenders = []
+    for path in port_sources():
+        with open(path) as f:
+            if IMPORT_PATTERN.search(f.read()):
+                offenders.append(os.path.relpath(path, REPO))
     assert not offenders, offenders
 
 
+@pytest.mark.parametrize("line,caught", [
+    ("from llm_bci_tpu.config import DictConfig", True),
+    ("    import llm_bci_tpu.data  # noqa", True),
+    ("import llm_bci_tpu", True),
+    ("from llm_bci_tpu import registry", True),
+    ("import jax.numpy as jnp", True),
+    ("from llm_bci_tpu_torch.config import DictConfig", False),
+    ("import llm_bci_tpu_torch.data", False),
+    ("# from llm_bci_tpu.config import x", False),
+])
+def test_import_pattern_catches_the_jax_package(line, caught):
+    assert bool(IMPORT_PATTERN.search("import os\n" + line + "\n")) == caught
+
+
 def test_trainer_without_cuda_raises(monkeypatch):
-    from llm_bci_tpu.config import DictConfig
+    from llm_bci_tpu_torch.config import DictConfig
     from llm_bci_tpu_torch.training.trainer import Trainer
 
     # no card (this holds on a machine with one too)
