@@ -43,11 +43,35 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    width and depth (5 x 1024, 8 heads, D=128, B=32, T=1024, bf16 autocast,
    ``random`` masker ratio 0.3, left padding, ``flash_attention: auto``):
    4 training steps and one eval. The launch counters must show 5 forward
-   launches a model call and 5 of each backward kernel a training step.
+   launches a model call and 5 of each backward kernel a training step;
+7. kernels: the int8 dequant-matmul kernels against ``int8_matmul_plain`` on
+   the card: float32 ``x`` at small and ragged M, K, N (rtol 1e-4, atol
+   1e-4 x max|out|); bf16 ``x`` at the eight Llama-2-7B shapes x M in {8,
+   40, 1480} against the plain version in float32 of the same bf16 inputs
+   (rtol 2^-8: one bf16 rounding of the output; atol 1e-4 x max|out|: the
+   order of the float32 sums); codes of +-127 with zero scale columns; ``dx``
+   through the autograd Function; same input twice, same bits; then times
+   at M = 8 and M = 1480 beside the bound, the plain version, convert +
+   ``torch.matmul`` and ``torch.matmul`` on a bf16 copy of the weight
+   (``library_ms``; the port never calls it so);
+8. main path (BCI serving): ``BCI`` (NDT1 trunk 5 x 1024 -> projector ->
+   Llama with LoRA r=8 on all seven projections) at the Llama-2-7B widths,
+   32 layers, int8 base, seeded random weights, B=8, 512 bins x 256
+   channels, prompt of 185 tokens: ``generate`` greedy (32 new tokens) and
+   diverse beam (5 groups). Every int8 product must have launched the
+   kernel (225 a model call); a 2-layer copy of the model is first held
+   against the same model with the plain product on the card. The same
+   greedy decode on a bf16 base is timed beside it;
+9. main path (BCI fine-tune): the same model through the port's ``Trainer``
+   with ``configs/trainer_bci.yaml`` on pre-tokenized synthetic trials: 4
+   steps and one eval; finite losses, only LoRA / encoder / projector
+   leaves change, the frozen leaves keep their bits, 225 launches a forward
+   and none in the backward.
 
-``--only ctc|flash|ctc-main|mlm-main`` runs one phase (for development);
-``--profile PATH`` adds a ``torch.profiler`` table of the mlm train step,
-written to ``PATH``.
+``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train`` runs one
+phase (for development); ``--profile PATH`` adds ``torch.profiler`` tables
+of the mlm train step (written to ``PATH``) and of the BCI greedy decode
+and fine-tune step (appended to ``PATH``).
 
 The second-to-last line is a JSON object with the kernels' launches,
 errors and times; the last line is
@@ -56,6 +80,7 @@ errors and times; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -480,6 +505,527 @@ def flash_kernel_phase(results: dict) -> None:
         f"{ts['plain_fwd']:.3f} ms, plain backward {ts['plain_dq'] + ts['plain_dkv']:.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# Int8 dequant-matmul kernels
+# ---------------------------------------------------------------------------
+
+# (K, N) of the frozen Llama-2-7B base: q/k/v/o, gate/up, down, lm_head.
+INT8_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+INT8_MS = (8, 40, 1480)          # greedy step, 5 beams, prefill / fine-tune
+
+
+def int8_inputs(M, K, N, dtype, device, seed=0):
+    """x ~ N(0, 1), codes uniform in [-127, 127], scales around 0.02 * 4 / 127."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=device, dtype=torch.float32).to(dtype)
+    q = torch.randint(-127, 128, (K, N), generator=g, device=device, dtype=torch.int8)
+    scale = (0.5 + torch.rand((N,), generator=g, device=device)) * (0.02 * 4.0 / 127.0)
+    return x, q, scale
+
+
+def int8_kernel_phase(results: dict, power_line: str) -> None:
+    import torch
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+    from llm_bci_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+
+    def reference(x, q, scale):
+        """The plain version in float32 on the same inputs."""
+        return quant.int8_matmul_plain(x.float(), q, scale, torch.float32)
+
+    # float32 x: small and ragged M, small K / N (multiples of 16, not of the
+    # tiles). rtol 1e-4 and atol 1e-4 * max|out|: float32 sums in another order.
+    for M, K, N in [(1, 32, 32), (8, 48, 80), (40, 1024, 272), (185, 160, 4096),
+                    (70, 4096, 144)]:
+        x, q, scale = int8_inputs(M, K, N, torch.float32, dev, seed=M)
+        got = quant.int8_matmul(x, q, scale)
+        ref = reference(x, q, scale)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item(),
+                                   msg=lambda m: f"int8 float32 M={M} K={K} N={N}: {m}")
+        say("int8", f"float32 M={M} K={K} N={N} plan={ic.plan(M, K, N, False)}: "
+            f"max|err| {err:.2e} (max|out| {ref.abs().max().item():.2e})")
+
+    # bf16 x at the main-path shapes, against the plain version in float32 of
+    # the same bf16 inputs. rtol 2^-8: one bf16 rounding of the output (half
+    # an ulp is 2^-9 of the value); atol 1e-4 * max|out|: float32 sums in
+    # another order, which matter where the sum cancels to near zero.
+    worst = {"small": 0.0, "tiled": 0.0}
+    for K, N in INT8_SHAPES:
+        for M in INT8_MS:
+            x, q, scale = int8_inputs(M, K, N, torch.bfloat16, dev, seed=M + K)
+            got = quant.int8_matmul(x, q, scale).float()
+            ref = reference(x, q, scale)
+            torch.cuda.synchronize()
+            top = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            torch.testing.assert_close(got, ref, rtol=2.0 ** -8, atol=1e-4 * top,
+                                       msg=lambda m: f"int8 bf16 M={M} K={K} N={N}: {m}")
+            again = quant.int8_matmul(x, q, scale).float()
+            if not torch.equal(got, again):
+                raise AssertionError(f"int8 bf16 M={M} K={K} N={N}: same input, different bits")
+            key = "small" if M <= ic.SMALL_M else "tiled"
+            worst[key] = max(worst[key], err)
+            say("int8", f"bf16 M={M} K={K} N={N} plan={ic.plan(M, K, N, True)}: max|err| "
+                f"{err:.3e} of max|out| {top:.3e}; same bits twice")
+            del got, ref, again
+    # float32 output from bf16 x (the kernel's other store path)
+    x, q, scale = int8_inputs(40, 4096, 4096, torch.bfloat16, dev, seed=5)
+    got = quant.int8_matmul(x, q, scale, out_dtype=torch.float32)
+    ref = reference(x, q, scale)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+
+    # Codes of +-127 only, and a scale column of zeros: exactly 0 there.
+    for M in (8, 185):
+        x, q, scale = int8_inputs(M, 4096, 4096, torch.bfloat16, dev, seed=9)
+        q = torch.where(q >= 0, torch.full_like(q, 127), torch.full_like(q, -127))
+        scale[::7] = 0.0
+        got = quant.int8_matmul(x, q, scale).float()
+        ref = reference(x, q, scale)
+        torch.testing.assert_close(got, ref, rtol=2.0 ** -8, atol=1e-4 * ref.abs().max().item())
+        if got[:, ::7].abs().max().item() != 0.0 or not torch.isfinite(got).all():
+            raise AssertionError("int8: a zero scale column is not exactly 0")
+    say("int8", "codes of +-127 with zero scale columns: agree, zero columns exactly 0")
+
+    # dx through the Function against autograd of the plain version.
+    for dtype, M, K, N, rtol in ((torch.float32, 40, 256, 512, 1e-4),
+                                 (torch.bfloat16, 1480, 4096, 11008, 2.0 ** -7)):
+        x, q, scale = int8_inputs(M, K, N, dtype, dev, seed=3)
+        w = torch.randn((M, N), device=dev, dtype=torch.float32)
+        grads = []
+        for fn in (quant.int8_matmul, quant.int8_matmul_plain):
+            xi = x.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad((fn(xi, q, scale).float() * w).sum(), xi)
+            grads.append(g.float())
+        torch.testing.assert_close(grads[0], grads[1], rtol=rtol,
+                                   atol=rtol * grads[1].abs().max().item())
+        say("int8", f"dx {str(dtype).split('.')[-1]} M={M} K={K} N={N}: max|err| "
+            f"{(grads[0] - grads[1]).abs().max().item():.3e} of max "
+            f"{grads[1].abs().max().item():.3e}")
+    # Times. Each call reads another copy of the weight, from a ring larger
+    # than the 50 MB L2, as a model's layers do.
+    def ring(t, total=128e6):
+        return [t.clone() for _ in range(max(2, int(total // (t.numel() * t.element_size())) + 1))]
+
+    for K, N in INT8_SHAPES:
+        for M in (8, 1480):
+            x, q, scale = int8_inputs(M, K, N, torch.bfloat16, dev, seed=1)
+            qs, ws = ring(q), ring(q.to(torch.bfloat16))
+            state = {"i": 0}
+
+            def nxt(pool):
+                state["i"] += 1
+                return pool[state["i"] % len(pool)]
+
+            reps = 50 if M == 8 else 10
+            with torch.no_grad():
+                t_kernel = cuda_ms(lambda: ic.int8_matmul_cuda(x, nxt(qs), scale, torch.bfloat16),
+                                   reps)
+                t_plain = cuda_ms(lambda: quant.int8_matmul_plain(x, nxt(qs), scale), reps)
+                t_convert = cuda_ms(lambda: torch.matmul(x, nxt(qs).to(torch.bfloat16)), reps)
+                t_lib = cuda_ms(lambda: torch.matmul(x, nxt(ws)), reps)
+            b = bound(2.0 * M * K * N, M * K * 2 + K * N + N * 4 + M * N * 2, "bfloat16")
+            say("int8", f"M={M} K={K} N={N} bf16: kernel {t_kernel:.4f} ms, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}), plain {t_plain:.4f} ms, convert + "
+                f"matmul {t_convert:.4f} ms, matmul on a bf16 weight {t_lib:.4f} ms; "
+                f"card {power_line}")
+            if (K, N) == (4096, 11008):
+                name = "int8_matmul_small_m" if M == 8 else "int8_matmul_tiled"
+                results[name] = dict(
+                    max_abs_err=worst["small" if M == 8 else "tiled"], ms=t_kernel,
+                    plain_ms=t_plain, library_ms=t_lib, convert_matmul_ms=t_convert, **b)
+            del qs, ws
+
+
+# ---------------------------------------------------------------------------
+# BCI main paths: serving and the LoRA fine-tune at Llama-2-7B width
+# ---------------------------------------------------------------------------
+
+# meta-llama/Llama-2-7b-hf config.json (the widths; the weights are random)
+LLAMA2_7B = {
+    "vocab_size": 32000, "hidden_size": 4096, "intermediate_size": 11008,
+    "num_hidden_layers": 32, "num_attention_heads": 32, "num_key_value_heads": 32,
+    "max_position_embeddings": 4096, "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+    "tie_word_embeddings": False,
+}
+BCI_B, BCI_BINS, BCI_CHANNELS, BCI_TEXT, BCI_SPLIT = 8, 512, 256, 64, 8
+BCI_PROMPT = BCI_TEXT + (BCI_BINS - 32) // 4 + 1      # 64 text + 121 spike tokens = 185
+INT8_PER_FORWARD = 7 * 32 + 1                         # 7 projections a layer + lm_head
+LORA = {"r": 8, "alpha": 32, "dropout": 0.0, "modules_to_save": [],
+        "target_modules": ["q_proj", "v_proj", "k_proj", "o_proj", "gate_proj", "up_proj",
+                           "down_proj"]}
+
+
+def write_llama_config(root: str, n_layers: int) -> str:
+    """A directory with the Llama-2-7B ``config.json`` at ``n_layers`` and no
+    weight files: the model's widths, random weights."""
+    path = os.path.join(root, f"llama2_7b_{n_layers}l")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({**LLAMA2_7B, "num_hidden_layers": n_layers}, f)
+    return path
+
+
+def bci_rows(n: int, seed: int) -> list:
+    """Pre-tokenized BCI trials: 512 bins x 256 channels of Poisson spikes, 64
+    text tokens with the spikes spliced in at 8, the loss on the last 48."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        ids = rng.integers(3, LLAMA2_7B["vocab_size"], size=(BCI_TEXT,)).astype(np.int64)
+        rows.append({
+            "spikes": rng.poisson(1.0, size=(BCI_BINS, BCI_CHANNELS)).astype(np.float32),
+            "input_ids": ids, "attention_mask": np.ones(BCI_TEXT, np.int64),
+            "input_split": np.atleast_1d(BCI_SPLIT),
+            "labels": np.concatenate([np.full(16, -100, np.int64), ids[16:]]),
+            "sentence": "a b c", "day_idx": np.asarray(i % 2), "block_idx": np.asarray(i % 2),
+        })
+    return rows
+
+
+def bci_serving_batch(device):
+    import torch
+
+    rows = bci_rows(BCI_B, seed=0)
+    stack = lambda key: torch.from_numpy(np.stack([r[key] for r in rows])).to(device)
+    T = BCI_BINS
+    return {
+        "input_ids": stack("input_ids"), "attention_mask": stack("attention_mask"),
+        "input_split": stack("input_split"), "spikes": stack("spikes"),
+        "spikes_mask": torch.ones((BCI_B, T), dtype=torch.int64, device=device),
+        "spikes_timestamp": torch.arange(T, device=device).expand(BCI_B, T).contiguous(),
+        "block_idx": stack("block_idx"), "day_idx": stack("day_idx"),
+    }
+
+
+def device_profile(fn, label: str, power_line: str, path=None, wall_ms_unprofiled=None) -> dict:
+    """``torch.profiler`` over ``fn()``: device-busy time (the sum of the
+    kernel rows) and its split by kind of kernel, beside the wall time under
+    the profiler and, where given, the wall time of the same call without it
+    (the profiler slows the host's launches, not the kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == DeviceType.CUDA and not ev.key.startswith("Optimizer.")]
+    dev_us = lambda ev: getattr(ev, "self_device_time_total", None) or getattr(
+        ev, "self_cuda_time_total", 0)
+    rows = sorted(((dev_us(ev), ev.count, ev.key) for ev in events if dev_us(ev) > 0),
+                  reverse=True)
+    total = sum(us for us, _, _ in rows)
+    groups = {"int8 matmul kernels": ("int8_",), "GEMMs": ("nvjet", "gemm", "cutlass", "gemv"),
+              "copies and casts": ("copy", "Memcpy"), "softmax": ("softmax",),
+              "index / gather / scatter": ("index", "gather", "scatter"),
+              "random draws": ("distribution", "philox", "rand"),
+              "AdamW": ("multi_tensor", "adam")}
+    other = "other (elementwise, reductions, norms)"
+    shares = dict.fromkeys([*groups, other], 0.0)
+    n_launches = 0
+    for us, count, key in rows:
+        name = next((g for g, pats in groups.items() if any(p in key for p in pats)), other)
+        shares[name] += us
+        n_launches += count
+    busy = (f"{total / 1e3 / wall_ms_unprofiled:.3f} of the {wall_ms_unprofiled:.1f} ms the call "
+            f"takes without the profiler, " if wall_ms_unprofiled else "")
+    say("bci", f"{label}: device busy {total / 1e3:.1f} ms ({busy}"
+        f"{total / 1e3 / wall_ms:.3f} of the {wall_ms:.1f} ms under the profiler), "
+        f"{n_launches} kernel launches; card {power_line}")
+    for name, us in shares.items():
+        say("bci", f"  {us / 1e3:9.3f} ms {us / max(total, 1):7.3%} {name}")
+    if path:
+        path = os.path.abspath(path)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "a") as f:
+            f.write(f"\n{label}; card: {power_line}\nwall under the profiler {wall_ms:.1f} ms, "
+                    f"without {wall_ms_unprofiled} ms, device busy {total / 1e3:.1f} ms, "
+                    f"{n_launches} launches\n")
+            for name, us in shares.items():
+                f.write(f"{us / 1e3:10.3f} ms {us / max(total, 1):7.3%} {name}\n")
+            for us, count, key in rows[:30]:
+                f.write(f"{us / 1e3:10.3f} ms {us / total:7.3%} x{count:<6d} {key[:110]}\n")
+    return {"wall_ms": wall_ms, "busy_ms": total / 1e3, "launches": n_launches}
+
+
+def build_bci(llm_path: str, quant, device):
+    """BCI as ``configs/bci.yaml`` + ``configs/ndt1.yaml`` give it (NDT1 trunk
+    5 x 1024, stack 32 / 4, projector 1024 -> 2048 -> 4096), LoRA r=8 on all
+    seven projections, the Llama widths from ``llm_path/config.json``."""
+    import torch
+    from llm_bci_tpu_torch.config import DictConfig
+    from llm_bci_tpu_torch.models.bci import BCI
+
+    torch.manual_seed(0)
+    t0 = time.perf_counter()
+    model = BCI.from_config(
+        DictConfig({"ndt1": {"encoder": {"embedder": {"n_channels": BCI_CHANNELS}}}}),
+        method_name="endtoend", llm_path=llm_path, lora=dict(LORA), freeze_llm=False,
+        quantize=quant, compute_dtype="bfloat16", device=device,
+    ).eval()
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def bci_serve_phase(power_line: str, profile) -> dict:
+    import torch
+    from llm_bci_tpu_torch.models import llama as tllama
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+    from llm_bci_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    new_tokens, beams = 32, 5
+    batch = bci_serving_batch(dev)
+    vocab = LLAMA2_7B["vocab_size"]
+
+    def check_ids(ids, shape, what):
+        if tuple(ids.shape) != shape or ids.dtype != torch.int64:
+            raise AssertionError(f"{what}: shape {tuple(ids.shape)} {ids.dtype}, want {shape}")
+        if int(ids.min()) < 0 or int(ids.max()) >= vocab:
+            raise AssertionError(f"{what}: token ids out of [0, {vocab})")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        # Kernel path against the plain matmul on the card, 2 layers deep.
+        small, _ = build_bci(write_llama_config(tmp, 2), "int8", dev)
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            embeds, mask, _ = small.prepare_embeds(**batch)
+            k_logits, _ = small.llm(inputs_embeds=embeds, attention_mask=mask)
+            k_tokens = small.generate(**batch, max_new_tokens=new_tokens, eos_token_id=-1)
+            kernel_matmul = tllama.int8_matmul
+            tllama.int8_matmul = quant.int8_matmul_plain
+            try:
+                p_logits, _ = small.llm(inputs_embeds=embeds, attention_mask=mask)
+                p_tokens = small.generate(**batch, max_new_tokens=new_tokens, eos_token_id=-1)
+            finally:
+                tllama.int8_matmul = kernel_matmul
+        top = p_logits.abs().max().item()
+        err = (k_logits - p_logits).abs()
+        # bf16 activations through 15 products in a chain (2 layers and
+        # lm_head): each output is rounded to bf16 (the plain version twice,
+        # before and after the scale) and summed in another order, so single
+        # entries of the 47 M logits differ by a few bf16 steps of the largest
+        # logit (2^-8 of it each) while the mean stays under one step: 15
+        # independent roundings of 2^-9 relative each give about sqrt(15) *
+        # 2^-9 = 2^-7 of a typical logit, itself a fraction of the largest.
+        if not (err.max().item() <= 2.0 ** -5 * top and err.mean().item() <= 2.0 ** -8 * top):
+            raise AssertionError(f"kernel and plain logits disagree: max|err| {err.max().item()} "
+                                 f"mean|err| {err.mean().item()} of max|logit| {top}")
+        same = (k_tokens == p_tokens).float().mean().item()
+        say("bci", f"2-layer int8 model, kernel against plain matmul on the card: prompt logits "
+            f"max|err| {err.max().item():.3e}, mean|err| {err.mean().item():.3e} of max {top:.3e} "
+            f"(held to 2^-5 and 2^-8 of it); "
+            f"{same:.3f} of {k_tokens.numel()} greedy tokens equal, "
+            f"{int((k_tokens[:, 0] == p_tokens[:, 0]).sum())} of {BCI_B} first tokens (an argmax "
+            f"can flip on a near-tie of bf16 logits and the row then goes its own way; the "
+            f"logits are what is held)")
+        del small, embeds, k_logits, p_logits, err
+
+        # Main path: 32 layers, int8 base.
+        path32 = write_llama_config(tmp, 32)
+        torch.cuda.reset_peak_memory_stats()
+        model, build_s = build_bci(path32, "int8", dev)
+        if dataclasses.asdict(model.llama_config) != LLAMA2_7B:
+            raise AssertionError(f"not Llama-2-7B: {model.llama_config}")
+        weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+        say("bci", f"BCI with a 32-layer int8 Llama-2-7B-width base built on the card in "
+            f"{build_s:.1f} s, {weights_gib:.2f} GiB allocated")
+
+        def greedy(m, n=new_tokens):
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return m.generate(**batch, max_new_tokens=n, eos_token_id=-1)
+
+        def diverse(m):
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                return m.generate(**batch, max_new_tokens=new_tokens, num_beams=beams,
+                                  num_beam_groups=beams, diversity_penalty=1.2,
+                                  num_return_sequences=beams, eos_token_id=2)
+
+        ic.reset_counters()
+        tokens = greedy(model)
+        result = diverse(model)
+        torch.cuda.synchronize()
+        launches = {"int8_matmul_small_m": ic.SMALL_M_LAUNCHES,
+                    "int8_matmul_tiled": ic.TILED_LAUNCHES}
+        check_ids(tokens, (BCI_B, new_tokens), "greedy")
+        check_ids(result.sequences, (BCI_B, beams, new_tokens), "diverse beam")
+        if tuple(result.scores.shape) != (BCI_B, beams) or not torch.isfinite(result.scores).all():
+            raise AssertionError("diverse beam scores have the wrong shape or are not finite")
+        if (result.scores[:, :-1] < result.scores[:, 1:]).any():
+            raise AssertionError("diverse beam hypotheses are not sorted best-first")
+        # each decode: one prefill (M = B x 185 rows, tiled) and 31 single-token
+        # steps (M = 8 greedy, 40 with 5 beams: split-K)
+        want = {"int8_matmul_tiled": 2 * INT8_PER_FORWARD,
+                "int8_matmul_small_m": 2 * (new_tokens - 1) * INT8_PER_FORWARD}
+        if launches != want or ic.LAUNCHES != sum(want.values()):
+            raise AssertionError(f"int8 launches {launches} (total {ic.LAUNCHES}), want {want}")
+        say("bci", f"greedy ({new_tokens} tokens) + diverse beam ({beams} groups) at 32 layers: "
+            f"int8 launches {launches} = {INT8_PER_FORWARD} a model call x "
+            f"{2 * new_tokens} calls")
+
+        def timed(fn, reps=2):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) / reps
+
+        g_s = timed(lambda: greedy(model))
+        d_s = timed(lambda: diverse(model), reps=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        say("bci", f"int8 base, 32 layers, B={BCI_B}, prompt {BCI_PROMPT}: greedy "
+            f"{BCI_B * new_tokens / g_s:.1f} tokens/s ({g_s * 1e3 / new_tokens:.2f} ms a token "
+            f"step, prefill included); diverse beam {BCI_B / d_s:.2f} sequences/s "
+            f"({d_s * 1e3:.0f} ms for {BCI_B} x {beams} hypotheses); peak memory {peak:.2f} GiB; "
+            f"card {power_line}")
+        device_profile(lambda: greedy(model, 8), "greedy decode, 8 tokens, int8 base, 32 layers",
+                       power_line, profile, timed(lambda: greedy(model, 8)) * 1e3)
+        del model
+        torch.cuda.empty_cache()
+
+        # The same greedy decode on a bf16 base.
+        torch.cuda.reset_peak_memory_stats()
+        model, build_s = build_bci(path32, None, dev)
+        before = ic.LAUNCHES
+        tokens_bf16 = greedy(model)
+        check_ids(tokens_bf16, (BCI_B, new_tokens), "greedy (bf16 base)")
+        if ic.LAUNCHES != before:
+            raise AssertionError("the bf16 base launched the int8 kernel")
+        b_s = timed(lambda: greedy(model))
+        say("bci", f"bf16 base, 32 layers (built in {build_s:.1f} s): greedy "
+            f"{BCI_B * new_tokens / b_s:.1f} tokens/s ({b_s * 1e3 / new_tokens:.2f} ms a token "
+            f"step); int8 / bf16 tokens/s = {b_s / g_s:.3f}; peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; card {power_line}")
+        device_profile(lambda: greedy(model, 8), "greedy decode, 8 tokens, bf16 base, 32 layers",
+                       power_line, profile, timed(lambda: greedy(model, 8)) * 1e3)
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def bci_train_phase(power_line: str, profile) -> dict:
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+    steps = 4
+    dataset = {"train": bci_rows(32, seed=1), "test": bci_rows(BCI_B, seed=2)}
+    losses = []
+
+    def record(model, model_inputs, unused_inputs, outputs, **kwargs):
+        losses.append(float(outputs["loss"]) / float(outputs["n_examples"]))
+        return losses[-1]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        args = port_main.parse_args([
+            "-c", os.path.join(REPO, "configs", "trainer_bci.yaml"),
+            "-k", f"method.model_kwargs.llm_path={write_llama_config(tmp, 32)}",
+            "method.model_kwargs.quantize=int8", f"training.train_batch_size={BCI_B}",
+            f"training.test_batch_size={BCI_B}", f"training.max_steps={steps}",
+            f"training.eval_every={steps}", "training.save_every=null",
+            f"dirs.checkpoint_dir={os.path.join(tmp, 'ckpt')}", "dirs.log_dir=null",
+            "verbosity=1",
+        ])
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = port_main.build_trainer(args, dataset=dataset)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        model = trainer.model
+        trainer.metric_fns["loss_per_token"] = record
+        if dataclasses.asdict(model.llama_config) != LLAMA2_7B:
+            raise AssertionError(f"not Llama-2-7B: {model.llama_config}")
+        if model.quant != "int8" or model.lora_r != 8 or model.dtype != torch.bfloat16:
+            raise AssertionError("not the int8 LoRA model of configs/trainer_bci.yaml")
+        trains = {k for k, p in model.named_parameters() if p.requires_grad}
+        stray = [k for k in trains if not (".lora_" in k or k.startswith(("ndt1_encoder.",
+                                                                         "projector_")))]
+        if stray or not any(".lora_" in k for k in trains):
+            raise AssertionError(f"unexpected trainable leaves: {stray[:5]}")
+        state = model.state_dict()
+        frozen = {k: v.clone() for k, v in state.items() if k not in trains}
+        moving = {k: v.clone() for k, v in state.items() if k in trains}
+        n_train = sum(v.numel() for v in moving.values())
+        say("bci", f"trainer built in {build_s:.1f} s: {n_train:,} trainable parameters in "
+            f"{len(trains)} leaves, {len(frozen)} frozen leaves "
+            f"({sum(v.numel() * v.element_size() for v in frozen.values()) / 2 ** 30:.2f} GiB)")
+
+        ic.reset_counters()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"int8_matmul_small_m": ic.SMALL_M_LAUNCHES,
+                    "int8_matmul_tiled": ic.TILED_LAUNCHES}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    eval_batches = len(trainer.test_dataloader)
+    want = {"int8_matmul_small_m": 0,
+            "int8_matmul_tiled": INT8_PER_FORWARD * (steps + eval_batches)}
+    if launches != want:
+        raise AssertionError(f"int8 launches {launches}, want {want} (0 in the backward)")
+    hist = trainer.eval_history
+    if len(hist) != 1 or hist[0]["step"] != steps:
+        raise AssertionError(f"expected one eval at step {steps}, got {hist}")
+    h = hist[0]
+    # the recorder ran on every train step and on every eval batch
+    if len(losses) != steps + eval_batches or not all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+    losses = losses[:steps]
+    if not (np.isfinite(h["train_avg_loss"]) and np.isfinite(h["test_avg_loss"])):
+        raise AssertionError(f"eval losses not finite: {h}")
+    # 4 steps inside the warm-up of lr 5e-5 cannot fit anything yet: the loss
+    # must stay of the order of ln(32000) = 10.4 and not blow up
+    if not (losses[-1] <= 1.25 * losses[0] and max(losses) < 2 * math.log(32000)):
+        raise AssertionError(f"train loss per token rose: {losses}")
+    state = model.state_dict()
+    for key, before in frozen.items():
+        if not torch.equal(state[key], before):
+            raise AssertionError(f"frozen leaf changed: {key}")
+    moved = sum(not torch.equal(state[key], before) for key, before in moving.items())
+    if moved < 0.9 * len(moving):
+        raise AssertionError(f"only {moved} of {len(moving)} trainable leaves changed")
+    say("bci", f"{steps} steps + eval ({eval_batches} batch) through the Trainer in {wall:.1f} s: "
+        f"loss per token {[round(x, 4) for x in losses]}, test_avg_loss "
+        f"{h['test_avg_loss']:.4f}; int8 launches {launches} = {INT8_PER_FORWARD} a forward, "
+        f"none in the backward; {len(frozen)} frozen leaves bit-identical, {moved} of "
+        f"{len(moving)} trainable leaves changed")
+    del frozen, moving, state
+
+    batch = trainer.to_device(next(iter(trainer.train_dataloader))[0])
+    if tuple(batch["spikes"].shape) != (BCI_B, BCI_BINS, BCI_CHANNELS):
+        raise AssertionError(f"unexpected batch shape {tuple(batch['spikes'].shape)}")
+    for _ in range(3):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / reps
+    say("bci", f"LoRA fine-tune step (B={BCI_B} x {BCI_PROMPT} tokens, 32 layers, int8 base, "
+        f"bf16 autocast): {step_s * 1e3:.2f} ms/step, {BCI_B / step_s:.2f} samples/s; peak "
+        f"memory {max(peak, torch.cuda.max_memory_allocated() / 2 ** 30):.2f} GiB; "
+        f"card {power_line}")
+    device_profile(lambda: [trainer.train_step(batch) for _ in range(2)],
+                   "2 fine-tune steps, int8 base, 32 layers", power_line, profile,
+                   2 * step_s * 1e3)
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main_path_phase(power_line: str) -> dict:
     import torch
     from llm_bci_tpu_torch import main as port_main
@@ -726,6 +1272,12 @@ KERNELS = {
                         "llm_bci_tpu/ops/flash_attention.py:237"),
     "flash_dkv_kernel": ("llm_bci_tpu_torch/csrc/flash_attention.cu",
                          "llm_bci_tpu/ops/flash_attention.py:294"),
+    # one TPU kernel, two regimes of the port's kernel: M <= 64 (split-K and a
+    # reduce pass) and M > 64 (128 x 128 tiles), timed at (K, N) = (4096, 11008)
+    "int8_matmul_small_m": ("llm_bci_tpu_torch/csrc/int8_matmul.cu",
+                            "llm_bci_tpu/ops/quant.py:127"),
+    "int8_matmul_tiled": ("llm_bci_tpu_torch/csrc/int8_matmul.cu",
+                          "llm_bci_tpu/ops/quant.py:127"),
 }
 
 
@@ -752,8 +1304,9 @@ def main(only=None, profile=None) -> int:
         t0 = time.perf_counter()
         return _build.build(name), time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = [pool.submit(timed_build, name) for name in ("ctc", "flash_attention")]
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = [pool.submit(timed_build, name)
+                  for name in ("ctc", "flash_attention", "int8_matmul")]
         for future in builds:
             lib, secs = future.result()      # a failed build raises here
             say("build", f"{os.path.relpath(lib, REPO)} built in {secs:.1f} s")
@@ -764,10 +1317,16 @@ def main(only=None, profile=None) -> int:
         kernel_phase(results)
     if only in (None, "flash"):
         flash_kernel_phase(results)
+    if only in (None, "int8"):
+        int8_kernel_phase(results, power_line)
     if only in (None, "ctc-main"):
         launches.update(main_path_phase(power_line))
     if only in (None, "mlm-main"):
         launches.update(mlm_main_path_phase(power_line, profile))
+    for phase, run in (("bci-serve", bci_serve_phase), ("bci-train", bci_train_phase)):
+        if only in (None, phase):
+            for name, n in run(power_line, profile).items():
+                launches[name] = launches.get(name, 0) + n
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -785,8 +1344,11 @@ def main(only=None, profile=None) -> int:
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--only", choices=["ctc", "flash", "ctc-main", "mlm-main"], default=None)
+    parser.add_argument("--only", default=None,
+                        choices=["ctc", "flash", "int8", "ctc-main", "mlm-main", "bci-serve",
+                                 "bci-train"])
     parser.add_argument("--profile", metavar="PATH", default=None,
-                        help="write a torch.profiler table of the mlm train step to PATH")
+                        help="write the torch.profiler tables of the mlm train step, the BCI "
+                             "greedy decode and the BCI fine-tune step to PATH")
     cli = parser.parse_args()
     sys.exit(main(cli.only, cli.profile))

@@ -1,1 +1,5 @@
-from llm_bci_tpu_torch.interop.from_jax import ndt1_state_dict_from_jax  # noqa: F401
+from llm_bci_tpu_torch.interop.from_jax import (  # noqa: F401
+    bci_state_dict_from_jax,
+    llama_state_dict_from_jax,
+    ndt1_state_dict_from_jax,
+)

@@ -10,6 +10,13 @@ kernel ``(size*D, H)`` becomes the Linear-layout weight ``(H, size*D)``
 that the port's strided conv reads. Load the result with
 ``model.load_state_dict(sd, strict=True)``. An active factors projection,
 which the port's NDT1 does not build yet, raises.
+
+:func:`llama_state_dict_from_jax` and :func:`bci_state_dict_from_jax` do the
+same for the Llama stack and the BCI model. The port's Llama names are
+Hugging Face's (``model.layers.{i}.self_attn.q_proj`` ...). A float base
+``kernel`` (in, out) becomes ``weight`` (out, in); an int8 ``kernel`` keeps
+its (in, out) layout and its dtype beside ``kernel_scale``; ``lora_A`` /
+``lora_B`` keep theirs.
 """
 from __future__ import annotations
 
@@ -23,10 +30,10 @@ class _StateDict:
     def __init__(self):
         self.sd: Dict[str, torch.Tensor] = {}
 
-    def put(self, key: str, value: Any) -> None:
+    def put(self, key: str, value: Any, dtype=np.float32) -> None:
         if key in self.sd:
             raise ValueError(f"duplicate state_dict key {key!r}")
-        self.sd[key] = torch.from_numpy(np.array(value, dtype=np.float32, copy=True))
+        self.sd[key] = torch.from_numpy(np.array(value, dtype=dtype, copy=True))
 
     def linear(self, src: Mapping, prefix: str) -> None:
         self.put(prefix + ".weight", np.asarray(src["kernel"]).T)
@@ -41,9 +48,16 @@ class _StateDict:
 def ndt1_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Flax NDT1 params ``{"encoder": ..., "decoder": ...}`` -> port state dict."""
     out = _StateDict()
-    enc = params["encoder"]
+    _put_encoder(out, params["encoder"], "encoder")
+    if "decoder" in params:
+        out.linear(params["decoder"], "decoder")
+    return out.sd
+
+
+def _put_encoder(out: _StateDict, enc: Mapping, prefix: str) -> None:
+    """The NeuralEncoder subtree under ``prefix``."""
     emb = enc["embedder"]
-    p = "encoder.embedder"
+    p = f"{prefix}.embedder"
     if "embed_spikes" in emb:
         out.linear(emb["embed_spikes"], f"{p}.embed_spikes")
     elif "embed_spikes_days" in emb:
@@ -66,7 +80,7 @@ def ndt1_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
 
     i = 0
     while f"layer_{i}" in enc:
-        src, dst = enc[f"layer_{i}"], f"encoder.layers.{i}"
+        src, dst = enc[f"layer_{i}"], f"{prefix}.layers.{i}"
         for name in ("query", "key", "value", "out_proj"):
             out.linear(src["attn"][name], f"{dst}.attn.{name}")
         for name in ("up_proj", "down_proj"):
@@ -74,9 +88,55 @@ def ndt1_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         out.norm(src["ln1"], f"{dst}.ln1")
         out.norm(src["ln2"], f"{dst}.ln2")
         i += 1
-    out.norm(enc["out_norm"], "encoder.out_norm")
+    out.norm(enc["out_norm"], f"{prefix}.out_norm")
     if "proj" in (enc.get("out_proj") or {}):
         raise ValueError("NDT1 params: an active factors projection is not ported yet")
-    if "decoder" in params:
-        out.linear(params["decoder"], "decoder")
+
+
+def _put_lora_dense(out: _StateDict, src: Mapping, prefix: str) -> None:
+    """One ``LoRADense``: a float or an int8 base, bias, LoRA factors."""
+    kernel = np.asarray(src["kernel"])
+    if kernel.dtype == np.int8:
+        out.put(prefix + ".kernel", kernel, dtype=np.int8)
+        out.put(prefix + ".kernel_scale", src["kernel_scale"])
+    else:
+        out.put(prefix + ".weight", kernel.T)
+    for name in ("bias", "lora_A", "lora_B"):
+        if name in src:
+            out.put(f"{prefix}.{name}", src[name])
+
+
+def _put_llama(out: _StateDict, params: Mapping, prefix: str) -> None:
+    out.put(f"{prefix}model.embed_tokens.weight", params["embed_tokens"]["embedding"])
+    out.put(f"{prefix}model.norm.weight", params["norm"]["weight"])
+    if "lm_head" in params:
+        _put_lora_dense(out, params["lm_head"], f"{prefix}lm_head")
+    i = 0
+    while f"layers_{i}" in params:
+        src, dst = params[f"layers_{i}"], f"{prefix}model.layers.{i}"
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            out.put(f"{dst}.{name}.weight", src[name]["weight"])
+        for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _put_lora_dense(out, src["self_attn"][name], f"{dst}.self_attn.{name}")
+        for name in ("gate_proj", "up_proj", "down_proj"):
+            _put_lora_dense(out, src["mlp"][name], f"{dst}.mlp.{name}")
+        i += 1
+
+
+def llama_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``LlamaForCausalLM`` params -> the port's Llama state dict."""
+    out = _StateDict()
+    _put_llama(out, params, "")
+    return out.sd
+
+
+def bci_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``BCI`` params ``{"llm", "ndt1_encoder", "projector_in",
+    "projector_out"}`` -> the port's BCI state dict."""
+    out = _StateDict()
+    _put_llama(out, params["llm"], "llm.")
+    _put_encoder(out, params["ndt1_encoder"], "ndt1_encoder")
+    for name in ("projector_in", "projector_out"):
+        if name in params:
+            out.linear(params[name], name)
     return out.sd

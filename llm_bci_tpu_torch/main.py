@@ -7,11 +7,13 @@ data.data_load=file ...`` (NDT1 masked-spike pretraining on a pickle
 The counterpart of the repo's ``main.py`` (which imports the JAX trainer):
 the same configs and dotted ``-k`` overrides, the ``file`` and
 ``speechbci`` datasets (G2P phoneme labels through ``data.vocab_file``),
-the CTC CER metric fns, ``method.model_kwargs`` (``method_name``, ``loss``,
-``log_input``) handed to the model, and ``n_channels`` inference for NDT1.
-The ``ibl`` loader, the stat-behaviour and end-to-end metrics and the iTransformer /
-PatchTST config surgery belong to later slices and raise
-``NotImplementedError``. ``--device`` defaults to CUDA; the trainer raises
+the CTC CER metric fns, the ``endtoend`` assisted-WER metric fn,
+``method.model_kwargs`` (``method_name``, ``loss``, ``log_input``, ``lora``,
+``quantize`` ...) handed to the model, and ``n_channels`` inference for NDT1
+and BCI. ``transformers`` (the tokenizer) is imported only when
+``data.tokenizer_path`` is set. The ``ibl`` loader, the behaviour methods'
+metrics and the iTransformer / PatchTST config surgery belong to later
+slices and raise ``NotImplementedError``. ``--device`` defaults to CUDA; the trainer raises
 when there is no card.
 """
 from __future__ import annotations
@@ -23,7 +25,11 @@ import pickle
 from typing import List, Optional
 
 from llm_bci_tpu_torch.config import ParseKwargs, config_from_kwargs, resolve_path, update_config
-from llm_bci_tpu_torch.data.speechbci import create_phonemes_ctc_labels, load_competition_data
+from llm_bci_tpu_torch.data.speechbci import (
+    create_llm_labels,
+    create_phonemes_ctc_labels,
+    load_competition_data,
+)
 from llm_bci_tpu_torch.eval.eval_bci import format_ctc, word_error_count
 from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.training.trainer import Trainer, default_trainer_config
@@ -57,7 +63,34 @@ def make_cer_fns(vocab, blank_id: int):
     return train_cer, cer
 
 
-def main(args: argparse.Namespace) -> Trainer:
+def make_assisted_wer_fn(tokenizer):
+    """Teacher-forced ("assisted") WER: the argmax at every sentence position,
+    decoded and scored against the sentence. Its ``prepare`` hook takes the
+    argmax on the device."""
+
+    def assisted_wer(model, model_inputs, unused_inputs, outputs, **kwargs):
+        prepared = kwargs.get("prepared")
+        preds = (
+            prepared if prepared is not None
+            else outputs["preds"].argmax(-1).cpu().numpy()
+        )[:, :-1]
+        targets = outputs["targets"].cpu().numpy()[:, 1:]
+        pred_sentences = [
+            tokenizer.decode(p[t != -100], skip_special_tokens=True)
+            for t, p in zip(targets, preds)
+        ]
+        errors, n_words = word_error_count(pred_sentences, unused_inputs["sentence"])
+        return errors / n_words
+
+    assisted_wer.prepare = lambda outputs: outputs["preds"].argmax(-1)
+    return assisted_wer
+
+
+def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Trainer:
+    """The ``Trainer`` that ``args`` describe: config merge, dataset, metric
+    fns, model. ``dataset`` (and, for ``endtoend``, its ``tokenizer``) may be
+    handed in ready-made, pre-tokenized; they are then not loaded from
+    ``config.data``."""
     config = update_config(
         default_trainer_config(), args.config_file if args.config_file != "none" else None
     )
@@ -66,7 +99,9 @@ def main(args: argparse.Namespace) -> Trainer:
     metric_fns, eval_metric_fns = {}, {}
     vocab = None
 
-    if config.data.data_load == "file":
+    if dataset is not None:
+        pass
+    elif config.data.data_load == "file":
         path = os.path.join(config.data.data_dir, config.data.data_file)
         if not path.endswith((".pkl", ".pickle")):
             raise not_ported(f"data_load 'file' for {path!r} (pickles only)",
@@ -84,9 +119,14 @@ def main(args: argparse.Namespace) -> Trainer:
             )
             dataset = create_phonemes_ctc_labels(dataset, vocab_file, oov=oov)
         if config["data"].get("tokenizer_path"):
-            raise not_ported("LLM labels (data.tokenizer_path)", "Queue 1, slice 3, item 9")
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(
+                config.data.tokenizer_path, add_bos_token=False, add_eos_token=False
+            )
+            dataset = create_llm_labels(dataset, tokenizer, config.data.prompt)
     elif config.data.data_load == "ibl":
-        raise not_ported("The IBL loader (data/ibl.py)", "Queue 1, slice 3")
+        raise not_ported("The IBL loader (data/ibl.py)", "Queue 1, slice 4")
     else:
         raise ValueError(f"Unknown data_load {config.data.data_load!r}")
 
@@ -97,20 +137,32 @@ def main(args: argparse.Namespace) -> Trainer:
             metric_fns["CER"], eval_metric_fns["CER"] = make_cer_fns(
                 vocab, config.method.model_kwargs.blank_id
             )
-    elif method in ("stat_behaviour", "dyn_behaviour", "endtoend"):
-        raise not_ported(f"The {method!r} method and its metrics", "Queue 1, slices 3-4")
+    elif method == "endtoend":
+        if tokenizer is None:
+            print("endtoend method without a tokenizer: skipping the A-WER metric.", flush=True)
+        else:
+            metric_fns["A-WER"] = make_assisted_wer_fn(tokenizer)
+    elif method in ("stat_behaviour", "dyn_behaviour"):
+        raise not_ported(f"The {method!r} method and its metrics", "Queue 1, slice 5")
 
+    n_channels = dataset["train"][0]["spikes"].shape[1]
     if config.model.model_class == "NDT1":
-        config["model"]["encoder"]["embedder"]["n_channels"] = dataset["train"][0][
-            "spikes"
-        ].shape[1]
+        config["model"]["encoder"]["embedder"]["n_channels"] = n_channels
+    elif config.model.model_class == "BCI":
+        # flax infers the input width at init; here the embedder needs it
+        config["model"]["ndt1"]["encoder"]["embedder"]["n_channels"] = n_channels
     else:
-        raise not_ported(f"Model class {config.model.model_class!r}", "Queue 1, slices 3-4")
+        raise not_ported(f"Model class {config.model.model_class!r}", "Queue 1, slice 5")
 
-    trainer = Trainer(
+    return Trainer(
         config, dataset=dataset, metric_fns=metric_fns or None,
         eval_metric_fns=eval_metric_fns or None, device=args.device,
     )
+
+
+def main(args: argparse.Namespace, dataset=None, tokenizer=None) -> Trainer:
+    """Build the trainer (:func:`build_trainer`) and train."""
+    trainer = build_trainer(args, dataset, tokenizer)
     trainer.train()
     return trainer
 

@@ -433,7 +433,7 @@ class NDT1(nn.Module):
         elif method_name == "ctc":
             n_outputs = vocab_size
         elif method_name == "endtoend":
-            raise not_ported("NDT1 method 'endtoend'", "Queue 1, slice 3")
+            raise not_ported("NDT1 method 'endtoend'", "Queue 1, slice 3, left")
         else:
             raise ValueError(f"Method {method_name} not implemented yet for NDT1")
         self.config = config
@@ -441,7 +441,7 @@ class NDT1(nn.Module):
         self.loss_name, self.log_input = loss, log_input
         self.blank_id, self.zero_infinity = blank_id, zero_infinity
         if enc.get("from_pt") or (config.get("decoder") or {}).get("from_pt"):
-            raise not_ported("Warm start from_pt", "Queue 1, slice 3")
+            raise not_ported("Warm start from_pt", "Queue 1, slice 3, left")
         self.encoder = NeuralEncoder(enc)
         self.decoder = _linear(enc["transformer"]["hidden_size"], n_outputs)
 

@@ -30,19 +30,31 @@ def dropout(
 
 def dot_product_attention(
     q: torch.Tensor,                      # (B, T, H, D)
-    k: torch.Tensor,                      # (B, S, H, D)
-    v: torch.Tensor,                      # (B, S, H, D)
+    k: torch.Tensor,                      # (B, S, Hkv, D), H a multiple of Hkv
+    v: torch.Tensor,                      # (B, S, Hkv, D)
     mask: Optional[torch.Tensor] = None,  # (B, 1|H, T, S) bool; True = attend
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:                        # (B, T, H, D)
-    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))    # (B, H, T, D)
-    logits = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))    # (B, H | Hkv, T | S, D)
+    if Hkv != H:
+        # Grouped-query attention: query head h reads key / value head
+        # h // G. The G query heads of a group are folded into the row
+        # dimension, so K and V (the cache) are read as they are stored,
+        # never repeated.
+        if H % Hkv:
+            raise ValueError(f"{H} query heads are not a multiple of {Hkv} key / value heads")
+        qh = qh.reshape(B, Hkv, (H // Hkv) * T, D)
+    logits = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(D)
+    logits = logits.view(B, H, T, S)
     if mask is not None:
         logits = logits.masked_fill(~mask, MASK_VALUE)
     probs = torch.softmax(logits.float(), dim=-1).to(vh.dtype)
     probs = dropout(probs, dropout_rate, dropout_rate > 0.0, generator)
-    return torch.matmul(probs, vh).transpose(1, 2)
+    out = torch.matmul(probs.view(B, Hkv, (H // Hkv) * T, S), vh)
+    return out.view(B, H, T, D).transpose(1, 2)
 
 
 def make_attention_mask(

@@ -14,7 +14,14 @@ Changed for PyTorch: the jitted step is an eager step under
 weights); dropout, noise and maskers draw from one ``torch.Generator`` on
 the device, seeded from ``config.seed`` and advanced by every step; a checkpoint is the model's and the optimizer's
 ``state_dict`` plus ``trainer_config.yaml`` under ``STEP{n}/``. Metric fns
-are read back every step (no lag).
+are read back every step (no lag). The frozen / trainable split is
+``requires_grad`` (the JAX trainer's ``trainable_mask``): the optimizer
+takes only the parameters that train. A model with ``save_checkpoint`` /
+``save_config`` (BCI) writes its own component blobs instead of
+``model.pt``; ``training.component_blobs: false`` leaves its frozen leaves
+out. ``precision.compute_dtype`` and the device reach ``from_config`` (BCI
+stores its frozen Llama base on the device in that dtype), and a model
+with ``warm_start`` loads its ``from_pt`` / ``llm_path`` weights.
 
 Not ported yet (see ROADMAP.md): resume (``training.resume``), multi-device
 parallelism, ``optimizer.grad_clip_norm``, datasets named by the config,
@@ -81,7 +88,7 @@ class Trainer:
             raise not_ported("training.resume (checkpoint resume)", "Queue 1, slice 1, item 5")
         par = cfg.get("parallelism") or {}
         if any(int(par.get(k, 1)) > 1 for k in ("data", "fsdp", "tp", "sp")):
-            raise not_ported("Multi-device parallelism", "Queue 1, slice 5, item 11")
+            raise not_ported("Multi-device parallelism", "Queue 1, slice 6, item 11")
         if cfg.optimizer.get("grad_clip_norm"):
             raise not_ported("optimizer.grad_clip_norm", "Queue 1, slice 1, item 5")
         prec = cfg.get("precision") or {}
@@ -107,8 +114,9 @@ class Trainer:
         self.print_v("Building optimizers", verbosity=0)
         grad_accum = int(cfg.optimizer.get("gradient_accumulation_steps", 1) or 1)
         self.grad_accum = grad_accum
+        trainable = [p for p in self.model.parameters() if p.requires_grad]
         self.optimizer, self.schedule = build_optimizer(
-            self.model.parameters(), cfg.optimizer,
+            trainable, cfg.optimizer,
             steps_per_epoch=len(self.train_dataloader),
             num_epochs=int(cfg.training.num_epochs),
         )
@@ -118,7 +126,7 @@ class Trainer:
         self.metric_fns = metric_fns or {}
         self.eval_metric_fns = eval_metric_fns or {}
         self.eval_history: List[Dict[str, Any]] = []
-        n_params = sum(p.numel() for p in self.model.parameters())
+        n_params = sum(p.numel() for p in trainable)
         self.print_v(f"Model number of trainable parameters: {n_params:,}", verbosity=0)
 
     # ------------------------------------------------------------- plumbing
@@ -131,7 +139,11 @@ class Trainer:
         if model is None:
             model_class = NAME2MODEL[self.config.model.model_class]
             kwargs = dict(self.config.method.model_kwargs)
-            model = model_class.from_config(self.config.model, **kwargs)
+            kwargs.setdefault(
+                "compute_dtype", (self.config.get("precision") or {}).get("compute_dtype"))
+            model = model_class.from_config(self.config.model, device=self.device, **kwargs)
+            if hasattr(model, "warm_start"):
+                model.warm_start()
         self.model = model.to(self.device)
 
     def get_model_inputs(self) -> None:
@@ -303,11 +315,17 @@ class Trainer:
     # ----------------------------------------------------------- checkpoint
 
     def save_checkpoint(self, tag: str) -> None:
-        """``STEP{n}/``: model and optimizer ``state_dict`` and the config."""
+        """``STEP{n}/``: the model's ``state_dict`` (or its own component
+        blobs and configs), the optimizer's ``state_dict`` and the config."""
         path = os.path.join(self.checkpoint_dir, tag)
         os.makedirs(path, exist_ok=True)
         self.print_v(f"Saving checkpoint to {path}", verbosity=1)
-        torch.save(self.model.state_dict(), os.path.join(path, "model.pt"))
+        if hasattr(self.model, "save_checkpoint"):
+            self.model.save_checkpoint(
+                path, include_frozen=bool(self.config.training.get("component_blobs", True)))
+            self.model.save_config(path)
+        else:
+            torch.save(self.model.state_dict(), os.path.join(path, "model.pt"))
         torch.save(self.optimizer.state_dict(), os.path.join(path, "optimizer.pt"))
         with open(os.path.join(path, "trainer_config.yaml"), "w") as f:
             yaml.safe_dump(to_plain_dict(self.config), f)

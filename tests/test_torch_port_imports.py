@@ -2,11 +2,13 @@
 
 The check runs in a subprocess: this test process has JAX loaded already
 (``tests/conftest.py`` imports it). The subprocess forbids ``jax``, ``flax``,
-``optax``, ``orbax``, ``triton`` and the exact top-level name ``llm_bci_tpu``
-outright, imports every module of ``llm_bci_tpu_torch``, runs a tiny
-NDT1-CTC and a tiny NDT1-mlm forward and backward on the CPU (the latter
-through the flash branch), and then checks that none of those was loaded
-and that no kernel was built."""
+``optax``, ``orbax``, ``triton``, ``transformers`` and the exact top-level
+name ``llm_bci_tpu`` outright, imports every module of ``llm_bci_tpu_torch``,
+runs a tiny NDT1-CTC and a tiny NDT1-mlm forward and backward on the CPU (the
+latter through the flash branch) and a tiny int8 BCI forward, backward and
+greedy decode, and then checks that none of those was loaded and that no
+kernel was built. On a CPU tensor ``int8_matmul`` takes the plain version,
+and the CUDA wrapper handed a CPU tensor raises instead of falling back."""
 import os
 import re
 import subprocess
@@ -21,7 +23,7 @@ PKG = os.path.join(REPO, "llm_bci_tpu_torch")
 SCRIPT = r'''
 import importlib, importlib.util, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "llm_bci_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "transformers", "llm_bci_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -92,9 +94,41 @@ out.loss.backward()
 assert torch.isfinite(out.loss) and int(out.n_examples) > 0
 assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
 
+# BCI with an int8 Llama base: forward, backward, greedy decode on the CPU
+from llm_bci_tpu_torch.models.bci import BCI
+from llm_bci_tpu_torch.registry import NAME2MODEL
+
+assert NAME2MODEL["BCI"] is BCI
+bci = BCI.from_config(
+    {"ndt1": cfg | {"encoder": cfg["encoder"] | {
+        "masker": {"neuron": {"active": False}},
+        "embedder": {"n_channels": 6, "input_dim": 8, "max_F": 64,
+                     "stack": {"active": True, "size": 4, "stride": 2}}}},
+     "projector": {"stacking": 1, "inter_size": 8, "bias": True, "act": "relu"}},
+    debug=True, quantize="int8", compute_dtype="float32",
+    lora={"r": 2, "alpha": 4, "dropout": 0.0, "target_modules": ["q_proj", "down_proj"]},
+)
+L = 5
+inputs = dict(
+    input_ids=torch.from_numpy(rng.integers(3, 100, size=(B, L))),
+    attention_mask=torch.ones(B, L, dtype=torch.int64),
+    input_split=torch.tensor([2, 0]),
+    spikes=torch.from_numpy(rng.poisson(1.0, size=(B, T, 6)).astype(np.float32)),
+    spikes_mask=torch.ones(B, T, dtype=torch.int64),
+    spikes_timestamp=torch.arange(T).expand(B, T),
+)
+out = bci(**inputs, targets=torch.tensor([[-100, -100, 5, 6, 7], [-100, 9, 8, 7, 6]]))
+out.loss.backward()
+assert torch.isfinite(out.loss) and tuple(out.preds.shape) == (B, L + 14, 32000)
+assert bci.llm.lm_head.kernel.dtype == torch.int8
+assert all((p.grad is not None) == p.requires_grad for p in bci.parameters())
+tokens = bci.generate(**inputs, max_new_tokens=3)
+assert tuple(tokens.shape) == (B, 3)
+
 # importing the CUDA wrappers built and loaded nothing
-from llm_bci_tpu_torch.ops import _build, ctc_cuda, flash_attention_cuda
+from llm_bci_tpu_torch.ops import _build, ctc_cuda, flash_attention_cuda, int8_matmul_cuda
 assert flash_attention_cuda._LIB is None and ctc_cuda._LIB is None and not _build._LOADED
+assert int8_matmul_cuda._LIB is None and int8_matmul_cuda.LAUNCHES == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 assert "jax" not in sys.modules
@@ -145,6 +179,26 @@ def test_no_source_file_imports_jax():
 ])
 def test_import_pattern_catches_the_jax_package(line, caught):
     assert bool(IMPORT_PATTERN.search("import os\n" + line + "\n")) == caught
+
+
+def test_int8_matmul_on_the_cpu_is_plain_and_the_cuda_wrapper_raises():
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda, quant
+
+    x = torch.randn(3, 32)
+    q = torch.randint(-127, 128, (32, 48), dtype=torch.int8)
+    scale = torch.rand(48)
+    assert torch.equal(quant.int8_matmul(x, q, scale), quant.int8_matmul_plain(x, q, scale))
+    with pytest.raises(ValueError, match="expected a CUDA device"):
+        int8_matmul_cuda.int8_matmul_cuda(x, q, scale, torch.float32)
+    assert int8_matmul_cuda.LAUNCHES == 0 and int8_matmul_cuda._LIB is None
+
+
+def test_tokenizer_and_hf_loader_import_transformers_lazily():
+    """``transformers`` appears only inside the two functions that need it."""
+    for rel in ("main.py", os.path.join("models", "llama.py")):
+        with open(os.path.join(PKG, rel)) as f:
+            lines = [ln for ln in f.read().splitlines() if "transformers import" in ln]
+        assert lines and all(ln.startswith("    ") for ln in lines), (rel, lines)
 
 
 def test_trainer_without_cuda_raises(monkeypatch):

@@ -1,0 +1,175 @@
+"""Int8 weight-only quantization: the port (``llm_bci_tpu_torch.ops.quant``)
+against the JAX package (``llm_bci_tpu.ops.quant``), on the CPU.
+
+* ``quantize_int8`` / ``dequantize_int8`` / ``adapt_quantization`` give the
+  JAX package's arrays exactly (both are host-side numpy);
+* ``int8_matmul`` on a CPU tensor (the plain version) against the JAX
+  ``int8_matmul(impl="xla")`` and against the Pallas kernel in interpret mode
+  (``block_n=128, block_k=128``), rtol 1e-5 in float32;
+* ``dx`` through the port's autograd Function against ``jax.grad``;
+* the launch plan of the CUDA wrapper (pure Python) covers K exactly;
+* grouped-query attention against a repeat of the key / value heads.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_bci_tpu.ops import quant as jquant
+from llm_bci_tpu_torch.ops import int8_matmul_cuda
+from llm_bci_tpu_torch.ops import quant as tquant
+from llm_bci_tpu_torch.ops.attention import dot_product_attention
+
+
+@pytest.mark.parametrize("shape,axis", [((128, 256), 0), ((64, 48), 0), ((32, 16), 1)])
+def test_quantize_int8_equals_jax_package(shape, axis):
+    rng = np.random.default_rng(0)
+    w = rng.normal(0, 0.02, size=shape).astype(np.float32)
+    w[:, 3] = 0.0                                # an all-zero channel
+    q_ref, s_ref = jquant.quantize_int8(w, axis=axis)
+    q, s = tquant.quantize_int8(w, axis=axis)
+    assert q.dtype == np.int8 and s.dtype == np.float32
+    np.testing.assert_array_equal(q, q_ref)
+    np.testing.assert_array_equal(s, s_ref)
+    if axis == 0:
+        np.testing.assert_array_equal(tquant.dequantize_int8(q, s),
+                                      jquant.dequantize_int8(q_ref, s_ref))
+
+
+def _tree(rng, quantized):
+    """A two-level tree of Dense nodes, float or int8."""
+    def dense(k, n):
+        w = rng.normal(0, 0.05, size=(k, n)).astype(np.float32)
+        if not quantized:
+            return {"kernel": w, "lora_A": rng.normal(size=(k, 2)).astype(np.float32)}
+        q, s = jquant.quantize_int8(w)
+        return {"kernel": q, "kernel_scale": s,
+                "lora_A": rng.normal(size=(k, 2)).astype(np.float32)}
+
+    return {"layers_0": {"q_proj": dense(16, 32), "norm": {"weight": np.ones(16, np.float32)}},
+            "lm_head": dense(16, 48)}
+
+
+@pytest.mark.parametrize("saved_q,target_q", [(False, True), (True, False), (True, True),
+                                              (False, False)])
+def test_adapt_quantization_equals_jax_package(saved_q, target_q):
+    saved = _tree(np.random.default_rng(1), saved_q)
+    target = _tree(np.random.default_rng(2), target_q)
+    ref = jquant.adapt_quantization(saved, target)
+    got = tquant.adapt_quantization(saved, target)
+    flat_ref = jax.tree_util.tree_flatten_with_path(ref)[0]
+    flat_got = jax.tree_util.tree_flatten_with_path(got)[0]
+    assert [p for p, _ in flat_got] == [p for p, _ in flat_ref]
+    for (_, a), (_, b) in zip(flat_got, flat_ref):
+        assert np.asarray(a).dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def _case(seed, M_shape, K, N):
+    rng = np.random.default_rng(seed)
+    w = rng.normal(0, 0.05, size=(K, N)).astype(np.float32)
+    x = rng.normal(size=(*M_shape, K)).astype(np.float32)
+    q, s = jquant.quantize_int8(w)
+    return x, q, s
+
+
+@pytest.mark.parametrize("M_shape,K,N", [((3, 5), 64, 192), ((8,), 256, 256), ((1,), 32, 48)])
+def test_int8_matmul_matches_jax_xla_path(M_shape, K, N):
+    x, q, s = _case(1, M_shape, K, N)
+    ref = jquant.int8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s), impl="xla")
+    got = tquant.int8_matmul(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(s))
+    assert got.shape == (*M_shape, N) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    plain = tquant.int8_matmul_plain(torch.from_numpy(x), torch.from_numpy(q),
+                                     torch.from_numpy(s))
+    assert torch.equal(got, plain)               # a CPU tensor takes the plain version
+
+
+def test_int8_matmul_matches_pallas_kernel_in_interpret_mode():
+    x, q, s = _case(2, (8,), 256, 256)
+    jquant.set_interpret_mode(True)
+    try:
+        ref = jquant.int8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s),
+                                 block_n=128, block_k=128)
+    finally:
+        jquant.set_interpret_mode(False)
+    got = tquant.int8_matmul(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(s))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+
+
+def test_int8_matmul_out_dtype_and_bf16_input():
+    x, q, s = _case(3, (4,), 64, 32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = tquant.int8_matmul(xb, torch.from_numpy(q), torch.from_numpy(s))
+    assert got.dtype == torch.bfloat16
+    got32 = tquant.int8_matmul(xb, torch.from_numpy(q), torch.from_numpy(s),
+                               out_dtype=torch.float32)
+    assert got32.dtype == torch.float32
+    ref = jquant.int8_matmul(jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(q), jnp.asarray(s),
+                             out_dtype=jnp.float32, impl="xla")
+    # bf16 products summed in float32 by both; the sums' order differs
+    np.testing.assert_allclose(got32.numpy(), np.asarray(ref), rtol=2e-2, atol=2e-3)
+
+
+def test_int8_matmul_dx_matches_jax_grad():
+    x, q, s = _case(4, (6,), 64, 96)
+    w = np.random.default_rng(5).normal(size=(6, 96)).astype(np.float32)
+
+    def loss(xj):
+        return (jquant.int8_matmul(xj, jnp.asarray(q), jnp.asarray(s), impl="xla")
+                * jnp.asarray(w)).sum()
+
+    ref = jax.grad(loss)(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    qt, st = torch.from_numpy(q), torch.from_numpy(s)
+    (tquant.int8_matmul(xt, qt, st) * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
+    assert not qt.requires_grad and not st.requires_grad
+
+
+def test_int8_matmul_under_autocast_sees_bf16():
+    x, q, s = _case(6, (4,), 32, 32)
+    with torch.autocast("cpu", dtype=torch.bfloat16):
+        got = tquant.int8_matmul(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(s))
+    assert got.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("M", [1, 8, 16, 17, 40, 64])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+                                 (32, 32), (48, 80)])
+@pytest.mark.parametrize("bf16", [True, False])
+def test_small_m_plan_covers_k_with_no_empty_block(M, K, N, bf16):
+    config, split, k_per_split = int8_matmul_cuda.plan(M, K, N, bf16)
+    bk = 64 if bf16 else 32
+    assert config == (1 if M <= 16 else 2 if M <= 32 else 3)
+    assert split >= 1 and k_per_split % bk == 0
+    assert split * k_per_split >= K                  # K is covered
+    assert (split - 1) * k_per_split < K             # and the last block has work
+
+
+def test_large_m_plan_is_one_pass():
+    assert int8_matmul_cuda.plan(65, 4096, 11008, True) == (0, 1, 4096)
+    assert int8_matmul_cuda.plan(1480, 11008, 4096, True) == (0, 1, 11008)
+
+
+@pytest.mark.parametrize("H,Hkv", [(4, 2), (8, 1), (4, 4)])
+def test_grouped_query_attention_equals_repeated_heads(H, Hkv):
+    rng = np.random.default_rng(7)
+    B, T, S, D = 2, 5, 7, 8
+    q = torch.from_numpy(rng.normal(size=(B, T, H, D)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+    v = torch.from_numpy(rng.normal(size=(B, S, Hkv, D)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((B, 1, T, S)) > 0.3)
+    mask[..., 0] = True
+    got = dot_product_attention(q, k, v, mask=mask)
+    rep = H // Hkv
+    ref = dot_product_attention(q, k.repeat_interleave(rep, dim=2),
+                                v.repeat_interleave(rep, dim=2), mask=mask)
+    assert got.shape == (B, T, H, D)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    import llm_bci_tpu.ops.attention as jattn
+
+    jref = jattn.dot_product_attention(jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+                                       jnp.asarray(v.numpy()), mask=jnp.asarray(mask.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref), rtol=1e-4, atol=1e-5)
