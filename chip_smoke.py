@@ -167,6 +167,32 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls are captured into one
+    CUDA graph and the graph is replayed, so the host's time to enqueue a call
+    (tens of microseconds through an eager wrapper) is out of the measurement."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 # Published dense peaks of one H100 SXM: operations a second by input type,
 # and bytes a second of device memory.
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -305,6 +331,12 @@ FLASH_CASES = [
     ("rows with no visible key", 2, 100, 2, 64, 0, 2, "dead", 0.0),
     ("ragged T=77, D=16 (padded to 32)", 2, 77, 3, 16, None, None, "right", 0.0),
     ("dropout 0.4, band 40/None", 2, 150, 2, 64, 40, None, "right", 0.4),
+    # the diagonal tiles lie wholly inside the band (no visibility test in the
+    # forward), their neighbours are cut by it
+    ("band 100/100, tiles inside and cut", 2, 320, 2, 64, 100, 100, "none", 0.0),
+    ("band 100/100, tiles inside and cut, left padding", 2, 320, 2, 64, 100, 100, "left", 0.0),
+    ("band 100/100, D=128, dropout 0.4, right padding", 2, 320, 2, 128, 100, 100, "right", 0.4),
+    ("T=40, shorter than one tile", 2, 40, 2, 64, None, None, "right", 0.0),
 ]
 
 
@@ -420,41 +452,47 @@ def flash_kernel_phase(results: dict) -> None:
         f"max|err| out {errs[0]:.2e} dq {errs[1]:.2e} dk {errs[2]:.2e} dv {errs[3]:.2e}")
     del got, ref
 
-    def timings(B, T, H, D, valid, drop, seed):
-        """Kernel, plain and SDPA times at one bf16 shape."""
+    def timings(B, T, H, D, valid, drop, seed, band=None, forward_only=False):
+        """Kernel, plain and SDPA times at one bf16 shape; ``band`` is the
+        (forward, backward) context, unbounded when None."""
         q, k, v, w, _ = flash_inputs(B, T, H, D, "none", torch.bfloat16, dev, seed=1)
         q, k, v = (x.requires_grad_(True) for x in (q, k, v))
         seed_t = torch.tensor([seed], dtype=torch.int32, device=dev)
         scale = 1.0 / math.sqrt(D)
-        args = (q, k, v, valid, seed_t, T, T, scale, drop)
-        t = {}
+        fwd, bwd = band if band is not None else (T, T)
+        args = (q, k, v, valid, seed_t, fwd, bwd, scale, drop)
+        # one library call: SDPA on (B, H, T, D) with a boolean mask of the
+        # same padding and band and the same dropout rate
+        qh, kh, vh, wh = (x.detach().transpose(1, 2).contiguous() for x in (q, k, v, w))
+        qh, kh, vh = (x.requires_grad_(True) for x in (qh, kh, vh))
+        mask = fa.visibility_mask(T, valid, fwd, bwd, dev).expand(B, 1, T, T)
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=drop)
+        t = {"pairs": float(mask.sum().item()) * H}
         with torch.no_grad():
             t["fwd"] = cuda_ms(lambda: fc.FlashAttentionFunction.apply(*args), 20)
+            t["sdpa_fwd"] = cuda_ms(sdpa, 20)
+            if forward_only:
+                return t
+            if T <= 256:     # the host's enqueue time exceeds the kernel's
+                t["fwd_device"] = graph_ms(lambda: fc.FlashAttentionFunction.apply(*args), 20)
+                t["sdpa_fwd_device"] = graph_ms(sdpa, 20)
             out = fc.FlashAttentionFunction.apply(*args)
         # the backward kernels alone, on the tensors the backward would get
-        meta = fc.kernel_meta(q, T, T, scale, drop)
+        meta = fc.kernel_meta(q, fwd, bwd, scale, drop)
         with torch.no_grad():
             _, lse = fc.flash_fwd(q, k, v, valid, seed_t, meta)
             delta = (w.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
             back = (q, k, v, valid, seed_t, w, lse, delta, meta)
             t["dq"] = cuda_ms(lambda: fc.flash_dq(*back), 20)
             t["dkv"] = cuda_ms(lambda: fc.flash_dkv(*back), 20)
-        p_out = fa.banded_flash_attention_plain(q, k, v, valid, None, None, drop, seed_t)
+        p_out = fa.banded_flash_attention_plain(q, k, v, valid, fwd, bwd, drop, seed_t)
         with torch.no_grad():
             t["plain_fwd"] = cuda_ms(lambda: fa.banded_flash_attention_plain(
-                q, k, v, valid, None, None, drop, seed_t), 3)
+                q, k, v, valid, fwd, bwd, drop, seed_t), 3)
         t["plain_dq"] = cuda_ms(lambda: torch.autograd.grad(p_out, q, w, retain_graph=True), 3)
         t["plain_dkv"] = cuda_ms(
             lambda: torch.autograd.grad(p_out, (k, v), w, retain_graph=True), 3)
         del p_out
-        # one library call: SDPA on (B, H, T, D) with a boolean mask of the
-        # same padding (the band is unbounded) and the same dropout rate
-        qh, kh, vh, wh = (x.detach().transpose(1, 2).contiguous() for x in (q, k, v, w))
-        qh, kh, vh = (x.requires_grad_(True) for x in (qh, kh, vh))
-        mask = (valid != 0)[:, None, None, :].expand(B, 1, T, T)
-        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=drop)
-        with torch.no_grad():
-            t["sdpa_fwd"] = cuda_ms(sdpa, 20)
         s_out = sdpa()
         t["sdpa_dq"] = cuda_ms(lambda: torch.autograd.grad(s_out, qh, wh, retain_graph=True), 20)
         t["sdpa_dkv"] = cuda_ms(
@@ -493,6 +531,17 @@ def flash_kernel_phase(results: dict) -> None:
     say("kernels", f"flash vs SDPA at T={T}: forward {t['fwd'] / t['sdpa_fwd']:.2f}x its time, "
         f"forward+backward {k_all:.3f} ms vs {s_all:.3f} ms ({k_all / s_all:.2f}x)")
 
+    # The forward under a band and at D=64: the visible pairs of this run's
+    # mask give the bound, SDPA gets the same mask.
+    for label, Bx, Hx, Dx, band in ((f"D={D} band 128/128", B, H, D, (128, 128)),
+                                    ("D=64 unbounded", B, 2 * H, 64, None)):
+        tx = timings(Bx, T, Hx, Dx, valid, drop, seed, band=band, forward_only=True)
+        bx = bound(2 * 2 * Dx * tx["pairs"],
+                   4 * Bx * T * Hx * Dx * e + Bx * Hx * T * 4 + Bx * T * 4, "bfloat16")
+        say("kernels", f"flash_fwd_kernel at B={Bx} H={Hx} T={T}, {label}, bf16 dropout "
+            f"{drop}: {tx['fwd']:.3f} ms, bound {bx['bound_ms']:.3f} ms ({bx['bound_by']}), "
+            f"SDPA {tx['sdpa_fwd']:.3f} ms ({tx['fwd'] / tx['sdpa_fwd']:.2f}x)")
+
     # The short length of the stacked CTC path, for the auto threshold.
     Bs, Ts = 64, 128
     valid_s = torch.ones((Bs, Ts), dtype=torch.int32, device=dev)
@@ -503,6 +552,8 @@ def flash_kernel_phase(results: dict) -> None:
         f"{ts['sdpa_fwd']:.3f} ms ({ts['fwd'] / ts['sdpa_fwd']:.2f}x), forward+backward "
         f"{k_all:.3f} ms vs {s_all:.3f} ms ({k_all / s_all:.2f}x); plain forward "
         f"{ts['plain_fwd']:.3f} ms, plain backward {ts['plain_dq'] + ts['plain_dkv']:.3f} ms")
+    say("kernels", f"flash_fwd_kernel at B={Bs} T={Ts}, device time from a CUDA graph of 20 "
+        f"launches: {ts['fwd_device']:.4f} ms, SDPA {ts['sdpa_fwd_device']:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -573,7 +624,30 @@ def int8_kernel_phase(results: dict, power_line: str) -> None:
             say("int8", f"bf16 M={M} K={K} N={N} plan={ic.plan(M, K, N, True)}: max|err| "
                 f"{err:.3e} of max|out| {top:.3e}; same bits twice")
             del got, ref, again
-    # float32 output from bf16 x (the kernel's other store path)
+    # Ragged edges of the tiled regime in bf16, at the same tolerance: M just
+    # above the border of the regimes and off every tile edge, N off the
+    # 128-column tile (and exactly on it), K off the 64-deep k-tile, and K
+    # and N smaller than one tile.
+    for K, N in [(160, 144), (4112, 272), (4112, 11008), (160, 4096), (32, 48)]:
+        for M in (65, 129, 185, 1480):
+            x, q, scale = int8_inputs(M, K, N, torch.bfloat16, dev, seed=M + N)
+            got = quant.int8_matmul(x, q, scale).float()
+            ref = reference(x, q, scale)
+            torch.cuda.synchronize()
+            top = ref.abs().max().item()
+            err = (got - ref).abs().max().item()
+            torch.testing.assert_close(got, ref, rtol=2.0 ** -8, atol=1e-4 * top,
+                                       msg=lambda m: f"int8 bf16 M={M} K={K} N={N}: {m}")
+            if not torch.equal(got, quant.int8_matmul(x, q, scale).float()):
+                raise AssertionError(f"int8 bf16 M={M} K={K} N={N}: same input, different bits")
+            worst["tiled"] = max(worst["tiled"], err)
+            say("int8", f"bf16 ragged M={M} K={K} N={N} tiles={tuple(ic.tile_plan(M, K, N))}: "
+                f"max|err| {err:.3e} of max|out| {top:.3e}; same bits twice")
+    # float32 output from bf16 x (the kernel's other store path), both regimes
+    x, q, scale = int8_inputs(185, 4096, 4096, torch.bfloat16, dev, seed=6)
+    got = quant.int8_matmul(x, q, scale, out_dtype=torch.float32)
+    ref = reference(x, q, scale)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
     x, q, scale = int8_inputs(40, 4096, 4096, torch.bfloat16, dev, seed=5)
     got = quant.int8_matmul(x, q, scale, out_dtype=torch.float32)
     ref = reference(x, q, scale)
@@ -612,7 +686,7 @@ def int8_kernel_phase(results: dict, power_line: str) -> None:
         return [t.clone() for _ in range(max(2, int(total // (t.numel() * t.element_size())) + 1))]
 
     for K, N in INT8_SHAPES:
-        for M in (8, 1480):
+        for M in (8, 185, 1480):     # a greedy step, one trial's prompt, prefill / fine-tune
             x, q, scale = int8_inputs(M, K, N, torch.bfloat16, dev, seed=1)
             qs, ws = ring(q), ring(q.to(torch.bfloat16))
             state = {"i": 0}
@@ -633,7 +707,7 @@ def int8_kernel_phase(results: dict, power_line: str) -> None:
                 f"{b['bound_ms']:.4f} ms ({b['bound_by']}), plain {t_plain:.4f} ms, convert + "
                 f"matmul {t_convert:.4f} ms, matmul on a bf16 weight {t_lib:.4f} ms; "
                 f"card {power_line}")
-            if (K, N) == (4096, 11008):
+            if (K, N) == (4096, 11008) and M != 185:
                 name = "int8_matmul_small_m" if M == 8 else "int8_matmul_tiled"
                 results[name] = dict(
                     max_abs_err=worst["small" if M == 8 else "tiled"], ms=t_kernel,
@@ -1273,7 +1347,7 @@ KERNELS = {
     "flash_dkv_kernel": ("llm_bci_tpu_torch/csrc/flash_attention.cu",
                          "llm_bci_tpu/ops/flash_attention.py:294"),
     # one TPU kernel, two regimes of the port's kernel: M <= 64 (split-K and a
-    # reduce pass) and M > 64 (128 x 128 tiles), timed at (K, N) = (4096, 11008)
+    # reduce pass) and M > 64 (wgmma tiles), timed at (K, N) = (4096, 11008)
     "int8_matmul_small_m": ("llm_bci_tpu_torch/csrc/int8_matmul.cu",
                             "llm_bci_tpu/ops/quant.py:127"),
     "int8_matmul_tiled": ("llm_bci_tpu_torch/csrc/int8_matmul.cu",

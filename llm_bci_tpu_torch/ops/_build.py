@@ -2,8 +2,9 @@
 
 ``csrc/<name>.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``_build/lib<name>-<hash>.so``, and loaded
-with ``ctypes``. The file name carries a hash of the source and the flags,
-so an edited source is rebuilt and an unchanged one is loaded as it is.
+with ``ctypes``. The file name carries a hash of the source, of the shared
+headers (``csrc/*.cuh``) and of the flags, so an edited source is rebuilt and
+an unchanged one is loaded as it is.
 Sources are read only from ``llm_bci_tpu_torch/csrc/``; the ``_build/``
 directory is not committed. A failed build raises.
 """
@@ -41,10 +42,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    sources = [os.path.join(CSRC_DIR, f"{name}.cu")] + sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> str:

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +35,8 @@ BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 
 HEAD_SIZES = (32, 64, 128)
+TILE = 64                # queries a block owns, and keys a step of its sweep
+MAX_SMEM_BYTES = 232448  # what one block can use on an H100
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -44,8 +46,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("flash_attention")
         p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-        tail = [i, i, i, i, i, i, i, f, u, f, i, p]   # B T H D bf16 fwd bwd scale thresh inv use stream
-        lib.flash_fwd_launch.argtypes = [p, p, p, p, p, p, p] + tail
+        meta = [i, i, i, i, i, i, i, f, u, f, i]   # B T H D bf16 fwd bwd scale thresh inv use
+        tail = meta + [p]                            # stream
+        lib.flash_fwd_launch.argtypes = [p, p, p, p, p, p, p] + meta + [i, p]   # smem, stream
         lib.flash_dq_launch.argtypes = [p, p, p, p, p, p, p, p, p] + tail
         lib.flash_dkv_launch.argtypes = [p, p, p, p, p, p, p, p, p, p] + tail
         for fn in (lib.flash_fwd_launch, lib.flash_dq_launch, lib.flash_dkv_launch):
@@ -89,6 +92,35 @@ def kernel_meta(q: torch.Tensor, fwd: int, bwd: int, scale: float, drop_p: float
     )
 
 
+class ForwardPlan(NamedTuple):
+    """What the forward launcher decides on the host."""
+    kernel: str          # "wgmma" or "mma"
+    stages: int          # K / V tiles in shared memory at a time
+    smem_bytes: int      # dynamic shared memory of a block
+    blocks_per_sm: int   # by shared memory, each block paying 1 KB of overhead
+
+
+def forward_plan(D: int, is_bf16: bool) -> ForwardPlan:
+    """The forward kernel of one head size and dtype. bf16 with ``D`` of 64
+    or 128 takes the wgmma kernel: Q and rings of two K and two V tiles of
+    ``TILE`` rows in the swizzled layout, the rings' barriers, and 1 KB of
+    slack to align the tiles to the swizzle atom. float32 and ``D = 32`` take
+    the ``mma.sync`` / CUDA-core kernel: Q, one K and one V tile with 16
+    bytes of padding a row, and the probabilities. The launcher refuses a
+    plan whose shared memory differs from the kernel's own."""
+    if D not in HEAD_SIZES:
+        raise ValueError(f"flash kernel: head size {D} not in {HEAD_SIZES}")
+    if is_bf16 and D >= 64:
+        kernel, stages = "wgmma", 2
+        smem = (1 + 2 * stages) * TILE * D * 2 + 64 + 1024
+    else:
+        kernel, stages = "mma", 1
+        e = 2 if is_bf16 else 4
+        pad = 16 // e
+        smem = e * (3 * TILE * (D + pad) + TILE * (TILE + pad)) + 4 * TILE
+    return ForwardPlan(kernel, stages, smem, MAX_SMEM_BYTES // (smem + 1024))
+
+
 class FlashAttentionFunction(torch.autograd.Function):
     """``out = attention(q, k, v)`` under the band + key-padding mask.
 
@@ -102,8 +134,6 @@ class FlashAttentionFunction(torch.autograd.Function):
     def forward(ctx, q, k, v, key_valid, seed, fwd: int, bwd: int, scale: float,
                 drop_p: float):
         device = q.device
-        if device.type != "cuda":
-            raise ValueError(f"flash kernel: q is on {device}, expected a CUDA device")
         if q.dtype not in (torch.bfloat16, torch.float32):
             raise TypeError(f"flash kernel: dtype {q.dtype} not taken (bfloat16, float32)")
         if q.dim() != 4:
@@ -122,6 +152,9 @@ class FlashAttentionFunction(torch.autograd.Function):
             _check(seed, "seed", torch.int32, (1,), device)
         if not (0 <= fwd <= T and 0 <= bwd <= T):
             raise ValueError(f"flash kernel: band widths ({fwd}, {bwd}) outside [0, {T}]")
+        # the device last, so that every other refusal can be seen without a card
+        if device.type != "cuda":
+            raise ValueError(f"flash kernel: q is on {device}, expected a CUDA device")
         ctx.meta = kernel_meta(q, fwd, bwd, scale, drop_p if use_drop else 0.0)
         out, lse = flash_fwd(q, k, v, key_valid, seed if use_drop else None, ctx.meta)
         ctx.has_valid, ctx.has_seed = key_valid is not None, use_drop
@@ -152,15 +185,17 @@ def flash_fwd(q, k, v, key_valid, seed, meta):
     has checked; ``meta`` is :func:`kernel_meta`'s tuple. Returns ``out``
     and ``lse`` ``(B, H, T)`` float32."""
     global FWD_LAUNCHES
-    B, T, H, _ = q.shape
+    B, T, H, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), device=q.device, dtype=torch.float32)
+    smem = forward_plan(D, q.dtype == torch.bfloat16).smem_bytes
     with torch.cuda.device(q.device):
         rc = _lib().flash_fwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             key_valid.data_ptr() if key_valid is not None else None,
             seed.data_ptr() if seed is not None else None,
-            out.data_ptr(), lse.data_ptr(), *meta, torch.cuda.current_stream().cuda_stream,
+            out.data_ptr(), lse.data_ptr(), *meta, smem,
+            torch.cuda.current_stream().cuda_stream,
         )
     _raise_if_failed(rc, "forward")
     FWD_LAUNCHES += 1

@@ -213,3 +213,62 @@ def test_shape_checks_and_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         fc.banded_flash_attention_cuda(q, k, v)
     assert fc._LIB is None and (fc.FWD_LAUNCHES, fc.BWD_DQ_LAUNCHES, fc.BWD_DKV_LAUNCHES) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("bf16", [True, False])
+def test_forward_plan_per_head_size(D, bf16):
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+    plan = fc.forward_plan(D, bf16)
+    if bf16 and D >= 64:
+        # Q, two K and two V tiles of 64 rows, the rings' barriers, 1 KB to align
+        assert plan.kernel == "wgmma" and plan.stages == 2
+        assert plan.smem_bytes == 5 * 64 * D * 2 + 64 + 1024
+        assert plan.blocks_per_sm >= 2          # a second block overlaps softmax and products
+    else:
+        assert plan.kernel == "mma" and plan.stages == 1
+    assert plan.smem_bytes + 1024 <= fc.MAX_SMEM_BYTES
+    assert plan.blocks_per_sm == fc.MAX_SMEM_BYTES // (plan.smem_bytes + 1024) >= 1
+
+
+def test_forward_plan_refuses_other_head_sizes():
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+    with pytest.raises(ValueError, match="head size"):
+        fc.forward_plan(48, True)
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("cpu", ValueError, "CUDA"),
+    ("float16", TypeError, "dtype"),
+    ("three dimensions", ValueError, r"\(B, T, H, D\)"),
+    ("head size 48", ValueError, "head size"),
+    ("k of another dtype", TypeError, "k has dtype"),
+    ("v not contiguous", ValueError, "contiguous"),
+    ("key_valid int64", TypeError, "key_valid"),
+    ("band wider than T", ValueError, "band widths"),
+])
+def test_cuda_function_refuses_what_the_kernels_do_not_take(case, error, match):
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+    B, T, H, D = 2, 8, 2, 64
+    q, k, v = (torch.zeros((B, T, H, D), dtype=torch.bfloat16) for _ in range(3))
+    valid, fwd = None, T
+    if case == "float16":
+        q = q.to(torch.float16)
+    elif case == "three dimensions":
+        q = q[0]
+    elif case == "head size 48":
+        q, k, v = (x[..., :48].contiguous() for x in (q, k, v))
+    elif case == "k of another dtype":
+        k = k.float()
+    elif case == "v not contiguous":
+        v = torch.zeros((B, H, T, D), dtype=torch.bfloat16).transpose(1, 2)
+    elif case == "key_valid int64":
+        valid = torch.ones((B, T), dtype=torch.int64)
+    elif case == "band wider than T":
+        fwd = T + 1
+    with pytest.raises(error, match=match):
+        fc.FlashAttentionFunction.apply(q, k, v, valid, None, fwd, T, 0.125, 0.0)
+    assert fc._LIB is None and fc.FWD_LAUNCHES == 0

@@ -153,6 +153,80 @@ def test_large_m_plan_is_one_pass():
     assert int8_matmul_cuda.plan(1480, 11008, 4096, True) == (0, 1, 11008)
 
 
+@pytest.mark.parametrize("M", [65, 129, 185, 256, 257, 1480, 4096])
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+                                 (160, 144), (4112, 272)])
+def test_tile_plan_covers_the_output_within_one_block_s_shared_memory(M, K, N):
+    ic = int8_matmul_cuda
+    t = ic.tile_plan(M, K, N)
+    assert t.tile_m in ic.TILE_MS and t.threads == 288 and t.stages == ic.TILE_STAGES
+    gm, gn = t.grid
+    assert gm * t.tile_m >= M and (gm - 1) * t.tile_m < M      # M covered, no empty block
+    assert gn * ic.TILE_N >= N and (gn - 1) * ic.TILE_N < N
+    # the ring (x as bf16, q as int8), the converted weight tiles, the ring's
+    # barriers, 1 KB to align
+    ring = t.stages * (t.tile_m * ic.TILE_K * 2 + ic.TILE_K * ic.TILE_N)
+    assert t.smem_bytes == ring + ic.TILE_B_TILES * ic.TILE_K * ic.TILE_N * 2 + 128 + 1024
+    assert t.smem_bytes <= ic.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("M,K,N,tile_m", [
+    (1480, 4096, 4096, 256), (1480, 4096, 11008, 256), (1480, 11008, 4096, 256),
+    (1480, 4096, 32000, 256), (185, 4096, 4096, 128), (185, 11008, 4096, 128),
+    (185, 4096, 11008, 256), (185, 4096, 32000, 256), (65, 160, 144, 128),
+])
+def test_tile_plan_picks_the_rows_whose_waves_cost_least(M, K, N, tile_m):
+    """A wave is one block on each of the 132 SMs, and a 128-row tile costs
+    1.5 times a 256-row tile's time a row (it converts twice the codes a
+    product). At M = 1480 the 256-row tiles win at every Llama-2-7B shape; at
+    one trial's prompt (M = 185) the 4096-wide products fit one wave either
+    way and the 128-row tiles, two blocks where there was one, are faster."""
+    assert int8_matmul_cuda.tile_plan(M, K, N).tile_m == tile_m
+
+
+def test_tile_plan_refuses_the_split_k_regime():
+    with pytest.raises(ValueError, match="split-K"):
+        int8_matmul_cuda.tile_plan(64, 4096, 4096)
+
+
+def _cuda_args(M=70, K=32, N=32, dtype=torch.bfloat16):
+    return (torch.zeros((M, K), dtype=dtype), torch.zeros((K, N), dtype=torch.int8),
+            torch.ones((N,), dtype=torch.float32))
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("cpu", ValueError, "CUDA"),
+    ("x float16", TypeError, "bfloat16 or float32"),
+    ("q float", TypeError, "int8"),
+    ("out float16", TypeError, "out_dtype"),
+    ("K not a multiple of 16", ValueError, "multiples of 16"),
+    ("shapes do not fit", ValueError, "do not fit"),
+    ("x not contiguous", ValueError, "contiguous"),
+    ("q unaligned", ValueError, "aligned"),
+])
+def test_cuda_wrapper_refuses_what_the_kernels_do_not_take(case, error, match):
+    x, q, s = _cuda_args()
+    out_dtype = torch.bfloat16
+    if case == "x float16":
+        x = x.to(torch.float16)
+    elif case == "q float":
+        q = q.float()
+    elif case == "out float16":
+        out_dtype = torch.float16
+    elif case == "K not a multiple of 16":
+        x, q, s = _cuda_args(K=24)
+    elif case == "shapes do not fit":
+        s = torch.ones((48,), dtype=torch.float32)
+    elif case == "x not contiguous":
+        x = torch.zeros((32, 70), dtype=torch.bfloat16).t()
+    elif case == "q unaligned":
+        q = torch.zeros((32 * 32 + 1,), dtype=torch.int8)[1:].view(32, 32)
+    before = int8_matmul_cuda.LAUNCHES
+    with pytest.raises(error, match=match):
+        int8_matmul_cuda.int8_matmul_cuda(x, q, s, out_dtype)
+    assert int8_matmul_cuda._LIB is None and int8_matmul_cuda.LAUNCHES == before
+
+
 @pytest.mark.parametrize("H,Hkv", [(4, 2), (8, 1), (4, 4)])
 def test_grouped_query_attention_equals_repeated_heads(H, Hkv):
     rng = np.random.default_rng(7)
