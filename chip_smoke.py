@@ -23,13 +23,24 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    gradients atol 2e-4 + rtol 2e-4: float32 sums in another order) and in
    bf16 against the float32 plain version of the same bf16 inputs (out atol
    2e-2, gradients atol 3e-2 + rtol 3e-2: p and ds are rounded to bf16
-   before their products), over an unbounded band, narrow bands, a causal
-   band, right and left key padding, rows with no visible key (exactly 0,
-   gradients 0), a ragged T with small D, and dropout 0.4 from a fixed seed
-   (same keep mask as the plain version, kept fraction, same bits twice);
-   then the NDT1-mlm shape (B=32, H=8, T=1024, D=128, bf16, dropout 0.4)
-   with times from CUDA events, the bound of each kernel, and
-   ``scaled_dot_product_attention`` timed beside them at T=1024 and T=128;
+   before their products), over an unbounded band, narrow, causal and
+   asymmetric bands with tiles inside and cut, right and left key padding,
+   rows with no visible key (exactly 0, gradients 0), key tiles with no
+   valid key, T one past a tile edge, a ragged T with small D, and dropout
+   0.4 from a fixed seed (same keep mask as the plain version, kept
+   fraction, same bits twice); ``flash_delta_kernel`` against its plain
+   version in float32 (rtol 1e-6) and bf16 (rtol 1e-5); the backward
+   launchers' refusal of a plan that differs from the kernels' own
+   constants; then the NDT1-mlm
+   shape (B=32, H=8, T=1024, D=128, bf16, dropout 0.4; the same bits twice
+   for out, dq, dk, dv) with times from CUDA events, the bound of each
+   kernel, the whole backward call (on a contiguous and on a strided
+   ``dout``), and ``scaled_dot_product_attention`` and its one backward
+   call timed beside them at T=1024 (also under a band of 128 / 128 and at
+   D=64, H=16) and at T=128 (device times from a CUDA graph there), one
+   ``einsum`` and one ``vecdot`` beside ``flash_delta_kernel``; the
+   registers and stack of each kernel as compiled, which must not spill
+   beyond what is known;
 5. main path (NDT1-CTC): synthetic competition-format ``.mat`` files (64 train and
    64 test trials, 256 channels, 480-512 bins, real sentences for the G2P
    phoneme targets) through ``llm_bci_tpu_torch.main`` with
@@ -43,7 +54,8 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    width and depth (5 x 1024, 8 heads, D=128, B=32, T=1024, bf16 autocast,
    ``random`` masker ratio 0.3, left padding, ``flash_attention: auto``):
    4 training steps and one eval. The launch counters must show 5 forward
-   launches a model call and 5 of each backward kernel a training step;
+   launches a model call and 5 of each backward kernel (delta, dQ, dK/dV)
+   a training step;
 7. kernels: the int8 dequant-matmul kernels against ``int8_matmul_plain`` on
    the card: float32 ``x`` at small and ragged M, K, N (rtol 1e-4, atol
    1e-4 x max|out|); bf16 ``x`` at the eight Llama-2-7B shapes x M in {8,
@@ -84,6 +96,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -337,6 +350,18 @@ FLASH_CASES = [
     ("band 100/100, tiles inside and cut, left padding", 2, 320, 2, 64, 100, 100, "left", 0.0),
     ("band 100/100, D=128, dropout 0.4, right padding", 2, 320, 2, 128, 100, 100, "right", 0.4),
     ("T=40, shorter than one tile", 2, 40, 2, 64, None, None, "right", 0.0),
+    # what the wgmma backward kernels can get wrong (bf16; float32 runs them
+    # through the mma kernels): query tiles wholly inside an asymmetric band
+    # and cut by it, T one past a tile edge, dead rows at D=128, key tiles
+    # with no valid key
+    ("band 150/70, D=128, tiles inside and cut, left padding, dropout 0.4",
+     2, 400, 2, 128, 150, 70, "left", 0.4),
+    ("T=65, one past a tile edge, right padding", 2, 65, 2, 128, None, None, "right", 0.0),
+    ("T=129, one past a tile edge, right padding, dropout 0.4",
+     2, 129, 2, 64, None, None, "right", 0.4),
+    ("rows with no visible key, D=128", 2, 200, 2, 128, 0, 2, "dead", 0.0),
+    ("key_valid empties whole key tiles", 2, 300, 2, 128, None, None, "hole", 0.0),
+    ("key_valid empties whole key tiles, band 80/40, D=64", 2, 300, 2, 64, 80, 40, "hole", 0.0),
 ]
 
 
@@ -356,6 +381,9 @@ def flash_inputs(B, T, H, D, pad, dtype, device, seed=0):
     elif pad == "dead":
         valid[0, :] = 0           # a whole example without keys
         valid[1, :T // 2] = 0     # under a causal band: padded queries see nothing
+    elif pad == "hole":
+        valid[0, 64:192] = 0      # two whole 64-key tiles, halves of two 128-key tiles
+        valid[1, 128:256] = 0     # one whole 128-key tile
     return q, k, v, w, torch.from_numpy(valid).to(device)
 
 
@@ -431,6 +459,48 @@ def flash_kernel_phase(results: dict) -> None:
         raise AssertionError(f"flash dropout keeps {frac:.4f} of the entries, expected 0.6")
     say("kernels", f"flash dropout 0.4: kept fraction {frac:.4f} over 4*8*1024*1024 entries")
 
+    # flash_delta_kernel against its plain version, in both dtypes. The sums
+    # run in another order: rtol 1e-6 (float32) or 1e-5 (bf16 inputs, the same
+    # float32 arithmetic on them) with atol the same share of the largest
+    # sum of |dO * O| of a row, which is what a cancelling sum is held to.
+    delta_err = 0.0
+    for dtype, rtol in ((torch.float32, 1e-6), (torch.bfloat16, 1e-5)):
+        for Bd, Td, Hd, Dd in ((32, 1024, 8, 128), (3, 77, 3, 32), (2, 129, 5, 64)):
+            o_, g_, _, _, _ = flash_inputs(Bd, Td, Hd, Dd, "none", dtype, dev, seed=5)
+            got = fc.flash_delta(o_, g_)
+            ref = fa.flash_delta_plain(o_, g_)
+            torch.cuda.synchronize()
+            atol = rtol * (o_.float() * g_.float()).abs().sum(-1).max().item()
+            torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
+            delta_err = max(delta_err, (got - ref).abs().max().item())
+    say("kernels", f"flash_delta_kernel float32 and bfloat16 at D=128, 32, 64: "
+        f"max|err| {delta_err:.2e}")
+
+    # The backward launchers refuse a plan that differs from the kernel's own
+    # constants in any field (the wgmma kernels and the mma kernels).
+    real_plan, refused = fc.backward_plan, 0
+    fields = fc.KernelPlan._fields[1:]
+    try:
+        for dtype, Dp in ((torch.bfloat16, 128), (torch.bfloat16, 64), (torch.float32, 32)):
+            q, k, v, w, valid = flash_inputs(2, 128, 2, Dp, "none", dtype, dev)
+            for field in fields:
+                fc.backward_plan = lambda D_, bf16, f=field: fc.BackwardPlan(*(
+                    one._replace(**{f: getattr(one, f) + 1}) for one in real_plan(D_, bf16)))
+                before = (fc.BWD_DQ_LAUNCHES, fc.BWD_DKV_LAUNCHES)
+                try:
+                    flash_run(kernel, q, k, v, w, valid, None, None, 0.0, None)
+                except RuntimeError:
+                    refused += 1
+                else:
+                    raise AssertionError(f"flash D={Dp}: a plan with another {field} was launched")
+                if before != (fc.BWD_DQ_LAUNCHES, fc.BWD_DKV_LAUNCHES):
+                    raise AssertionError("flash: a refused launch was counted")
+    finally:
+        fc.backward_plan = real_plan
+    flash_run(kernel, q, k, v, w, valid, None, None, 0.0, None)
+    say("kernels", f"flash backward launchers refused {refused} plans that differ from the "
+        f"kernels' own in one of {', '.join(fields)}")
+
     # The NDT1-mlm shape: one layer's attention at full width.
     B, T, H, D, drop, seed = 32, 1024, 8, 128, 0.4, 4321
     q, k, v, w, valid = flash_inputs(B, T, H, D, "none", torch.bfloat16, dev, seed=1)
@@ -446,15 +516,25 @@ def flash_kernel_phase(results: dict) -> None:
     torch.testing.assert_close(got[0], ref[0], atol=o_atol, rtol=0.0)
     for a, b in zip(got[1:], ref[1:]):
         torch.testing.assert_close(a, b, atol=g_atol, rtol=g_rtol)
+    del ref
+    again = flash_run(kernel, q, k, v, w, valid, None, None, drop, seed)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("flash at the full-width shape: same seed, different bits")
     worst = {"fwd": max(worst["fwd"], errs[0]), "dq": max(worst["dq"], errs[1]),
              "dkv": max(worst["dkv"], errs[2], errs[3])}
     say("kernels", f"flash bfloat16 B={B} H={H} T={T} D={D} dropout {drop}, left padding: "
-        f"max|err| out {errs[0]:.2e} dq {errs[1]:.2e} dk {errs[2]:.2e} dv {errs[3]:.2e}")
-    del got, ref
+        f"max|err| out {errs[0]:.2e} dq {errs[1]:.2e} dk {errs[2]:.2e} dv {errs[3]:.2e}; "
+        f"out, dq, dk, dv the same bits twice")
+    del got, again
 
-    def timings(B, T, H, D, valid, drop, seed, band=None, forward_only=False):
-        """Kernel, plain and SDPA times at one bf16 shape; ``band`` is the
-        (forward, backward) context, unbounded when None."""
+    e = 2                                                    # bytes of a bf16
+
+    def timings(B, T, H, D, valid, drop, seed, band=None, with_plain=False):
+        """Kernel and SDPA times at one bf16 shape, with each kernel's bound
+        from this run's mask; ``band`` is the (forward, backward) context,
+        unbounded when None. A (query, key) pair counts when the key is
+        visible; 2*D operations a pair and product: 2 products forward, 3 for
+        dQ (s, dp, ds.K), 4 for dK/dV (s, dp, p^T.dO, ds^T.Q)."""
         q, k, v, w, _ = flash_inputs(B, T, H, D, "none", torch.bfloat16, dev, seed=1)
         q, k, v = (x.requires_grad_(True) for x in (q, k, v))
         seed_t = torch.tensor([seed], dtype=torch.int32, device=dev)
@@ -462,98 +542,185 @@ def flash_kernel_phase(results: dict) -> None:
         fwd, bwd = band if band is not None else (T, T)
         args = (q, k, v, valid, seed_t, fwd, bwd, scale, drop)
         # one library call: SDPA on (B, H, T, D) with a boolean mask of the
-        # same padding and band and the same dropout rate
+        # same padding and band and the same dropout rate; its backward gives
+        # dq, dk and dv in one call
         qh, kh, vh, wh = (x.detach().transpose(1, 2).contiguous() for x in (q, k, v, w))
         qh, kh, vh = (x.requires_grad_(True) for x in (qh, kh, vh))
         mask = fa.visibility_mask(T, valid, fwd, bwd, dev).expand(B, 1, T, T)
         sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, dropout_p=drop)
-        t = {"pairs": float(mask.sum().item()) * H}
+        pairs = float(mask.sum().item()) * H
+        qkv, small = B * T * H * D * e, B * H * T * 4
+        t = {"bound_fwd": bound(2 * 2 * D * pairs, 4 * qkv + small + B * T * 4, "bfloat16"),
+             "bound_dq": bound(3 * 2 * D * pairs, 5 * qkv + 2 * small + B * T * 4, "bfloat16"),
+             "bound_dkv": bound(4 * 2 * D * pairs, 6 * qkv + 2 * small + B * T * 4, "bfloat16"),
+             "bound_delta": bound(2 * B * T * H * D, 2 * qkv + small, "float32")}
         with torch.no_grad():
             t["fwd"] = cuda_ms(lambda: fc.FlashAttentionFunction.apply(*args), 20)
             t["sdpa_fwd"] = cuda_ms(sdpa, 20)
-            if forward_only:
-                return t
             if T <= 256:     # the host's enqueue time exceeds the kernel's
                 t["fwd_device"] = graph_ms(lambda: fc.FlashAttentionFunction.apply(*args), 20)
                 t["sdpa_fwd_device"] = graph_ms(sdpa, 20)
-            out = fc.FlashAttentionFunction.apply(*args)
+        out = fc.FlashAttentionFunction.apply(*args)
+        # the whole backward call: delta and both kernels on a contiguous dout
+        # of the kernels' dtype, which the cast passes on as it is, ...
+        t["bwd"] = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), w, retain_graph=True), 20)
+        # ... and on a dout that arrives strided (the (B, H, T, D) memory of a
+        # transpose), which the call first copies
+        w_t = w.transpose(1, 2).contiguous().transpose(1, 2)
+        t["bwd_strided"] = cuda_ms(
+            lambda: torch.autograd.grad(out, (q, k, v), w_t, retain_graph=True), 20)
         # the backward kernels alone, on the tensors the backward would get
         meta = fc.kernel_meta(q, fwd, bwd, scale, drop)
         with torch.no_grad():
             _, lse = fc.flash_fwd(q, k, v, valid, seed_t, meta)
-            delta = (w.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+            o = out.detach()
+            delta = fc.flash_delta(o, w)
             back = (q, k, v, valid, seed_t, w, lse, delta, meta)
+            t["delta"] = cuda_ms(lambda: fc.flash_delta(o, w), 20)
+            t["plain_delta"] = cuda_ms(lambda: fa.flash_delta_plain(o, w), 20)
+            # one library call for the same sums, einsum or vecdot (whose
+            # (B, T, H) result is read as (B, H, T) through a view): in the
+            # inputs' dtype (for bf16 it rounds the result to bf16, which the
+            # kernel does not), and on float32 copies made outside the timing
+            einsum = lambda a, b: torch.einsum("bthd,bthd->bht", a, b)
+            vecdot = lambda a, b: torch.linalg.vecdot(a, b).transpose(1, 2)
+            o32, w32 = o.float(), w.float()
+            atol = 1e-4 * float((o32 * w32).abs().sum(-1).max())
+            for call in (einsum, vecdot):
+                torch.testing.assert_close(call(o32, w32), delta, rtol=1e-4, atol=atol)
+            t["einsum_delta"] = cuda_ms(lambda: einsum(o, w), 20)
+            t["vecdot_delta"] = cuda_ms(lambda: vecdot(o, w), 20)
+            t["einsum_delta_f32"] = cuda_ms(lambda: einsum(o32, w32), 20)
+            t["vecdot_delta_f32"] = cuda_ms(lambda: vecdot(o32, w32), 20)
+            t["lib_delta"] = min(t["einsum_delta"], t["vecdot_delta"])
+            del o32, w32
             t["dq"] = cuda_ms(lambda: fc.flash_dq(*back), 20)
             t["dkv"] = cuda_ms(lambda: fc.flash_dkv(*back), 20)
-        p_out = fa.banded_flash_attention_plain(q, k, v, valid, fwd, bwd, drop, seed_t)
-        with torch.no_grad():
-            t["plain_fwd"] = cuda_ms(lambda: fa.banded_flash_attention_plain(
-                q, k, v, valid, fwd, bwd, drop, seed_t), 3)
-        t["plain_dq"] = cuda_ms(lambda: torch.autograd.grad(p_out, q, w, retain_graph=True), 3)
-        t["plain_dkv"] = cuda_ms(
-            lambda: torch.autograd.grad(p_out, (k, v), w, retain_graph=True), 3)
-        del p_out
+            if T <= 256:
+                t["delta_device"] = graph_ms(lambda: fc.flash_delta(o, w), 20)
+                t["dq_device"] = graph_ms(lambda: fc.flash_dq(*back), 20)
+                t["dkv_device"] = graph_ms(lambda: fc.flash_dkv(*back), 20)
+        del out
+        if with_plain:
+            p_out = fa.banded_flash_attention_plain(q, k, v, valid, fwd, bwd, drop, seed_t)
+            with torch.no_grad():
+                t["plain_fwd"] = cuda_ms(lambda: fa.banded_flash_attention_plain(
+                    q, k, v, valid, fwd, bwd, drop, seed_t), 3)
+            t["plain_dq"] = cuda_ms(
+                lambda: torch.autograd.grad(p_out, q, w, retain_graph=True), 3)
+            t["plain_dkv"] = cuda_ms(
+                lambda: torch.autograd.grad(p_out, (k, v), w, retain_graph=True), 3)
+            del p_out
         s_out = sdpa()
-        t["sdpa_dq"] = cuda_ms(lambda: torch.autograd.grad(s_out, qh, wh, retain_graph=True), 20)
-        t["sdpa_dkv"] = cuda_ms(
-            lambda: torch.autograd.grad(s_out, (kh, vh), wh, retain_graph=True), 20)
+        sdpa_bwd = lambda: torch.autograd.grad(s_out, (qh, kh, vh), wh, retain_graph=True)
+        t["sdpa_bwd"] = cuda_ms(sdpa_bwd, 20)   # autograd's engine cannot be captured: eager
         return t
 
-    t = timings(B, T, H, D, valid, drop, seed)
-    # Bounds from this run's data: a (query, key) pair counts when the key is
-    # valid (the band is unbounded); 2*D operations a pair and product.
-    pairs = float(T * valid.sum().item() * H)
-    e = 2                                                    # bytes of a bf16
-    qkv = B * T * H * D * e
-    small = B * H * T * 4
-    bounds = {
-        "fwd": bound(2 * 2 * D * pairs, 4 * qkv + small + B * T * 4, "bfloat16"),
-        # dQ needs s, dp and ds.K; dK/dV needs s, dp, p^T.dO and ds^T.Q
-        "dq": bound(3 * 2 * D * pairs, 5 * qkv + 2 * small + B * T * 4, "bfloat16"),
-        "dkv": bound(4 * 2 * D * pairs, 6 * qkv + 2 * small + B * T * 4, "bfloat16"),
-    }
+    def backward_line(label, t):
+        pair = t["dq"] + t["dkv"]
+        say("kernels", f"flash backward at {label}: flash_dq_kernel {t['dq']:.3f} ms (bound "
+            f"{t['bound_dq']['bound_ms']:.3f}, {t['bound_dq']['bound_by']}), flash_dkv_kernel "
+            f"{t['dkv']:.3f} ms (bound {t['bound_dkv']['bound_ms']:.3f}, "
+            f"{t['bound_dkv']['bound_by']}), the pair {pair:.3f} ms, the whole backward call "
+            f"{t['bwd']:.3f} ms ({t['bwd_strided']:.3f} with the copy of a strided dout); one "
+            f"SDPA backward (dq, dk, dv) {t['sdpa_bwd']:.3f} ms: the pair "
+            f"{pair / t['sdpa_bwd']:.2f}x, the call {t['bwd'] / t['sdpa_bwd']:.2f}x "
+            f"({t['bwd_strided'] / t['sdpa_bwd']:.2f}x) its time")
+
+    t = timings(B, T, H, D, valid, drop, seed, with_plain=True)
     for key, label in (("fwd", "flash_fwd_kernel"), ("dq", "flash_dq_kernel"),
-                       ("dkv", "flash_dkv_kernel")):
-        results[label] = dict(max_abs_err=worst[key], ms=t[key], plain_ms=t[f"plain_{key}"],
-                              library_ms=t[f"sdpa_{key}"], **bounds[key])
+                       ("dkv", "flash_dkv_kernel"), ("delta", "flash_delta_kernel")):
+        # one SDPA backward gives dq, dk and dv: both backward kernels are
+        # held against that one call; delta against the faster of one einsum
+        # and one vecdot on the same bf16 tensors
+        library = {"fwd": t["sdpa_fwd"], "dq": t["sdpa_bwd"], "dkv": t["sdpa_bwd"],
+                   "delta": t["lib_delta"]}[key]
+        err = delta_err if key == "delta" else worst[key]
+        results[label] = dict(max_abs_err=err, ms=t[key], plain_ms=t[f"plain_{key}"],
+                              library_ms=library, **t[f"bound_{key}"])
         say("kernels", f"{label} at B={B} H={H} T={T} D={D} bf16 dropout {drop}: "
-            f"{t[key]:.3f} ms, bound {bounds[key]['bound_ms']:.3f} ms "
-            f"({bounds[key]['bound_by']}), plain {t['plain_' + key]:.3f} ms, "
-            f"SDPA {t['sdpa_' + key]:.3f} ms")
+            f"{t[key]:.4f} ms, bound {t['bound_' + key]['bound_ms']:.4f} ms "
+            f"({t['bound_' + key]['bound_by']}), plain {t['plain_' + key]:.3f} ms, library "
+            f"{library:.4f} ms")
+    say("kernels", f"flash_delta_kernel's library calls on the bf16 tensors (bf16 result) and "
+        f"on float32 copies: torch.einsum('bthd,bthd->bht') {t['einsum_delta']:.4f} and "
+        f"{t['einsum_delta_f32']:.4f} ms, torch.linalg.vecdot {t['vecdot_delta']:.4f} and "
+        f"{t['vecdot_delta_f32']:.4f} ms")
+    backward_line(f"B={B} H={H} T={T} D={D} bf16 dropout {drop}", t)
     q0, k0, v0, _, _ = flash_inputs(B, T, H, D, "none", torch.bfloat16, dev, seed=1)
     with torch.no_grad():
         no_drop = cuda_ms(lambda: fc.FlashAttentionFunction.apply(
             q0, k0, v0, valid, None, T, T, 1.0 / math.sqrt(D), 0.0), 20)
     say("kernels", f"flash_fwd_kernel without dropout: {no_drop:.3f} ms "
         f"(the keep mask costs {t['fwd'] - no_drop:.3f} ms)")
-    k_all = t["fwd"] + t["dq"] + t["dkv"]
-    s_all = t["sdpa_fwd"] + t["sdpa_dq"]        # SDPA's backward gives all three at once
+    k_all = t["fwd"] + t["bwd"]
+    s_all = t["sdpa_fwd"] + t["sdpa_bwd"]
     say("kernels", f"flash vs SDPA at T={T}: forward {t['fwd'] / t['sdpa_fwd']:.2f}x its time, "
         f"forward+backward {k_all:.3f} ms vs {s_all:.3f} ms ({k_all / s_all:.2f}x)")
 
-    # The forward under a band and at D=64: the visible pairs of this run's
-    # mask give the bound, SDPA gets the same mask.
+    # Under a band and at D=64: the visible pairs of this run's mask give the
+    # bounds, SDPA gets the same mask.
     for label, Bx, Hx, Dx, band in ((f"D={D} band 128/128", B, H, D, (128, 128)),
                                     ("D=64 unbounded", B, 2 * H, 64, None)):
-        tx = timings(Bx, T, Hx, Dx, valid, drop, seed, band=band, forward_only=True)
-        bx = bound(2 * 2 * Dx * tx["pairs"],
-                   4 * Bx * T * Hx * Dx * e + Bx * Hx * T * 4 + Bx * T * 4, "bfloat16")
+        tx = timings(Bx, T, Hx, Dx, valid, drop, seed, band=band)
+        bx = tx["bound_fwd"]
         say("kernels", f"flash_fwd_kernel at B={Bx} H={Hx} T={T}, {label}, bf16 dropout "
             f"{drop}: {tx['fwd']:.3f} ms, bound {bx['bound_ms']:.3f} ms ({bx['bound_by']}), "
             f"SDPA {tx['sdpa_fwd']:.3f} ms ({tx['fwd'] / tx['sdpa_fwd']:.2f}x)")
+        backward_line(f"B={Bx} H={Hx} T={T}, {label}, bf16 dropout {drop}", tx)
 
     # The short length of the stacked CTC path, for the auto threshold.
     Bs, Ts = 64, 128
     valid_s = torch.ones((Bs, Ts), dtype=torch.int32, device=dev)
-    ts = timings(Bs, Ts, H, D, valid_s, drop, seed)
-    k_all = ts["fwd"] + ts["dq"] + ts["dkv"]
-    s_all = ts["sdpa_fwd"] + ts["sdpa_dq"]
+    ts = timings(Bs, Ts, H, D, valid_s, drop, seed, with_plain=True)
+    k_all = ts["fwd"] + ts["bwd"]
+    s_all = ts["sdpa_fwd"] + ts["sdpa_bwd"]
     say("kernels", f"flash vs SDPA at B={Bs} T={Ts}: forward {ts['fwd']:.3f} ms vs "
         f"{ts['sdpa_fwd']:.3f} ms ({ts['fwd'] / ts['sdpa_fwd']:.2f}x), forward+backward "
         f"{k_all:.3f} ms vs {s_all:.3f} ms ({k_all / s_all:.2f}x); plain forward "
         f"{ts['plain_fwd']:.3f} ms, plain backward {ts['plain_dq'] + ts['plain_dkv']:.3f} ms")
-    say("kernels", f"flash_fwd_kernel at B={Bs} T={Ts}, device time from a CUDA graph of 20 "
-        f"launches: {ts['fwd_device']:.4f} ms, SDPA {ts['sdpa_fwd_device']:.4f} ms")
+    say("kernels", f"at B={Bs} T={Ts}, device time from a CUDA graph of 20 launches: "
+        f"flash_fwd_kernel {ts['fwd_device']:.4f} ms, SDPA forward {ts['sdpa_fwd_device']:.4f} "
+        f"ms; flash_delta_kernel {ts['delta_device']:.4f}, flash_dq_kernel "
+        f"{ts['dq_device']:.4f}, flash_dkv_kernel {ts['dkv_device']:.4f} ms (eager, with "
+        f"the host's enqueue time: {ts['delta']:.4f}, {ts['dq']:.4f}, {ts['dkv']:.4f}, the "
+        f"whole backward call {ts['bwd']:.4f}, one SDPA backward {ts['sdpa_bwd']:.4f} ms)")
+
+    # Registers and spills of the kernels, as the compiler left them. A kernel
+    # that spills is right and slow, so the stack is held to what is known:
+    # none, but for 64 bytes in dK/dV at D=64 (two blocks an SM at 128
+    # registers, which measured faster than one block without spills).
+    found = _build_resources("flash_attention", ("wgmma", "flash_delta"))
+    for kernel_name, (reg, stack) in sorted(found.items()):
+        allowed = 64 if kernel_name == "flash_dkv_wgmma_kernelILi64" else 0
+        say("kernels", f"{kernel_name}: {reg} registers a thread, {stack} bytes of stack "
+            f"(at most {allowed})")
+        if stack > allowed:
+            raise AssertionError(f"{kernel_name} spills: {stack} bytes of stack, {allowed} allowed")
+    wgmma = [n for n in found if "wgmma" in n]
+    if len(wgmma) != 6 or not any("flash_delta" in n for n in found):
+        raise AssertionError(f"resource usage: expected the six wgmma kernels and delta: {found}")
+
+
+def _build_resources(name: str, patterns) -> dict:
+    """``cuobjdump --dump-resource-usage`` of a built library: (registers a
+    thread, stack bytes) of each kernel whose name holds one of ``patterns``,
+    by the part of its mangled name that holds kernel, dtype and head size."""
+    from llm_bci_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "--dump-resource-usage", _build.build(name)],
+                         capture_output=True, text=True, timeout=120, check=True).stdout
+    found, current = {}, None
+    for raw in out.splitlines():
+        raw = raw.strip()
+        if raw.startswith("Function "):
+            current = raw[len("Function "):].rstrip(":")
+        elif raw.startswith("REG:") and current and any(p in current for p in patterns):
+            short = re.search(r"flash_(?:fwd|dq|dkv|delta)_\w*?kernelI\w*?Li\d+", current)
+            reg, stack = re.search(r"REG:(\d+)", raw), re.search(r"STACK:(\d+)", raw)
+            found[short.group(0) if short else current] = (int(reg.group(1)), int(stack.group(1)))
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -1230,7 +1397,8 @@ def mlm_main_path_phase(power_line: str, profile) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"flash_fwd_kernel": fc.FWD_LAUNCHES, "flash_dq_kernel": fc.BWD_DQ_LAUNCHES,
-                    "flash_dkv_kernel": fc.BWD_DKV_LAUNCHES}
+                    "flash_dkv_kernel": fc.BWD_DKV_LAUNCHES,
+                    "flash_delta_kernel": fc.BWD_DELTA_LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
 
     tr = trainer.config.model.encoder.transformer
@@ -1245,7 +1413,8 @@ def mlm_main_path_phase(power_line: str, profile) -> dict:
             raise AssertionError(f"{key} is not finite: {h[key]}")
     eval_batches = len(trainer.test_dataloader)
     want = {"flash_fwd_kernel": n_layers * (steps + eval_batches),
-            "flash_dq_kernel": n_layers * steps, "flash_dkv_kernel": n_layers * steps}
+            "flash_dq_kernel": n_layers * steps, "flash_dkv_kernel": n_layers * steps,
+            "flash_delta_kernel": n_layers * steps}
     if launches != want:
         raise AssertionError(f"flash launches {launches}, expected {want}")
     say("mlm", f"{steps} steps + eval ({eval_batches} batch) through llm_bci_tpu_torch.main in "
@@ -1346,6 +1515,9 @@ KERNELS = {
                         "llm_bci_tpu/ops/flash_attention.py:237"),
     "flash_dkv_kernel": ("llm_bci_tpu_torch/csrc/flash_attention.cu",
                          "llm_bci_tpu/ops/flash_attention.py:294"),
+    # the expression that XLA fuses into one pass there
+    "flash_delta_kernel": ("llm_bci_tpu_torch/csrc/flash_attention.cu",
+                           "llm_bci_tpu/ops/flash_attention.py:367"),
     # one TPU kernel, two regimes of the port's kernel: M <= 64 (split-K and a
     # reduce pass) and M > 64 (wgmma tiles), timed at (K, N) = (4096, 11008)
     "int8_matmul_small_m": ("llm_bci_tpu_torch/csrc/int8_matmul.cu",

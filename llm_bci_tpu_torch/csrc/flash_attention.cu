@@ -1,9 +1,10 @@
-// Banded flash attention for sm_90a: forward, dQ and dK/dV kernels.
+// Banded flash attention for sm_90a: forward, delta, dQ and dK/dV kernels.
 //
 // Replaces the Pallas TPU kernels of llm_bci_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel  <- _fwd_kernel      (via _flash_fwd)
-//   flash_dq_kernel   <- _bwd_dq_kernel   (via _flash_bwd)
-//   flash_dkv_kernel  <- _bwd_dkv_kernel  (via _flash_bwd)
+//   flash_fwd_kernel, fwd_wg::flash_fwd_wgmma_kernel  <- _fwd_kernel     (via _flash_fwd)
+//   flash_dq_kernel, bwd_wg::flash_dq_wgmma_kernel    <- _bwd_dq_kernel  (via _flash_bwd)
+//   flash_dkv_kernel, bwd_wg::flash_dkv_wgmma_kernel  <- _bwd_dkv_kernel (via _flash_bwd)
+//   flash_delta_kernel  <- delta = sum(out * do) in _flash_bwd, which XLA fuses
 //
 // What they compute. Self-attention over (B, T, H, D) tensors where key j is
 // visible to query i iff  i - bwd <= j <= i + fwd  and key_valid[b, j] != 0.
@@ -14,59 +15,90 @@
 // q_pos, k_pos), bit for bit the JAX package's _keep_mask, so the backward
 // kernels regenerate the forward's mask from coordinates alone. The softmax
 // normaliser l sums the undropped probabilities; only the value product sees
-// p * keep / (1 - p_drop). The backward recomputes p = exp(s - lse) and takes
-// delta = rowsum(dO * O) from the caller.
-//
-// Design on this card. The TPU kernels make the key sweep a sequential grid
-// dimension with the softmax state in scratch memory across grid steps. Here
-// blocks run in parallel and nothing carries between them, so the sweep is a
-// loop inside one block: a block owns a tile of 64 queries (forward, dQ) or
-// of 64 keys (dK/dV; no atomics, each block owns its sums) and walks over the
-// tiles of the other side that intersect the band; tiles wholly outside the
-// band are never loaded. The running max, the normaliser and the output
-// accumulators live in registers; p and ds are rounded to the input type
+// p * keep / (1 - p_drop). The backward recomputes p = exp(s * scale - lse),
+// takes dp = dO V^T * keep / (1 - p_drop) and ds = p * (dp - delta) with
+// delta = rowsum(dO * O), and gives dq = scale * ds K, dk = scale * ds^T Q,
+// dv = (p * keep / (1 - p_drop))^T dO; p and ds are rounded to the input type
 // before their products, as the TPU kernels do.
 //
-// * Forward, bf16, D = 64 or 128 (`fwd_wg::flash_fwd_wgmma_kernel`): one
-//   consumer warpgroup owns the 64 queries and runs wgmma. s = Q K^T is
-//   m64n64k16 with Q and K read K-major from 128-byte-swizzled shared memory;
-//   o += P V takes P as the A operand from registers (the accumulator
-//   fragment of s, packed to bf16 pairs, is already in the A-fragment layout,
-//   so the probabilities never touch shared memory) and V, D-contiguous, as
-//   the MN-major B operand with the transpose flag. A fifth warp keeps 4-D TMA
-//   loads of K and of V one tile ahead in rings of two, handed back and forth
-//   through mbarriers; rows past T arrive as zeros. The score product of tile
-//   j + 1 and the value product of tile j are in flight while the warps turn
-//   the scores of tile j + 1 into probabilities; the key_valid words of that
-//   tile are loaded before the products are started and read after them. A
-//   tile wholly inside the band whose keys are all valid skips the visibility
-//   test; the exponentials are exp2 with scale * log2(e) folded into one fma
-//   (lse stays in natural log).
-//   Two blocks an SM (80 KB of shared memory each at D = 128) let one block's
-//   softmax overlap the other's products.
-// * Forward at D = 32 and for float32, dQ and dK/dV: 4 warps of 16 rows each,
-//   mma.sync.m16n8k16 (bf16 inputs, float32 accumulate) with fragments read by
-//   ldmatrix from padded shared-memory tiles, loaded synchronously. float32
-//   inputs take the same code with the products on the CUDA cores in full
-//   float32 (a slow path meant for holding the kernels tightly against the
-//   plain version). D = 32 is half a swizzle row and stays here.
+// Design on this card. The TPU kernels make the sweep a sequential grid
+// dimension with the state in scratch memory across grid steps. Here blocks
+// run in parallel and nothing carries between them, so the sweep is a loop
+// inside one block: a block owns a tile of queries (forward, dQ) or of keys
+// (dK/dV; no atomics, each block owns its sums, so one seed gives the same
+// bits every run) and walks over the tiles of the other side that intersect
+// the band; tiles wholly outside the band are never loaded. Running max,
+// normaliser and accumulators live in registers.
 //
-// Bound: operations (4*T^2*D per head forward, 10*T^2*D backward, against
-// 3-4 tensors of T*D bytes); measured times beside the bounds are in PERF.md.
-// What holds the wgmma forward from its bound: the softmax and, with dropout,
-// the keep hash (about 10 integer operations an entry, the bits may not
-// change) are instruction work of one warpgroup that only the SM's second
-// block overlaps with the products, and a 64 x 64 score tile is a small wgmma.
-// What holds the backward kernels: every warp reads the whole K and V tile
-// out of shared memory for its 16 rows, about 2.4 bytes of fragments for each
-// byte the 128 B/clock shared-memory port could pair with one mma; tiles are
-// loaded synchronously, so loads overlap compute only across the blocks
-// resident on an SM; s and dp are recomputed in both kernels; and mma.sync
-// reaches about two thirds of the wgmma rate at best.
+// bf16 at D = 64 and 128 runs wgmma on 64-row tiles in 128-byte-swizzled
+// shared memory, filled by 4-D TMA loads over the public (B, T, H, D) layout
+// (rows past T arrive as zeros) and handed over through mbarriers. In all
+// three kernels the probabilities never touch shared memory: the accumulator
+// fragment of a score product, packed to bf16 pairs, is already the register A
+// operand of the next product, whose B operand is a D-contiguous tile read
+// MN-major (transpose flag). A tile wholly inside the band whose keys are all
+// valid skips the visibility test; the exponentials are exp2 with scale *
+// log2(e) folded into one fma and lse scaled once a row.
+// * Forward (`fwd_wg::flash_fwd_wgmma_kernel`): one consumer warpgroup owns
+//   64 queries; a fifth warp keeps K and V rings of two ahead. The score
+//   product of tile j + 1 and the value product of tile j are in flight while
+//   the warps turn the scores of tile j + 1 into probabilities. Two blocks an
+//   SM let one block's softmax overlap the other's products.
+// * dQ (`bwd_wg::flash_dq_wgmma_kernel`): one warpgroup owns 64 queries; Q
+//   and dO stay, K tiles go through a ring of three (a K tile serves s = Q K^T
+//   of one step and, read again MN-major, dq += ds K of the next) and V tiles
+//   through a ring of one or two (free as soon as dp = dO V^T is done, which
+//   is committed first). The products of tile j + 1 and the dq product of
+//   tile j are in flight while the warps turn s and dp of tile j + 1 into ds.
+//   The warpgroup's first thread issues the TMA loads itself: a wgmma group is
+//   one operation of the whole warpgroup, so once that thread has waited for
+//   it the tile is free. Two blocks of 128 threads an SM leave a thread 255
+//   registers; with a fifth warp the compiler allowed 168 and serialised the
+//   products.
+// * dK/dV (`bwd_wg::flash_dkv_wgmma_kernel`): a block owns 128 keys, 64 to
+//   each of two warpgroups that share a ring of four (Q, dO) tile pairs. Keys
+//   are the rows: s^T = K Q^T and dp^T = V dO^T with K / V as the A operand,
+//   then dv += p^T dO and dk += ds^T Q from registers. lse and delta belong
+//   to the columns and are staged in shared memory a tile ahead. dk and dv
+//   take 128 registers a thread at D = 128, so a step of the sweep takes 32
+//   queries (half a tile): s^T and dp^T of 64 x 32 and their packed copies
+//   fit beside them. A third warpgroup that only loads, with setmaxnreg
+//   moving its registers to the other two, did not help: the compiler places
+//   wgmma accumulators within the register count the kernel is launched with
+//   (168 at 384 threads). So the block's first thread loads here too, and
+//   nothing branches on what one warpgroup's keys can see, because a wgmma
+//   under a condition that differs between warpgroups is serialised as well.
+//   While one warpgroup turns its scores into p^T and ds^T the other's
+//   products run (packing the next step's operands while a step's dv and dk
+//   products are still in flight was tried: the compiler serialises a wgmma
+//   whose register operand is written inside the pipeline stage). At D = 64
+//   two blocks share an SM. dq, dk and dv are staged through a tile the block no longer
+//   reads, so that a warp stores whole 128-byte lines.
+// * D = 32 and float32 (`flash_fwd_kernel`, `flash_dq_kernel`,
+//   `flash_dkv_kernel`): 4 warps of 16 rows each, mma.sync.m16n8k16 (bf16
+//   inputs, float32 accumulate) with fragments read by ldmatrix from padded
+//   shared-memory tiles, loaded synchronously; dK/dV steps over 32 queries.
+//   float32 inputs take the same code with the products on the CUDA cores in
+//   full float32 (a slow path meant for holding the kernels tightly against
+//   the plain version). D = 32 is half a swizzle row and stays here.
+// * `flash_delta_kernel`: every dtype and head size; reads out and dout once,
+//   16 bytes a thread, sums in float32 and writes the (B, H, T) layout of lse.
 //
-// The tensors are read in the public (B, T, H, D) layout (row stride H*D), so
-// no transposed copy is made. D must be 32, 64 or 128 here; the Python
-// wrapper zero-pads other head sizes. Every launcher returns cudaGetLastError().
+// Bounds: operations for the attention kernels (4*T^2*D per head forward,
+// 6*T^2*D for dQ, 8*T^2*D for dK/dV, against 4-6 tensors of T*D elements),
+// bytes for delta; measured times beside the bounds are in PERF.md. What holds
+// the wgmma kernels from their bounds: turning scores into probabilities (and
+// ds) is instruction work of the same warps that issue the products: exp2,
+// about 12 integer operations an entry for the keep hash (the bits may not
+// change), the multiply-adds of ds. In the forward and dQ only the SM's
+// second block and the products already in flight cover it; in dK/dV only the
+// other warpgroup, since dk and dv leave no registers for a second set of
+// scores. s and dp are recomputed in both backward kernels, and a 64 x 64 or
+// 64 x 32 score tile is a small wgmma whose A operand is read from shared
+// memory again for every tile.
+//
+// D must be 32, 64 or 128 here; the Python wrapper zero-pads other head
+// sizes. Every launcher returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,6 +136,22 @@ struct FlashParams {
   int use_drop;
 };
 
+enum Which { FWD = 0, DQ = 1, DKV = 2 };
+
+// What the host planned for a kernel. A launcher refuses a plan that differs
+// from the kernel's own; the forward states its shared memory only.
+struct Planned {
+  int rows;      // rows a block owns: queries (dQ) or keys (dK/dV)
+  int stages;    // tiles of the swept side in shared memory at a time
+  int threads;   // threads of a block
+  int smem;      // dynamic shared memory of a block
+  int blocks;    // blocks an SM
+  bool is(int r, int st, int th, int sm, int bl) const {
+    return rows == r && stages == st && threads == th && smem == sm && blocks == bl;
+  }
+};
+constexpr int MAX_SMEM = 232448;   // what one block can use on an H100
+
 template <typename T>
 struct Pad {
   static constexpr int value = 16 / sizeof(T);   // 16 bytes of padding a row
@@ -118,6 +166,9 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -128,11 +179,9 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// The JAX package's _keep_mask in uint32 arithmetic.
-__device__ __forceinline__ bool keep_mask(uint32_t seed, uint32_t bh, uint32_t q_pos,
-                                          uint32_t k_pos, uint32_t thresh) {
-  uint32_t x = (q_pos * 0x9E3779B1u) ^ (k_pos * 0x85EBCA77u);
-  x ^= bh * 0xC2B2AE3Du;
+// The JAX package's _keep_mask in uint32 arithmetic, after its first line:
+// `x` is (q_pos * 0x9E3779B1) ^ (k_pos * 0x85EBCA77) ^ (bh * 0xC2B2AE3D).
+__device__ __forceinline__ bool keep_hash(uint32_t x, uint32_t seed, uint32_t thresh) {
   x += seed;
   x ^= x >> 16;
   x *= 0x7FEB352Du;
@@ -140,6 +189,12 @@ __device__ __forceinline__ bool keep_mask(uint32_t seed, uint32_t bh, uint32_t q
   x *= 0x846CA68Bu;
   x ^= x >> 16;
   return x >= thresh;
+}
+
+__device__ __forceinline__ bool keep_mask(uint32_t seed, uint32_t bh, uint32_t q_pos,
+                                          uint32_t k_pos, uint32_t thresh) {
+  return keep_hash((q_pos * 0x9E3779B1u) ^ (k_pos * 0x85EBCA77u) ^ (bh * 0xC2B2AE3Du), seed,
+                   thresh);
 }
 
 // Rows [row0, row0 + ROWS) of a matrix with HD columns and `stride` elements
@@ -975,56 +1030,730 @@ __global__ void __launch_bounds__(THREADS) flash_dkv_kernel(FlashParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// Launchers
+// Backward, bf16, head sizes 64 and 128: wgmma kernels fed by TMA rings.
 // ---------------------------------------------------------------------------
 
-enum Which { FWD = 0, DQ = 1, DKV = 2 };
+namespace bwd_wg {
 
-// `fwd_smem_planned` is the dynamic shared memory the caller planned for the
-// forward kernel; a plan that differs from the kernel's own is refused.
-template <typename T, int HD>
-int launch(int which, const FlashParams& p, int fwd_smem_planned, cudaStream_t stream) {
-  const int n_tiles = (p.T + TILE - 1) / TILE;
-  const dim3 grid((unsigned)(n_tiles * p.B * p.H));
-  void (*kernel)(FlashParams);
-  size_t smem;
-  if (which == FWD) {
-    if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 64) {
-      return fwd_wg::launch<HD>(p, fwd_smem_planned, stream);
-    } else {
-      kernel = flash_fwd_kernel<T, HD>;
-      smem = fwd_smem<T, HD>();
-      if ((size_t)fwd_smem_planned != smem) return (int)cudaErrorInvalidValue;
+using fwd_wg::exp2_approx;
+using fwd_wg::load_tile;
+using fwd_wg::LOG2E;
+using fwd_wg::tensor_map;
+using fwd_wg::tile_bytes;
+
+constexpr int WG = 128;                  // threads of a warpgroup
+
+// dQ: Q, dO, a ring of K tiles (each lives through two steps of the sweep:
+// the score product of one and the dq product of the next) and a ring of V
+// tiles (free again as soon as dp is done). One warpgroup a block, whose
+// first thread also issues the TMA loads: it knows when a tile is free, and
+// two blocks of 128 threads an SM leave each thread up to 255 registers, which
+// a fifth warp would not.
+constexpr int DQ_THREADS = WG;
+constexpr int DQ_BLOCKS_PER_SM = 2;
+constexpr int DQ_K_STAGES = 3;
+template <int HD>
+__host__ __device__ constexpr int dq_v_stages() { return HD == 128 ? 1 : 2; }
+template <int HD>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return (2 + DQ_K_STAGES + dq_v_stages<HD>()) * tile_bytes<HD>() + 128 + 1024;
+}
+
+// dK/dV: two warpgroups own 64 keys each of a 128-key tile (K and V loaded
+// once) and share a ring of (Q, dO) tile pairs; each keeps two buffers of 64
+// lse and 64 delta values. One block an SM at D = 128, where dk and dv alone
+// take 128 registers a thread. Two at D = 64: the kernel wants 156 registers
+// and gets 128, the compiler spills 64 bytes and waits after each wgmma, and
+// with twice the warps to do the per-entry work it still measured faster.
+template <int HD>
+__host__ __device__ constexpr int dkv_blocks_per_sm() { return HD == 128 ? 1 : 2; }
+constexpr int DKV_KEYS = 2 * TILE;
+constexpr int DKV_THREADS = 2 * WG;
+constexpr int DKV_STAGES = 4;
+constexpr int DKV_ROW_BYTES = 2 * 2 * 2 * TILE * 4;   // warpgroups x buffers x (lse, delta)
+// Queries a step of the sweep: half a (Q, dO) tile. At D = 128 dk and dv take
+// 128 registers a thread, and s^T and dp^T of 64 x 32 with their packed
+// copies fit beside them without spills; at D = 64 the shorter step measured
+// faster as well.
+constexpr int DKV_STEP = 32;
+template <int HD>
+__host__ __device__ constexpr int dkv_smem_bytes() {
+  return (4 + 2 * DKV_STAGES) * tile_bytes<HD>() + DKV_ROW_BYTES + 128 + 1024;
+}
+
+// lse in units of log2, as the exponent's fma takes it. A row with no visible
+// key has lse = -1e30: every entry of it is masked (its score is set to
+// -1e30), and with 0 here the exponent stays far below 0 instead of
+// overflowing.
+__device__ __forceinline__ float lse_log2(float lse) {
+  return lse <= NEG_INF ? 0.f : lse * LOG2E;
+}
+
+// The 64 x HD accumulator fragment of a warpgroup, times `mul`, goes as bf16
+// through a swizzled tile at `stage` (which no product reads any more, and
+// only this warpgroup uses) to rows [row0, row0 + 64) of one head at `dst`
+// (row stride `stride` elements), so that a warp stores whole 128-byte lines.
+// Rows at or beyond n_rows are not written. `tid` is the thread's index in
+// the warpgroup, `bar_id` a named barrier of its own.
+template <int HD>
+__device__ __forceinline__ void store_tile(const float (&acc)[HD / 2], float mul,
+                                           unsigned char* stage, __nv_bfloat16* dst,
+                                           long stride, int row0, int n_rows, int tid,
+                                           int bar_id) {
+  using namespace hopper;
+  const int warp = tid >> 5;
+  const int g = (tid & 31) >> 2;
+  const int t = tid & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = warp * 16 + g + 8 * r;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      // columns 8j + 2t and + 1: block j / 8, chunk j % 8, 4t bytes into it
+      unsigned char* at = stage + (j >> 3) * (TILE * 128) + swizzle128(row, j & 7) + 4 * t;
+      *reinterpret_cast<uint32_t*>(at) =
+          pack_bf16(acc[4 * j + 2 * r] * mul, acc[4 * j + 2 * r + 1] * mul);
     }
-  } else if (which == DQ) {
-    kernel = flash_dq_kernel<T, HD>;
-    smem = dq_smem<T, HD>();
-  } else {
-    kernel = flash_dkv_kernel<T, HD>;
-    smem = dkv_smem<T, HD>();
   }
+  named_barrier(bar_id, WG);
+  constexpr int CPR = HD / 8;              // 16-byte chunks a row
+#pragma unroll
+  for (int i = 0; i < TILE * CPR / WG; ++i) {
+    const int idx = i * WG + tid;
+    const int row = idx / CPR;
+    const int ch = idx % CPR;
+    if (row0 + row < n_rows) {
+      const int4 val = *reinterpret_cast<const int4*>(stage + (ch >> 3) * (TILE * 128) +
+                                                      swizzle128(row, ch & 7));
+      *reinterpret_cast<int4*>(dst + (long)(row0 + row) * stride + ch * 8) = val;
+    }
+  }
+}
+
+// Bit j of the pair: key k0 + j (lo) or k0 + 32 + j (hi) exists and is valid.
+// Every lane reads two words; called by whole warps.
+__device__ __forceinline__ void load_valid(const int* valid, int k0, int n_keys, int lane,
+                                           int& v0, int& v1) {
+  const int j0 = k0 + lane;
+  const int j1 = j0 + 32;
+  v0 = j0 < n_keys ? (valid == nullptr ? 1 : valid[j0]) : 0;
+  v1 = j1 < n_keys ? (valid == nullptr ? 1 : valid[j1]) : 0;
+}
+
+// dQ. One warpgroup owns 64 queries and sweeps over the key tiles
+// that cut their band. For key tile j: dp = dO V_j^T and s = Q K_j^T (A and B
+// K-major from shared memory), ds = p * (dp * keep / (1 - p_drop) - delta) in
+// the registers of the two accumulator fragments, and dq += ds K_j with ds as
+// the register A operand and the same K tile read again as the MN-major B
+// operand. The products of tile j + 1 and the dq product of tile j are in
+// flight while the warps turn the scores of tile j + 1 into ds. A wgmma group
+// is one operation of the whole warpgroup: once thread 0 has waited for it,
+// no warp reads the tile any more and thread 0 starts the next load into it.
+template <int HD>
+__global__ void __launch_bounds__(DQ_THREADS, DQ_BLOCKS_PER_SM)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do, FlashParams p) {
+  using namespace hopper;
+  using bf16 = __nv_bfloat16;
+  constexpr int TB = tile_bytes<HD>();
+  constexpr int KST = DQ_K_STAGES;
+  constexpr int VST = dq_v_stages<HD>();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t sQ = smem_u32(base);
+  const uint32_t sdO = sQ + TB;
+  const uint32_t sK = sdO + TB;                    // KST tiles
+  const uint32_t sV = sK + KST * TB;               // VST tiles
+  const uint32_t k_full = sV + VST * TB;          // KST barriers
+  const uint32_t v_full = k_full + KST * 8;        // VST barriers
+
+  const int n_tiles = (p.T + TILE - 1) / TILE;
+  const int bh = blockIdx.x / n_tiles;
+  const int q0 = (blockIdx.x % n_tiles) * TILE;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  const int k_lo = max(q0 - p.bwd, 0);
+  const int k_hi = min(q0 + TILE - 1 + p.fwd, p.T - 1);
+  const int kt_lo = k_lo / TILE;
+  const int n_steps = k_hi / TILE - kt_lo + 1;     // at least 1
+
+  // K or V tile `it` of the sweep into its ring slot; called by thread 0 once
+  // the slot's last reader is done
+  auto load_k = [&](int it) {
+    if (threadIdx.x != 0 || it >= n_steps) return;
+    const uint32_t bar = k_full + (it % KST) * 8;
+    mbar_arrive_expect_tx(bar, TB);
+    load_tile<HD>(sK + (it % KST) * TB, &tm_k, (kt_lo + it) * TILE, h, b, bar);
+  };
+  auto load_v = [&](int it) {
+    if (threadIdx.x != 0 || it >= n_steps) return;
+    const uint32_t bar = v_full + (it % VST) * 8;
+    mbar_arrive_expect_tx(bar, TB);
+    load_tile<HD>(sV + (it % VST) * TB, &tm_v, (kt_lo + it) * TILE, h, b, bar);
+  };
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < KST + VST; ++i) mbar_init(k_full + i * 8, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(k_full, 3 * TB);
+    load_tile<HD>(sQ, &tm_q, q0, h, b, k_full);
+    load_tile<HD>(sdO, &tm_do, q0, h, b, k_full);
+    load_tile<HD>(sK, &tm_k, kt_lo * TILE, h, b, k_full);
+    load_v(0);
+    for (int it = 1; it < KST; ++it) load_k(it);
+    for (int it = 1; it < VST; ++it) load_v(it);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q_pos[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
+  const uint32_t seed = p.use_drop ? (uint32_t)(*p.seed) : 0u;
+  const uint32_t bh_hash = (uint32_t)bh * 0xC2B2AE3Du;
+  const uint32_t q_hash[2] = {((uint32_t)q_pos[0] * 0x9E3779B1u) ^ bh_hash,
+                              ((uint32_t)q_pos[1] * 0x9E3779B1u) ^ bh_hash};
+  const float c_log2 = p.scale * LOG2E;
+  const int* valid = p.valid != nullptr ? p.valid + (long)b * p.T : nullptr;
+  float lse2[2], delta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const bool in = q_pos[r] < p.T;
+    lse2[r] = in ? lse_log2(p.lse[(long)bh * p.T + q_pos[r]]) : 0.f;
+    delta[r] = in ? p.delta[(long)bh * p.T + q_pos[r]] : 0.f;
+  }
+
+  float dq[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
+  float s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+  uint32_t pa[4][4];
+
+  // dp = dO V^T of V slot `vs`, then s = Q K^T of K slot `ks`: two groups, so
+  // that the V tile can be handed back before the scores are done
+  auto start_scores = [&](int ks, int vs) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (TILE * 128) + (kk & 3) * 32;
+      wgmma_ss_n64(dp, make_desc(sdO + off, 16, 1024), make_desc(sV + vs * TB + off, 16, 1024),
+                   kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (TILE * 128) + (kk & 3) * 32;
+      wgmma_ss_n64(s, make_desc(sQ + off, 16, 1024), make_desc(sK + ks * TB + off, 16, 1024),
+                   kk > 0);
+    }
+    wgmma_commit();
+  };
+  // dq += ds K of K slot `ks`, ds from registers, K MN-major: 16 keys a step
+  auto start_dq = [&](int ks) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) {
+      const uint64_t dk = make_desc(sK + ks * TB + kk * (16 * 128), TILE * 128, 1024);
+      if constexpr (HD == 128) {
+        wgmma_rs_n128_bt(dq, pa[kk], dk, 1);
+      } else {
+        wgmma_rs_n64_bt(dq, pa[kk], dk, 1);
+      }
+    }
+    wgmma_commit();
+  };
+  // s and dp of key tile k0 become ds, in dp's registers
+  auto make_ds = [&](int k0, uint32_t lo, uint32_t hi) {
+    // A tile wholly inside the band whose keys are all valid needs no
+    // visibility test; any other tile masks entry by entry.
+    const bool inside = k0 >= q0 + TILE - 1 - p.bwd && k0 + TILE - 1 <= q0 + p.fwd;
+    if (!(inside && (lo & hi) == 0xffffffffu)) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const uint32_t bits = (j < 4 ? lo : hi) >> ((j & 3) * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k_pos = k0 + j * 8 + 2 * t + (e & 1);
+          const int qp = q_pos[e >> 1];
+          const bool visible =
+              ((bits >> (e & 1)) & 1u) != 0u && k_pos >= qp - p.bwd && k_pos <= qp + p.fwd;
+          if (!visible) s[4 * j + e] = NEG_INF;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float pr = exp2_approx(fmaf(s[4 * j + e], c_log2, -lse2[r]));
+        float d = dp[4 * j + e];
+        if (p.use_drop) {
+          const uint32_t k_pos = (uint32_t)(k0 + j * 8 + 2 * t + (e & 1));
+          d = keep_hash(q_hash[r] ^ (k_pos * 0x85EBCA77u), seed, p.thresh) ? d * p.inv_keep : 0.f;
+        }
+        dp[4 * j + e] = pr * (d - delta[r]);
+      }
+    }
+  };
+  // ds, rounded to bf16, becomes the 4 A fragments of the dq product
+  auto pack = [&]() {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+    }
+  };
+
+  uint32_t lo, hi;
+  int v0, v1;
+  load_valid(valid, kt_lo * TILE, p.T, lane, v0, v1);
+  mbar_wait(k_full, 0);              // Q, dO and the first K tile
+  mbar_wait(v_full, 0);
+  start_scores(0, 0);
+  wgmma_wait<1>();
+  fence_operand(dp);
+  load_v(VST);
+  wgmma_wait<0>();
+  fence_operand(s);
+  lo = __ballot_sync(0xffffffffu, v0 != 0);
+  hi = __ballot_sync(0xffffffffu, v1 != 0);
+  make_ds(kt_lo * TILE, lo, hi);
+  pack();
+
+  for (int it = 0; it + 1 < n_steps; ++it) {
+    const int ks = it % KST;
+    const int ks_next = (it + 1) % KST;
+    const int vs_next = (it + 1) % VST;
+    const int k0_next = (kt_lo + it + 1) * TILE;
+    load_valid(valid, k0_next, p.T, lane, v0, v1);
+    mbar_wait(k_full + ks_next * 8, ((it + 1) / KST) & 1);
+    mbar_wait(v_full + vs_next * 8, ((it + 1) / VST) & 1);
+    start_scores(ks_next, vs_next);
+    start_dq(ks);
+    wgmma_wait<2>();                 // dp of tile it + 1: its V slot is free
+    fence_operand(dp);
+    load_v(it + 1 + VST);
+    wgmma_wait<1>();                 // s of tile it + 1
+    fence_operand(s);
+    lo = __ballot_sync(0xffffffffu, v0 != 0);
+    hi = __ballot_sync(0xffffffffu, v1 != 0);
+    make_ds(k0_next, lo, hi);
+    wgmma_wait<0>();                 // the dq product of tile it: its K slot is free
+    fence_operand(dq);
+    load_k(it + KST);
+    pack();
+  }
+  start_dq((n_steps - 1) % KST);
+  wgmma_wait<0>();
+  fence_operand(dq);
+
+  bf16* out = static_cast<bf16*>(p.dq) + ((long)b * p.T * p.H + h) * HD;
+  store_tile<HD>(dq, p.scale, base, out, (long)p.H * HD, q0, p.T, threadIdx.x, 1);
+}
+
+// dK, dV. A block owns 128 keys, 64 to each of two warpgroups, and
+// sweeps over the 64-query tiles that cut their band. Keys are the rows:
+// s^T = K Q^T and dp^T = V dO^T with K / V as the A operand and Q / dO as the
+// K-major B operand; the accumulator fragments of p^T * keep / (1 - p_drop)
+// and ds^T, packed to bf16 pairs, are the register A operands of dv += p^T dO
+// and dk += ds^T Q, with the same dO and Q tiles as the MN-major B operand.
+// lse and delta belong to the columns: each warpgroup brings the next tile's
+// 64 + 64 floats to shared memory while this tile's products run. The
+// block's first thread also keeps the TMA loads of (Q, dO) pairs ahead in a
+// ring: two warpgroups alone leave a thread up to 255 registers, and the
+// compiler places wgmma accumulators only within the count the kernel is
+// launched with, whatever setmaxnreg adds later. While one warpgroup turns
+// its scores into p^T and ds^T, the other's products run.
+template <int HD>
+__global__ void __launch_bounds__(DKV_THREADS, dkv_blocks_per_sm<HD>())
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do, FlashParams p) {
+  using namespace hopper;
+  using bf16 = __nv_bfloat16;
+  constexpr int TB = tile_bytes<HD>();
+  constexpr int ST = DKV_STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  const uint32_t sK = smem_u32(base);              // 2 tiles, one a warpgroup
+  const uint32_t sV = sK + 2 * TB;                 // 2 tiles
+  const uint32_t sQ = sV + 2 * TB;                 // ST tiles
+  const uint32_t sdO = sQ + ST * TB;               // ST tiles
+  float* rows = reinterpret_cast<float*>(base + (4 + 2 * ST) * TB);
+  const uint32_t kv_full = sdO + ST * TB + DKV_ROW_BYTES;
+  const uint32_t full = kv_full + 8;               // ST barriers
+  const uint32_t empty = full + ST * 8;            // ST barriers, 2 arrivals each
+
+  const int n_tiles = (p.T + DKV_KEYS - 1) / DKV_KEYS;
+  const int bh = blockIdx.x / n_tiles;
+  const int k0 = (blockIdx.x % n_tiles) * DKV_KEYS;
+  const int b = bh / p.H;
+  const int h = bh % p.H;
+  // query i sees key j iff j - fwd <= i <= j + bwd
+  const int q_lo = max(k0 - p.fwd, 0);
+  const int q_hi = min(k0 + DKV_KEYS - 1 + p.bwd, p.T - 1);
+  const int qt_lo = q_lo / TILE;
+  const int n_steps = q_hi / TILE - qt_lo + 1;     // at least 1
+
+  // (Q, dO) tile `it` of the sweep into its ring slot; called by thread 0
+  auto load_pair = [&](int it) {
+    const int slot = it % ST;
+    const int q0 = (qt_lo + it) * TILE;
+    mbar_arrive_expect_tx(full + slot * 8, 2 * TB);
+    load_tile<HD>(sQ + slot * TB, &tm_q, q0, h, b, full + slot * 8);
+    load_tile<HD>(sdO + slot * TB, &tm_do, q0, h, b, full + slot * 8);
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+#pragma unroll
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(full + i * 8, 1);
+      mbar_init(empty + i * 8, 2);
+    }
+    mbar_init_fence();
+    mbar_arrive_expect_tx(kv_full, 4 * TB);
+#pragma unroll
+    for (int w = 0; w < 2; ++w) {
+      load_tile<HD>(sK + w * TB, &tm_k, k0 + w * TILE, h, b, kv_full);
+      load_tile<HD>(sV + w * TB, &tm_v, k0 + w * TILE, h, b, kv_full);
+    }
+    for (int it = 0; it < ST - 2 && it < n_steps; ++it) load_pair(it);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & (WG - 1);
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int k0w = k0 + wg * TILE;                // this warpgroup's first key
+  const int k_pos[2] = {k0w + warp * 16 + g, k0w + warp * 16 + g + 8};
+  const uint32_t seed = p.use_drop ? (uint32_t)(*p.seed) : 0u;
+  const uint32_t bh_hash = (uint32_t)bh * 0xC2B2AE3Du;
+  const uint32_t k_hash[2] = {((uint32_t)k_pos[0] * 0x85EBCA77u) ^ bh_hash,
+                              ((uint32_t)k_pos[1] * 0x85EBCA77u) ^ bh_hash};
+  const float c_log2 = p.scale * LOG2E;
+  const uint32_t sKw = sK + wg * TB;
+  const uint32_t sVw = sV + wg * TB;
+  float* my_rows = rows + wg * (2 * 2 * TILE);   // [buffer][lse 64, delta 64]
+  const int bar_id = 1 + wg;
+
+  // which of this warpgroup's 64 keys exist and are valid
+  uint32_t lo, hi;
+  {
+    int v0, v1;
+    load_valid(p.valid != nullptr ? p.valid + (long)b * p.T : nullptr, k0w, p.T, lane, v0, v1);
+    lo = __ballot_sync(0xffffffffu, v0 != 0);
+    hi = __ballot_sync(0xffffffffu, v1 != 0);
+  }
+  bool key_ok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int i = warp * 16 + g + 8 * r;
+    key_ok[r] = (((i < 32 ? lo : hi) >> (i & 31)) & 1u) != 0u;
+  }
+  const bool keys_full = (lo & hi) == 0xffffffffu;
+
+  // lse (threads 0-63, in units of log2) or delta (64-127) of query
+  // q0 + tid % 64; 0 past T
+  auto load_row = [&](int q0) {
+    const int q = q0 + (tid & (TILE - 1));
+    if (q >= p.T) return 0.f;
+    const long at = (long)bh * p.T + q;
+    return tid < TILE ? lse_log2(p.lse[at]) : p.delta[at];
+  };
+
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+  // A step of the sweep takes NQ queries: s^T and dp^T of 64 keys x NQ
+  // queries, and the packed p^T and ds^T, share the registers with dk and dv.
+  constexpr int NQ = DKV_STEP;
+  constexpr int PARTS = TILE / NQ;               // steps a (Q, dO) tile
+  constexpr int NS = NQ / 8;                     // 8-query column groups a step
+  float st[NQ / 2], dpt[NQ / 2];
+#pragma unroll
+  for (int i = 0; i < NQ / 2; ++i) st[i] = dpt[i] = 0.f;
+  uint32_t pa_p[NQ / 16][4], pa_ds[NQ / 16][4];
+
+  // s^T = K Q^T and dp^T = V dO^T for queries [part * NQ, + NQ) of ring slot `slot`
+  auto start_scores = [&](int slot, int part) {
+    const uint32_t rows_off = slot * TB + part * (NQ * 128);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (TILE * 128) + (kk & 3) * 32;
+      const uint64_t a = make_desc(sKw + off, 16, 1024);
+      const uint64_t bq = make_desc(sQ + rows_off + off, 16, 1024);
+      wgmma_ss_n32(st, a, bq, kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (TILE * 128) + (kk & 3) * 32;
+      const uint64_t a = make_desc(sVw + off, 16, 1024);
+      const uint64_t bo = make_desc(sdO + rows_off + off, 16, 1024);
+      wgmma_ss_n32(dpt, a, bo, kk > 0);
+    }
+    wgmma_commit();
+  };
+
+  my_rows[tid] = load_row(qt_lo * TILE);
+  named_barrier(bar_id, WG);
+  mbar_wait(kv_full, 0);
+  mbar_wait(full, 0);
+  start_scores(0, 0);
+
+  // Nothing below branches on what this warpgroup's own keys can see: a
+  // product under a condition that differs between warpgroups is
+  // serialised by the compiler. A tile they cannot see is masked entry by
+  // entry.
+  float next_row = 0.f;
+  const int n_parts = n_steps * PARTS;
+  for (int u = 0; u < n_parts; ++u) {
+    const int it = u / PARTS;
+    const int part = u % PARTS;
+    const int slot = it % ST;
+    const int q0 = (qt_lo + it) * TILE + part * NQ;   // first query of this step
+    const float* row_lse = my_rows + (it & 1) * (2 * TILE) + part * NQ;
+    const float* row_delta = row_lse + TILE;
+    if (part == 0) next_row = it + 1 < n_steps ? load_row((qt_lo + it + 1) * TILE) : 0.f;
+    // this step's scores, and with them every product issued before
+    wgmma_wait<0>();
+    fence_operand(st);
+    fence_operand(dpt);
+    fence_operand(dk);
+    fence_operand(dv);
+    if (part == 0 && tid == 0) {
+      if (it > 0) mbar_arrive(empty + ((it - 1) % ST) * 8);
+      // Thread 0 of the block keeps the ring ST - 2 tiles ahead: the slot of
+      // tile it - 2, which the other warpgroup has long left.
+      if (wg == 0 && it + ST - 2 < n_steps) {
+        if (it >= 2) mbar_wait(empty + ((it - 2) % ST) * 8, ((it - 2) / ST) & 1);
+        load_pair(it + ST - 2);
+      }
+    }
+
+    // A step wholly inside the band whose keys are all valid and whose
+    // queries all lie below T needs no visibility test.
+    const bool inside = k0w >= q0 + NQ - 1 - p.bwd && k0w + TILE - 1 <= q0 + p.fwd;
+    if (!(inside && keys_full && q0 + NQ <= p.T)) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qp = q0 + j * 8 + 2 * t + (e & 1);
+          const int kp = k_pos[e >> 1];
+          const bool visible =
+              key_ok[e >> 1] && qp < p.T && kp >= qp - p.bwd && kp <= qp + p.fwd;
+          if (!visible) st[4 * j + e] = NEG_INF;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(row_lse + j * 8 + 2 * t);
+      const float2 dl = *reinterpret_cast<const float2*>(row_delta + j * 8 + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float pr = exp2_approx(fmaf(st[4 * j + e], c_log2, (e & 1) ? -l2.y : -l2.x));
+        float pv = pr;
+        float d = dpt[4 * j + e];
+        if (p.use_drop) {
+          const uint32_t qp = (uint32_t)(q0 + j * 8 + 2 * t + (e & 1));
+          const bool keep = keep_hash(k_hash[r] ^ (qp * 0x9E3779B1u), seed, p.thresh);
+          pv = keep ? pr * p.inv_keep : 0.f;
+          d = keep ? d * p.inv_keep : 0.f;
+        }
+        st[4 * j + e] = pv;
+        dpt[4 * j + e] = pr * (d - ((e & 1) ? dl.y : dl.x));
+      }
+      pa_p[j >> 1][(j & 1) * 2] = pack_bf16(st[4 * j], st[4 * j + 1]);
+      pa_p[j >> 1][(j & 1) * 2 + 1] = pack_bf16(st[4 * j + 2], st[4 * j + 3]);
+      pa_ds[j >> 1][(j & 1) * 2] = pack_bf16(dpt[4 * j], dpt[4 * j + 1]);
+      pa_ds[j >> 1][(j & 1) * 2 + 1] = pack_bf16(dpt[4 * j + 2], dpt[4 * j + 3]);
+    }
+    // dv += p^T dO and dk += ds^T Q: 16 queries a step, dO and Q MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NQ / 16; ++kk) {
+      const uint32_t rows_off = slot * TB + (part * (NQ / 16) + kk) * (16 * 128);
+      const uint64_t d_do = make_desc(sdO + rows_off, TILE * 128, 1024);
+      const uint64_t d_q = make_desc(sQ + rows_off, TILE * 128, 1024);
+      if constexpr (HD == 128) {
+        wgmma_rs_n128_bt(dv, pa_p[kk], d_do, 1);
+        wgmma_rs_n128_bt(dk, pa_ds[kk], d_q, 1);
+      } else {
+        wgmma_rs_n64_bt(dv, pa_p[kk], d_do, 1);
+        wgmma_rs_n64_bt(dk, pa_ds[kk], d_q, 1);
+      }
+    }
+    wgmma_commit();
+    // the next step's scores queue up behind them
+    if (u + 1 < n_parts) {
+      const int it_next = (u + 1) / PARTS;
+      if (part == PARTS - 1) mbar_wait(full + (it_next % ST) * 8, (it_next / ST) & 1);
+      start_scores(it_next % ST, (u + 1) % PARTS);
+    }
+    if (part == PARTS - 1) {
+      // the next tile's lse and delta; the barrier also says that every
+      // warp has read this tile's
+      my_rows[((it + 1) & 1) * (2 * TILE) + tid] = next_row;
+      named_barrier(bar_id, WG);
+    }
+  }
+  wgmma_wait<0>();
+  fence_operand(dk);
+  fence_operand(dv);
+
+  const long stride = (long)p.H * HD;
+  const long at = ((long)b * p.T * p.H + h) * HD;
+  store_tile<HD>(dk, p.scale, base + wg * TB, static_cast<bf16*>(p.dk) + at, stride, k0w, p.T,
+                 tid, bar_id);
+  store_tile<HD>(dv, 1.f, base + (2 + wg) * TB, static_cast<bf16*>(p.dv) + at, stride, k0w,
+                 p.T, tid, bar_id);
+}
+
+template <int HD>
+int launch(int which, const FlashParams& p, const Planned& plan, cudaStream_t stream) {
+  CUtensorMap maps[4];
+  const void* tensors[4] = {p.q, p.k, p.v, p.dout};
+  for (int i = 0; i < 4; ++i) {
+    if (!tensor_map(&maps[i], tensors[i], p.B, p.T, p.H, HD)) return (int)cudaErrorInvalidValue;
+  }
+  const bool is_dq = which == DQ;
+  const int smem = is_dq ? dq_smem_bytes<HD>() : dkv_smem_bytes<HD>();
+  const int rows = is_dq ? TILE : DKV_KEYS;
+  const int threads = is_dq ? DQ_THREADS : DKV_THREADS;
+  if (!plan.is(rows, is_dq ? DQ_K_STAGES : DKV_STAGES, threads, smem,
+               is_dq ? DQ_BLOCKS_PER_SM : dkv_blocks_per_sm<HD>())) {
+    return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = is_dq ? flash_dq_wgmma_kernel<HD> : flash_dkv_wgmma_kernel<HD>;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  const unsigned grid = (unsigned)((p.T + rows - 1) / rows * p.B * p.H);
+  kernel<<<grid, threads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
   return (int)cudaGetLastError();
 }
 
+}  // namespace bwd_wg
+
+// ---------------------------------------------------------------------------
+// delta = rowsum(dO * O): one pass over out and dout, every dtype and head size
+// ---------------------------------------------------------------------------
+
+// Replaces the expression of llm_bci_tpu/ops/flash_attention.py (_flash_bwd)
+// that XLA fuses into one pass. 16 bytes a thread from each tensor, HD * sizeof(T)
+// / 16 lanes a (b, t, h) row and 32 / that many rows a warp; products and sum
+// in float32; the result goes to the (B, H, T) layout of lse.
+constexpr int DELTA_THREADS = 256;
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(DELTA_THREADS)
+flash_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
+                   float* __restrict__ delta, int B, int Tn, int H) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int LPR = HD / VEC;            // lanes a row: 4 to 32
+  const int lane = threadIdx.x & 31;
+  const long n_rows = (long)B * Tn * H;
+  const long warp = (long)blockIdx.x * (DELTA_THREADS / 32) + (threadIdx.x >> 5);
+  const long row = warp * (32 / LPR) + lane / LPR;
+  float sum = 0.f;
+  if (row < n_rows) {
+    const long at = row * HD + (lane % LPR) * VEC;
+    const int4 a = *reinterpret_cast<const int4*>(out + at);
+    const int4 c = *reinterpret_cast<const int4*>(dout + at);
+    const T* av = reinterpret_cast<const T*>(&a);
+    const T* cv = reinterpret_cast<const T*>(&c);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sum = fmaf(to_float(av[i]), to_float(cv[i]), sum);
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (row < n_rows && lane % LPR == 0) {
+    const int h = (int)(row % H);
+    const long bt = row / H;
+    delta[((bt / Tn) * H + h) * Tn + bt % Tn] = sum;
+  }
+}
+
+template <typename T, int HD>
+int launch_delta(const void* out, const void* dout, float* delta, int B, int Tn, int H,
+                 cudaStream_t stream) {
+  constexpr int ROWS = DELTA_THREADS / (HD * (int)sizeof(T) / 16);   // rows a block
+  const long n_rows = (long)B * Tn * H;
+  flash_delta_kernel<T, HD><<<(unsigned)((n_rows + ROWS - 1) / ROWS), DELTA_THREADS, 0, stream>>>(
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, B, Tn, H);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
+
+// `plan` is what the caller planned for the kernel; a plan that differs from
+// the kernel's own is refused.
+template <typename T, int HD>
+int launch(int which, const FlashParams& p, const Planned& plan, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value && HD >= 64) {
+    return which == FWD ? fwd_wg::launch<HD>(p, plan.smem, stream)
+                        : bwd_wg::launch<HD>(which, p, plan, stream);
+  } else {
+    void (*kernel)(FlashParams) = flash_dkv_kernel<T, HD>;
+    size_t smem = dkv_smem<T, HD>();
+    if (which == FWD) {
+      kernel = flash_fwd_kernel<T, HD>;
+      smem = fwd_smem<T, HD>();
+    } else if (which == DQ) {
+      kernel = flash_dq_kernel<T, HD>;
+      smem = dq_smem<T, HD>();
+    }
+    if ((size_t)plan.smem != smem) return (int)cudaErrorInvalidValue;
+    // one tile of each operand, and as many blocks an SM as shared memory
+    // holds with 1 KB of overhead each
+    if (which != FWD && !plan.is(TILE, 1, THREADS, (int)smem, MAX_SMEM / ((int)smem + 1024))) {
+      return (int)cudaErrorInvalidValue;
+    }
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const int n_tiles = (p.T + TILE - 1) / TILE;
+    kernel<<<(unsigned)(n_tiles * p.B * p.H), THREADS, smem, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+}
+
 template <typename T>
-int dispatch_hd(int which, int D, const FlashParams& p, int fwd_smem, cudaStream_t stream) {
+int dispatch_hd(int which, int D, const FlashParams& p, const Planned& plan,
+                cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(which, p, fwd_smem, stream);
-    case 64: return launch<T, 64>(which, p, fwd_smem, stream);
-    case 128: return launch<T, 128>(which, p, fwd_smem, stream);
+    case 32: return launch<T, 32>(which, p, plan, stream);
+    case 64: return launch<T, 64>(which, p, plan, stream);
+    case 128: return launch<T, 128>(which, p, plan, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int dispatch(int which, int is_bf16, int D, const FlashParams& p, void* stream, int fwd_smem = 0) {
+int dispatch(int which, int is_bf16, int D, const FlashParams& p, void* stream,
+             const Planned& plan) {
   if (p.B < 1 || p.T < 1 || p.H < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch_hd<__nv_bfloat16>(which, D, p, fwd_smem, s)
-                 : dispatch_hd<float>(which, D, p, fwd_smem, s);
+  return is_bf16 ? dispatch_hd<__nv_bfloat16>(which, D, p, plan, s)
+                 : dispatch_hd<float>(which, D, p, plan, s);
 }
 
 FlashParams make_params(const void* q, const void* k, const void* v, const int* valid,
@@ -1052,8 +1781,10 @@ FlashParams make_params(const void* q, const void* k, const void* v, const int* 
 
 // q, k, v, out, dout, dq, dk, dv: (B, T, H, D) contiguous, bf16 or float32.
 // valid: (B, T) int32 or null. seed: one int32 on the device. lse, delta:
-// (B, H, T) float32. fwd / bwd: band widths in [0, T]. Each returns the CUDA
-// error code of its launch (0 on success).
+// (B, H, T) float32. fwd / bwd: band widths in [0, T]. smem_bytes: the dynamic
+// shared memory planned for the kernel; the backward launchers also take the
+// planned rows a block, stages, threads and blocks an SM. Each returns the CUDA error code of
+// its launch (0 on success).
 
 extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, const int* valid,
                                 const int* seed, void* out, float* lse, int B, int T, int H,
@@ -1064,28 +1795,47 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v, con
       make_params(q, k, v, valid, seed, B, T, H, fwd, bwd, scale, thresh, inv_keep, use_drop);
   p.out = out;
   p.lse = lse;
-  return dispatch(FWD, is_bf16, D, p, stream, smem_bytes);
+  return dispatch(FWD, is_bf16, D, p, stream, Planned{0, 0, 0, smem_bytes, 0});
+}
+
+extern "C" int flash_delta_launch(const void* out, const void* dout, float* delta, int B, int T,
+                                  int H, int D, int is_bf16, void* stream) {
+  if (B < 1 || T < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (is_bf16 ? D : -D) {
+    case 32: return launch_delta<__nv_bfloat16, 32>(out, dout, delta, B, T, H, s);
+    case 64: return launch_delta<__nv_bfloat16, 64>(out, dout, delta, B, T, H, s);
+    case 128: return launch_delta<__nv_bfloat16, 128>(out, dout, delta, B, T, H, s);
+    case -32: return launch_delta<float, 32>(out, dout, delta, B, T, H, s);
+    case -64: return launch_delta<float, 64>(out, dout, delta, B, T, H, s);
+    case -128: return launch_delta<float, 128>(out, dout, delta, B, T, H, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int flash_dq_launch(const void* q, const void* k, const void* v, const int* valid,
                                const int* seed, const void* dout, const float* lse,
                                const float* delta, void* dq, int B, int T, int H, int D,
                                int is_bf16, int fwd, int bwd, float scale, unsigned thresh,
-                               float inv_keep, int use_drop, void* stream) {
+                               float inv_keep, int use_drop, int tile_rows, int stages,
+                               int threads, int smem_bytes, int blocks_per_sm, void* stream) {
   FlashParams p =
       make_params(q, k, v, valid, seed, B, T, H, fwd, bwd, scale, thresh, inv_keep, use_drop);
   p.dout = dout;
   p.lse = const_cast<float*>(lse);
   p.delta = delta;
   p.dq = dq;
-  return dispatch(DQ, is_bf16, D, p, stream);
+  return dispatch(DQ, is_bf16, D, p, stream,
+                  Planned{tile_rows, stages, threads, smem_bytes, blocks_per_sm});
 }
 
 extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v, const int* valid,
                                 const int* seed, const void* dout, const float* lse,
                                 const float* delta, void* dk, void* dv, int B, int T, int H,
                                 int D, int is_bf16, int fwd, int bwd, float scale,
-                                unsigned thresh, float inv_keep, int use_drop, void* stream) {
+                                unsigned thresh, float inv_keep, int use_drop, int tile_rows,
+                                int stages, int threads, int smem_bytes, int blocks_per_sm,
+                                void* stream) {
   FlashParams p =
       make_params(q, k, v, valid, seed, B, T, H, fwd, bwd, scale, thresh, inv_keep, use_drop);
   p.dout = dout;
@@ -1093,5 +1843,6 @@ extern "C" int flash_dkv_launch(const void* q, const void* k, const void* v, con
   p.delta = delta;
   p.dk = dk;
   p.dv = dv;
-  return dispatch(DKV, is_bf16, D, p, stream);
+  return dispatch(DKV, is_bf16, D, p, stream,
+                  Planned{tile_rows, stages, threads, smem_bytes, blocks_per_sm});
 }

@@ -126,7 +126,7 @@ def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Tra
             )
             dataset = create_llm_labels(dataset, tokenizer, config.data.prompt)
     elif config.data.data_load == "ibl":
-        raise not_ported("The IBL loader (data/ibl.py)", "Queue 1, slice 4")
+        raise not_ported("The IBL loader (data/ibl.py)", "Queue 1, slice 6")
     else:
         raise ValueError(f"Unknown data_load {config.data.data_load!r}")
 
@@ -143,7 +143,7 @@ def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Tra
         else:
             metric_fns["A-WER"] = make_assisted_wer_fn(tokenizer)
     elif method in ("stat_behaviour", "dyn_behaviour"):
-        raise not_ported(f"The {method!r} method and its metrics", "Queue 1, slice 5")
+        raise not_ported(f"The {method!r} method and its metrics", "Queue 1, slice 7")
 
     n_channels = dataset["train"][0]["spikes"].shape[1]
     if config.model.model_class == "NDT1":
@@ -152,7 +152,7 @@ def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Tra
         # flax infers the input width at init; here the embedder needs it
         config["model"]["ndt1"]["encoder"]["embedder"]["n_channels"] = n_channels
     else:
-        raise not_ported(f"Model class {config.model.model_class!r}", "Queue 1, slice 5")
+        raise not_ported(f"Model class {config.model.model_class!r}", "Queue 1, slice 7")
 
     return Trainer(
         config, dataset=dataset, metric_fns=metric_fns or None,

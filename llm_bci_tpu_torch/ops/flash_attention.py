@@ -113,6 +113,14 @@ def banded_flash_attention_plain(
     return torch.matmul(probs.to(vh.dtype), vh).transpose(1, 2)
 
 
+def flash_delta_plain(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
+    """``delta = rowsum(dout * out)`` of ``(B, T, H, D)`` tensors in float32,
+    in the ``(B, H, T)`` layout of ``lse``: the softmax backward's row term,
+    as the JAX package's ``_flash_bwd`` writes it. Plain version of
+    ``flash_delta_kernel``."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
 def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
     """One int32 in ``[0, 2**31 - 1)`` on ``device`` from ``generator``."""
     return torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device,

@@ -88,7 +88,7 @@ class Trainer:
             raise not_ported("training.resume (checkpoint resume)", "Queue 1, slice 1, item 5")
         par = cfg.get("parallelism") or {}
         if any(int(par.get(k, 1)) > 1 for k in ("data", "fsdp", "tp", "sp")):
-            raise not_ported("Multi-device parallelism", "Queue 1, slice 6, item 11")
+            raise not_ported("Multi-device parallelism", "Queue 1, slice 8, item 12")
         if cfg.optimizer.get("grad_clip_norm"):
             raise not_ported("optimizer.grad_clip_norm", "Queue 1, slice 1, item 5")
         prec = cfg.get("precision") or {}

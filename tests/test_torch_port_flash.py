@@ -272,3 +272,102 @@ def test_cuda_function_refuses_what_the_kernels_do_not_take(case, error, match):
     with pytest.raises(error, match=match):
         fc.FlashAttentionFunction.apply(q, k, v, valid, None, fwd, T, 0.125, 0.0)
     assert fc._LIB is None and fc.FWD_LAUNCHES == 0
+
+
+# ---------------------------------------------------------------- backward
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("bf16", [True, False])
+def test_backward_plan_per_head_size(D, bf16):
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+    plan = fc.backward_plan(D, bf16)
+    tile = 64 * D * 2
+    if bf16 and D >= 64:
+        # dQ: Q, dO, three K tiles and one or two V tiles; two blocks an SM
+        assert plan.dq.kernel == "wgmma" and plan.dq.tile_rows == 64 and plan.dq.threads == 128
+        assert plan.dq.smem_bytes == (5 + (1 if D == 128 else 2)) * tile + 128 + 1024
+        assert plan.dq.blocks_per_sm == 2
+        assert 2 * (plan.dq.smem_bytes + 1024) <= 228 * 1024
+        # dK/dV: K and V of 128 keys, four (Q, dO) pairs, lse and delta; dk
+        # and dv fill the registers of one block an SM at D = 128
+        assert plan.dkv.kernel == "wgmma" and plan.dkv.tile_rows == 128
+        assert plan.dkv.threads == 256 and plan.dkv.stages == 4
+        assert plan.dkv.smem_bytes == 12 * tile + 2048 + 128 + 1024
+        assert plan.dkv.blocks_per_sm == (1 if D == 128 else 2)
+        assert plan.dkv.blocks_per_sm * (plan.dkv.smem_bytes + 1024) <= 228 * 1024
+    else:
+        for one in plan:
+            assert one.kernel == "mma" and one.tile_rows == 64 and one.threads == 128
+            assert one.stages == 1
+            assert one.blocks_per_sm == fc.MAX_SMEM_BYTES // (one.smem_bytes + 1024)
+    for one in plan:
+        assert one.smem_bytes <= fc.MAX_SMEM_BYTES == 232448 and one.blocks_per_sm >= 1
+
+
+def test_backward_plan_refuses_other_head_sizes():
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+    for D in (48, 16, 256):
+        with pytest.raises(ValueError, match="head size"):
+            fc.backward_plan(D, True)
+
+
+@pytest.mark.parametrize("shape", [(2, 24, 2, 16), (1, 13, 3, 5), (3, 70, 2, 64)])
+def test_flash_delta_plain_matches_jax_expression(shape):
+    """``delta`` as ``_flash_bwd`` writes it on (B*H, T, D) tensors, against
+    the port's plain version on (B, T, H, D); float32, rtol 1e-6 (atol the
+    same share of the largest |dO * O| row sum: the sums run in another
+    order)."""
+    B, T, H, D = shape
+    rng = np.random.default_rng(4)
+    out, dout = (rng.normal(size=shape).astype(np.float32) for _ in range(2))
+    to_bh = lambda x: jnp.asarray(x.transpose(0, 2, 1, 3).reshape(B * H, T, D))
+    ref = jnp.sum(to_bh(out).astype(jnp.float32) * to_bh(dout).astype(jnp.float32), axis=-1)
+    got = tfa.flash_delta_plain(torch.from_numpy(out), torch.from_numpy(dout))
+    assert got.shape == (B, H, T) and got.dtype == torch.float32 and got.is_contiguous()
+    np.testing.assert_allclose(got.numpy().reshape(B * H, T), np.asarray(ref), rtol=1e-6,
+                               atol=1e-6 * np.abs(out * dout).sum(-1).max())
+    # bf16 inputs are multiplied and summed in float32
+    got16 = tfa.flash_delta_plain(torch.from_numpy(out).bfloat16(),
+                                  torch.from_numpy(dout).bfloat16())
+    assert got16.dtype == torch.float32
+    np.testing.assert_allclose(got16.numpy(), got.numpy(), atol=0.05 * np.sqrt(D), rtol=0.05)
+
+
+def test_flash_delta_kernel_wrapper_refuses_cpu_tensors():
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+    x = torch.zeros((2, 8, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        fc.flash_delta(x, x)
+    assert fc._LIB is None and fc.BWD_DELTA_LAUNCHES == 0
+
+
+@pytest.mark.parametrize("drop", [0.0, 0.3])
+def test_gradients_match_jax_kernels_over_three_tiles(drop):
+    """T spans three 64-row tiles of the JAX kernels and the band (70 / 40)
+    cuts them: tiles wholly inside, cut and outside. float32, atol 2e-5
+    (sums in another order), weights of O(1)."""
+    B, T, H, D = 1, 192, 2, 8
+    q, k, v = make_inputs(B=B, T=T, H=H, D=D, seed=7)
+    valid = np.ones((B, T), np.int32)
+    valid[0, :9] = 0
+    w = np.random.default_rng(9).normal(size=q.shape).astype(np.float32)
+    rng = jax.random.PRNGKey(3)
+    jax_kw = dict(dropout_rate=drop, dropout_rng=rng) if drop else {}
+    port_kw = dict(dropout_rate=drop, seed=jax_seed(rng)) if drop else {}
+
+    def jloss(q, k, v):
+        out = jfa.banded_flash_attention(
+            q, k, v, jnp.asarray(valid), context_forward=70, context_backward=40,
+            block_q=64, block_k=64, **jax_kw)
+        return jnp.sum(out * jnp.asarray(w))
+
+    jg = jax.grad(jloss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
+    out = tfa.banded_flash_attention(tq, tk, tv, torch.from_numpy(valid), context_forward=70,
+                                     context_backward=40, **port_kw)
+    (out * torch.from_numpy(w)).sum().backward()
+    for name, a, b in zip("qkv", (tq, tk, tv), jg):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), atol=2e-5, err_msg=f"d{name}")
