@@ -58,32 +58,38 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    a training step;
 7. kernels: the int8 dequant-matmul kernels against ``int8_matmul_plain`` on
    the card: float32 ``x`` at small and ragged M, K, N (rtol 1e-4, atol
-   1e-4 x max|out|); bf16 ``x`` at the eight Llama-2-7B shapes x M in {8,
-   40, 1480} against the plain version in float32 of the same bf16 inputs
-   (rtol 2^-8: one bf16 rounding of the output; atol 1e-4 x max|out|: the
-   order of the float32 sums); codes of +-127 with zero scale columns; ``dx``
-   through the autograd Function; same input twice, same bits; then times
-   at M = 8 and M = 1480 beside the bound, the plain version, convert +
-   ``torch.matmul`` and ``torch.matmul`` on a bf16 copy of the weight
-   (``library_ms``; the port never calls it so);
+   1e-4 x max|out|); bf16 ``x`` at the four Llama-2-7B shapes x M in {1, 8,
+   40, 64, 1480} and at ragged M, K, N (clusters of 1 to 8 ranks) against the
+   plain version in float32 of the same bf16 inputs (rtol 2^-8: one bf16
+   rounding of the output; atol 1e-4 x max|out|: the order of the float32
+   sums), each call once more for the same bits; codes of +-127 with zero
+   scale columns; ``dx`` through the autograd Function; the cluster
+   launcher's refusal of a plan that differs from the kernel's in any field;
+   then device times from CUDA graphs of 20 calls at M = 8, 40 and 1480 beside
+   the bound, ``torch.matmul`` on a bf16 copy of the weight timed the same
+   way (``library_ms``; the port never calls it so), the eager times with the
+   host's enqueue, the plain version and convert + ``torch.matmul``;
 8. main path (BCI serving): ``BCI`` (NDT1 trunk 5 x 1024 -> projector ->
    Llama with LoRA r=8 on all seven projections) at the Llama-2-7B widths,
    32 layers, int8 base, seeded random weights, B=8, 512 bins x 256
    channels, prompt of 185 tokens: ``generate`` greedy (32 new tokens) and
-   diverse beam (5 groups). Every int8 product must have launched the
-   kernel (225 a model call); a 2-layer copy of the model is first held
-   against the same model with the plain product on the card. The same
-   greedy decode on a bf16 base is timed beside it;
+   diverse beam (5 groups), each token step replayed from one CUDA graph a
+   decode. The int8 launches must reconcile with prefills, eager steps,
+   captures and replays (225 a model call); the graph's greedy ids must equal
+   the un-graphed step's fed the same tokens; a 2-layer copy of the model is
+   first held against the same model with the plain product on the card.
+   Tokens/s, the prefill, the capture and the token step apart, and the
+   device time of replayed steps; the same greedy decode on a bf16 base;
 9. main path (BCI fine-tune): the same model through the port's ``Trainer``
    with ``configs/trainer_bci.yaml`` on pre-tokenized synthetic trials: 4
    steps and one eval; finite losses, only LoRA / encoder / projector
    leaves change, the frozen leaves keep their bits, 225 launches a forward
-   and none in the backward.
+   and none in the backward; the metric readback's batches.
 
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train`` runs one
 phase (for development); ``--profile PATH`` adds ``torch.profiler`` tables
-of the mlm train step (written to ``PATH``) and of the BCI greedy decode
-and fine-tune step (appended to ``PATH``).
+of the mlm train step (written to ``PATH``) and of the replayed BCI greedy
+token steps and the fine-tune step (appended to ``PATH``).
 
 The second-to-last line is a JSON object with the kernels' launches,
 errors and times; the last line is
@@ -204,6 +210,15 @@ def graph_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# The kernels that run at the main paths' shapes, by namespace and name in
+# their sources (``KERNELS`` below).
+FWD_WG = "fwd_wg::flash_fwd_wgmma_kernel"
+DQ_WG = "bwd_wg::flash_dq_wgmma_kernel"
+DKV_WG = "bwd_wg::flash_dkv_wgmma_kernel"
+INT8_CLUSTER = "cluster::int8_cluster_kernel"
+INT8_TILED = "tiled::int8_wgmma_kernel"
 
 
 # Published dense peaks of one H100 SXM: operations a second by input type,
@@ -628,8 +643,8 @@ def flash_kernel_phase(results: dict) -> None:
             f"({t['bwd_strided'] / t['sdpa_bwd']:.2f}x) its time")
 
     t = timings(B, T, H, D, valid, drop, seed, with_plain=True)
-    for key, label in (("fwd", "flash_fwd_kernel"), ("dq", "flash_dq_kernel"),
-                       ("dkv", "flash_dkv_kernel"), ("delta", "flash_delta_kernel")):
+    for key, label in (("fwd", FWD_WG), ("dq", DQ_WG), ("dkv", DKV_WG),
+                       ("delta", "flash_delta_kernel")):
         # one SDPA backward gives dq, dk and dv: both backward kernels are
         # held against that one call; delta against the faster of one einsum
         # and one vecdot on the same bf16 tensors
@@ -729,7 +744,10 @@ def _build_resources(name: str, patterns) -> dict:
 
 # (K, N) of the frozen Llama-2-7B base: q/k/v/o, gate/up, down, lm_head.
 INT8_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
-INT8_MS = (8, 40, 1480)          # greedy step, 5 beams, prefill / fine-tune
+# a token step at one row, greedy (B=8), 5 beams (B=8), the cluster kernel's
+# largest M; prefill / fine-tune
+INT8_MS = (1, 8, 40, 64, 1480)
+INT8_TIMED_MS = (8, 40, 1480)
 
 
 def int8_inputs(M, K, N, dtype, device, seed=0):
@@ -741,6 +759,47 @@ def int8_inputs(M, K, N, dtype, device, seed=0):
     q = torch.randint(-127, 128, (K, N), generator=g, device=device, dtype=torch.int8)
     scale = (0.5 + torch.rand((N,), generator=g, device=device)) * (0.02 * 4.0 / 127.0)
     return x, q, scale
+
+
+def int8_plan_text(M, K, N, dtype) -> str:
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+    import torch
+
+    kind = ic.regime(M, dtype == torch.bfloat16)
+    if kind == "f32":
+        return "float32 128 x 128 tiles"
+    if kind == "cluster":
+        p = ic.cluster_plan(M, K, N)
+        return (f"cluster C={p.cluster} x {p.grid[1]} column tiles, {p.k_per_rank // 64} k-tiles "
+                f"a rank, {p.stages} stages, {p.m_tiles} x 8 rows, {p.threads} threads, "
+                f"{p.smem_bytes} B")
+    t = ic.tile_plan(M, K, N)
+    return f"wgmma {t.tile_m} x 128 tiles, grid {t.grid}, {t.smem_bytes} B"
+
+
+def raw_cluster_launch(x, q, scale, out, plan) -> int:
+    """The cluster launcher's own return code for ``plan``, through its C
+    entry point, with no check of the plan on this side (the wrapper checks
+    first, so a refusal of the launcher is seen only from here)."""
+    import torch
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+    M, K = x.shape
+    with torch.cuda.device(x.device):
+        return ic._lib().int8_matmul_cluster_launch(
+            x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), M, K, q.shape[1],
+            int(out.dtype == torch.float32), plan.m_tiles, plan.cluster, plan.k_per_rank,
+            plan.grid[1], plan.threads, plan.stages, plan.smem_bytes,
+            torch.cuda.current_stream().cuda_stream)
+
+
+def int8_launches() -> dict:
+    """The int8 wrapper's launches since its last reset, by the kernel of the
+    regime each took; a float32 launch (no main path makes one) is in
+    ``LAUNCHES`` only, so that it shows as a difference of the two."""
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+    return {INT8_CLUSTER: ic.REGIME_LAUNCHES["cluster"], INT8_TILED: ic.REGIME_LAUNCHES["tiled"]}
 
 
 def int8_kernel_phase(results: dict, power_line: str) -> None:
@@ -765,63 +824,53 @@ def int8_kernel_phase(results: dict, power_line: str) -> None:
         err = (got - ref).abs().max().item()
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item(),
                                    msg=lambda m: f"int8 float32 M={M} K={K} N={N}: {m}")
-        say("int8", f"float32 M={M} K={K} N={N} plan={ic.plan(M, K, N, False)}: "
-            f"max|err| {err:.2e} (max|out| {ref.abs().max().item():.2e})")
+        say("int8", f"float32 M={M} K={K} N={N}: max|err| {err:.2e} "
+            f"(max|out| {ref.abs().max().item():.2e})")
 
-    # bf16 x at the main-path shapes, against the plain version in float32 of
-    # the same bf16 inputs. rtol 2^-8: one bf16 rounding of the output (half
-    # an ulp is 2^-9 of the value); atol 1e-4 * max|out|: float32 sums in
-    # another order, which matter where the sum cancels to near zero.
+    # bf16 x against the plain version in float32 of the same bf16 inputs.
+    # rtol 2^-8: one bf16 rounding of the output (half an ulp is 2^-9 of the
+    # value); atol 1e-4 * max|out|: float32 sums in another order, which matter
+    # where the sum cancels to near zero. Every call twice: the same bits (the
+    # cluster kernel adds its ranks' partials in rank order).
     worst = {"small": 0.0, "tiled": 0.0}
+
+    def check_bf16(M, K, N, seed, what=""):
+        x, q, scale = int8_inputs(M, K, N, torch.bfloat16, dev, seed=seed)
+        before = ic.LAUNCHES
+        got = quant.int8_matmul(x, q, scale).float()
+        if ic.LAUNCHES != before + 1:
+            raise AssertionError(f"int8 bf16 M={M} K={K} N={N}: {ic.LAUNCHES - before} launches")
+        ref = reference(x, q, scale)
+        torch.cuda.synchronize()
+        top = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        torch.testing.assert_close(got, ref, rtol=2.0 ** -8, atol=1e-4 * top,
+                                   msg=lambda m: f"int8 bf16 M={M} K={K} N={N}: {m}")
+        if not torch.equal(got, quant.int8_matmul(x, q, scale).float()):
+            raise AssertionError(f"int8 bf16 M={M} K={K} N={N}: same input, different bits")
+        key = "small" if M <= ic.CLUSTER_MAX_M else "tiled"
+        worst[key] = max(worst[key], err)
+        say("int8", f"bf16{what} M={M} K={K} N={N} ({int8_plan_text(M, K, N, torch.bfloat16)}): "
+            f"max|err| {err:.3e} of max|out| {top:.3e}; same bits twice")
+
     for K, N in INT8_SHAPES:
         for M in INT8_MS:
-            x, q, scale = int8_inputs(M, K, N, torch.bfloat16, dev, seed=M + K)
-            got = quant.int8_matmul(x, q, scale).float()
-            ref = reference(x, q, scale)
-            torch.cuda.synchronize()
-            top = ref.abs().max().item()
-            err = (got - ref).abs().max().item()
-            torch.testing.assert_close(got, ref, rtol=2.0 ** -8, atol=1e-4 * top,
-                                       msg=lambda m: f"int8 bf16 M={M} K={K} N={N}: {m}")
-            again = quant.int8_matmul(x, q, scale).float()
-            if not torch.equal(got, again):
-                raise AssertionError(f"int8 bf16 M={M} K={K} N={N}: same input, different bits")
-            key = "small" if M <= ic.SMALL_M else "tiled"
-            worst[key] = max(worst[key], err)
-            say("int8", f"bf16 M={M} K={K} N={N} plan={ic.plan(M, K, N, True)}: max|err| "
-                f"{err:.3e} of max|out| {top:.3e}; same bits twice")
-            del got, ref, again
-    # Ragged edges of the tiled regime in bf16, at the same tolerance: M just
-    # above the border of the regimes and off every tile edge, N off the
-    # 128-column tile (and exactly on it), K off the 64-deep k-tile, and K
-    # and N smaller than one tile.
-    for K, N in [(160, 144), (4112, 272), (4112, 11008), (160, 4096), (32, 48)]:
-        for M in (65, 129, 185, 1480):
-            x, q, scale = int8_inputs(M, K, N, torch.bfloat16, dev, seed=M + N)
-            got = quant.int8_matmul(x, q, scale).float()
-            ref = reference(x, q, scale)
-            torch.cuda.synchronize()
-            top = ref.abs().max().item()
-            err = (got - ref).abs().max().item()
-            torch.testing.assert_close(got, ref, rtol=2.0 ** -8, atol=1e-4 * top,
-                                       msg=lambda m: f"int8 bf16 M={M} K={K} N={N}: {m}")
-            if not torch.equal(got, quant.int8_matmul(x, q, scale).float()):
-                raise AssertionError(f"int8 bf16 M={M} K={K} N={N}: same input, different bits")
-            worst["tiled"] = max(worst["tiled"], err)
-            say("int8", f"bf16 ragged M={M} K={K} N={N} tiles={tuple(ic.tile_plan(M, K, N))}: "
-                f"max|err| {err:.3e} of max|out| {top:.3e}; same bits twice")
-    # float32 output from bf16 x (the kernel's other store path), both regimes
-    x, q, scale = int8_inputs(185, 4096, 4096, torch.bfloat16, dev, seed=6)
-    got = quant.int8_matmul(x, q, scale, out_dtype=torch.float32)
-    ref = reference(x, q, scale)
-    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
-    x, q, scale = int8_inputs(40, 4096, 4096, torch.bfloat16, dev, seed=5)
-    got = quant.int8_matmul(x, q, scale, out_dtype=torch.float32)
-    ref = reference(x, q, scale)
-    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+            check_bf16(M, K, N, seed=M + K)
+    # Ragged edges: M off every 8-row tile and on the regimes' border, N off
+    # the 128-column tile (and exactly on it), K off the 64-deep k-tile, K and
+    # N smaller than one tile; clusters of 1 to 8 ranks.
+    for K, N in [(160, 144), (4112, 272), (4112, 11008), (160, 4096), (32, 48), (1024, 4096)]:
+        for M in (1, 3, 9, 17, 33, 41, 64, 65, 129, 185, 1480):
+            check_bf16(M, K, N, seed=M + N, what=" ragged")
+    # float32 output from bf16 x (the kernels' other store path), both regimes
+    for M in (40, 185):
+        x, q, scale = int8_inputs(M, 4096, 4096, torch.bfloat16, dev, seed=5)
+        got = quant.int8_matmul(x, q, scale, out_dtype=torch.float32)
+        ref = reference(x, q, scale)
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
 
     # Codes of +-127 only, and a scale column of zeros: exactly 0 there.
-    for M in (8, 185):
+    for M in (8, 40, 185):
         x, q, scale = int8_inputs(M, 4096, 4096, torch.bfloat16, dev, seed=9)
         q = torch.where(q >= 0, torch.full_like(q, 127), torch.full_like(q, -127))
         scale[::7] = 0.0
@@ -834,6 +883,7 @@ def int8_kernel_phase(results: dict, power_line: str) -> None:
 
     # dx through the Function against autograd of the plain version.
     for dtype, M, K, N, rtol in ((torch.float32, 40, 256, 512, 1e-4),
+                                 (torch.bfloat16, 40, 4096, 11008, 2.0 ** -7),
                                  (torch.bfloat16, 1480, 4096, 11008, 2.0 ** -7)):
         x, q, scale = int8_inputs(M, K, N, dtype, dev, seed=3)
         w = torch.randn((M, N), device=dev, dtype=torch.float32)
@@ -847,39 +897,69 @@ def int8_kernel_phase(results: dict, power_line: str) -> None:
         say("int8", f"dx {str(dtype).split('.')[-1]} M={M} K={K} N={N}: max|err| "
             f"{(grads[0] - grads[1]).abs().max().item():.3e} of max "
             f"{grads[1].abs().max().item():.3e}")
+
+    # The cluster launcher refuses a plan that differs from the kernel's own
+    # in any field, and launches nothing then.
+    x, q, scale = int8_inputs(8, 4096, 4096, torch.bfloat16, dev, seed=4)
+    out = torch.empty((8, 4096), device=dev, dtype=torch.bfloat16)
+    plan = ic.cluster_plan(8, 4096, 4096)
+    refused = []
+    for field in ic.ClusterPlan._fields:
+        value = getattr(plan, field)
+        bad = plan._replace(**{field: (value[0], value[1] + 1) if field == "grid" else value + 1})
+        rc = raw_cluster_launch(x, q, scale, out, bad)
+        if rc == 0:
+            raise AssertionError(f"int8 cluster launcher took a plan with another {field}: {bad}")
+        refused.append(f"{field} ({rc})")
+    if raw_cluster_launch(x, q, scale, out, plan) != 0:
+        raise AssertionError("int8 cluster launcher refused its own plan")
+    torch.cuda.synchronize()
+    say("int8", f"the cluster launcher refused plans with another {', '.join(refused)} "
+        f"(CUDA error codes), and took its own")
+
     # Times. Each call reads another copy of the weight, from a ring larger
-    # than the 50 MB L2, as a model's layers do.
+    # than the 50 MB L2, as a model's layers do. Device times from CUDA graphs
+    # of 20 calls (graph_ms); the eager time of the same calls, with the
+    # host's enqueue through the wrapper, beside it.
     def ring(t, total=128e6):
         return [t.clone() for _ in range(max(2, int(total // (t.numel() * t.element_size())) + 1))]
 
     for K, N in INT8_SHAPES:
-        for M in (8, 185, 1480):     # a greedy step, one trial's prompt, prefill / fine-tune
-            x, q, scale = int8_inputs(M, K, N, torch.bfloat16, dev, seed=1)
-            qs, ws = ring(q), ring(q.to(torch.bfloat16))
-            state = {"i": 0}
+        _, q, scale = int8_inputs(8, K, N, torch.bfloat16, dev, seed=1)
+        qs, ws = ring(q), ring(q.to(torch.bfloat16))
+        state = {"i": 0}
 
-            def nxt(pool):
-                state["i"] += 1
-                return pool[state["i"] % len(pool)]
+        def nxt(pool):
+            state["i"] += 1
+            return pool[state["i"] % len(pool)]
 
-            reps = 50 if M == 8 else 10
+        for M in INT8_TIMED_MS:
+            x = int8_inputs(M, K, N, torch.bfloat16, dev, seed=M)[0]
+            reps = 20
+            kernel = lambda: ic.int8_matmul_cuda(x, nxt(qs), scale, torch.bfloat16)
+            library = lambda: torch.matmul(x, nxt(ws))
             with torch.no_grad():
-                t_kernel = cuda_ms(lambda: ic.int8_matmul_cuda(x, nxt(qs), scale, torch.bfloat16),
-                                   reps)
-                t_plain = cuda_ms(lambda: quant.int8_matmul_plain(x, nxt(qs), scale), reps)
-                t_convert = cuda_ms(lambda: torch.matmul(x, nxt(qs).to(torch.bfloat16)), reps)
-                t_lib = cuda_ms(lambda: torch.matmul(x, nxt(ws)), reps)
+                t_kernel = graph_ms(kernel, reps)
+                t_lib = graph_ms(library, reps)
+                t_eager = cuda_ms(kernel, reps)
+                t_lib_eager = cuda_ms(library, reps)
+                t_plain = cuda_ms(lambda: quant.int8_matmul_plain(x, nxt(qs), scale), 5)
+                t_convert = cuda_ms(lambda: torch.matmul(x, nxt(qs).to(torch.bfloat16)), 5)
             b = bound(2.0 * M * K * N, M * K * 2 + K * N + N * 4 + M * N * 2, "bfloat16")
-            say("int8", f"M={M} K={K} N={N} bf16: kernel {t_kernel:.4f} ms, bound "
-                f"{b['bound_ms']:.4f} ms ({b['bound_by']}), plain {t_plain:.4f} ms, convert + "
-                f"matmul {t_convert:.4f} ms, matmul on a bf16 weight {t_lib:.4f} ms; "
-                f"card {power_line}")
-            if (K, N) == (4096, 11008) and M != 185:
-                name = "int8_matmul_small_m" if M == 8 else "int8_matmul_tiled"
+            say("int8", f"M={M} K={K} N={N} bf16 ({int8_plan_text(M, K, N, torch.bfloat16)}): "
+                f"kernel {t_kernel:.4f} ms of device time (CUDA graph of {reps}), bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}, {b['bound_ms'] / t_kernel:.0%} of it); "
+                f"torch.matmul on a bf16 weight {t_lib:.4f} ms the same way (kernel / matmul "
+                f"{t_kernel / t_lib:.2f}); eager, with the host's enqueue: kernel {t_eager:.4f}, "
+                f"matmul {t_lib_eager:.4f} ms; plain {t_plain:.4f} ms, convert + matmul "
+                f"{t_convert:.4f} ms; card {power_line}")
+            if (K, N) == (4096, 11008) and M != 40:
+                name = INT8_CLUSTER if M == 8 else INT8_TILED
                 results[name] = dict(
                     max_abs_err=worst["small" if M == 8 else "tiled"], ms=t_kernel,
-                    plain_ms=t_plain, library_ms=t_lib, convert_matmul_ms=t_convert, **b)
-            del qs, ws
+                    plain_ms=t_plain, library_ms=t_lib, eager_ms=t_eager,
+                    convert_matmul_ms=t_convert, **b)
+        del qs, ws
 
 
 # ---------------------------------------------------------------------------
@@ -1017,8 +1097,25 @@ def build_bci(llm_path: str, quant, device):
     return model, time.perf_counter() - t0
 
 
+def prefill_step(model, batch, new_tokens: int):
+    """The eager prefill of ``generate``'s greedy decode and the
+    :class:`TokenStep` over its cache, not yet run: ``(first ids, step, P)``."""
+    import torch
+    from llm_bci_tpu_torch.models.decode_graph import TokenStep
+
+    embeds, mask, _ = model.prepare_embeds(**batch)
+    B, P, _ = embeds.shape
+    key_mask = mask.new_zeros((B, P + new_tokens))
+    key_mask[:, :P] = mask
+    decode = lambda e, km, c, idx: model.llm(inputs_embeds=e, attention_mask=km, cache=c,
+                                             cache_index=idx)
+    logits, cache = decode(embeds, key_mask, model.llm.init_cache(B, P + new_tokens), 0)
+    return torch.argmax(logits[:, -1, :], -1), TokenStep(decode, cache, key_mask), P
+
+
 def bci_serve_phase(power_line: str, profile) -> dict:
     import torch
+    from llm_bci_tpu_torch.models import decode_graph
     from llm_bci_tpu_torch.models import llama as tllama
     from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
     from llm_bci_tpu_torch.ops import quant
@@ -1027,6 +1124,7 @@ def bci_serve_phase(power_line: str, profile) -> dict:
     new_tokens, beams = 32, 5
     batch = bci_serving_batch(dev)
     vocab = LLAMA2_7B["vocab_size"]
+    autocast = lambda: torch.autocast("cuda", dtype=torch.bfloat16)
 
     def check_ids(ids, shape, what):
         if tuple(ids.shape) != shape or ids.dtype != torch.int64:
@@ -1034,12 +1132,69 @@ def bci_serve_phase(power_line: str, profile) -> dict:
         if int(ids.min()) < 0 or int(ids.max()) >= vocab:
             raise AssertionError(f"{what}: token ids out of [0, {vocab})")
 
+    def timed(fn, reps=2):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+    def greedy(m, n=new_tokens):
+        with autocast():
+            return m.generate(**batch, max_new_tokens=n, eos_token_id=-1)
+
+    def diverse(m):
+        with autocast():
+            return m.generate(**batch, max_new_tokens=new_tokens, num_beams=beams,
+                              num_beam_groups=beams, diversity_penalty=1.2,
+                              num_return_sequences=beams, eos_token_id=2)
+
+    def decode_times(m, label):
+        """Greedy tokens/s of a whole decode (its eager prefill, its eager
+        first token step, its capture and 30 replays) and its parts: the
+        prefill alone, the capture, the token steps; then a profile of 16
+        replayed greedy steps (argmax, embedding, key mask and the graph of
+        the step)."""
+        decode_graph.reset_counters()
+        g_s = timed(lambda: greedy(m))
+        capture_s = decode_graph.CAPTURE_SECONDS / decode_graph.CAPTURES
+        with torch.no_grad(), autocast():
+            prefill_s = timed(lambda: prefill_step(m, batch, new_tokens))
+        step_ms = (g_s - prefill_s) * 1e3 / (new_tokens - 1)
+        say("bci", f"{label}: greedy {BCI_B * new_tokens / g_s:.1f} tokens/s ({g_s * 1e3:.1f} ms "
+            f"for {new_tokens} tokens of B={BCI_B}, each decode capturing its own token step): "
+            f"prefill (M={BCI_B * BCI_PROMPT}, eager) {prefill_s * 1e3:.1f} ms, {step_ms:.3f} ms a "
+            f"token step (the rest over {new_tokens - 1} steps: one eager, the capture "
+            f"{capture_s * 1e3:.1f} ms, {new_tokens - 2} replays); peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; card {power_line}")
+        with torch.no_grad(), autocast():
+            token, step, P = prefill_step(m, batch, 40)
+            step.key_mask[:, P] = 1
+            step(m.llm.embed(token[:, None]), P)          # the first step and the capture
+
+            def steps(n=16):
+                tok = token
+                for t in range(1, n + 1):
+                    step.key_mask[:, P + t] = 1
+                    tok = torch.argmax(step(m.llm.embed(tok[:, None]), P + t), -1)
+                return tok
+
+            wall_ms = timed(steps) * 1e3
+            prof = device_profile(steps, f"16 replayed greedy token steps, {label}", power_line,
+                                  profile, wall_ms)
+        say("bci", f"{label}: a replayed greedy token step {prof['busy_ms'] / 16:.3f} ms of "
+            f"device time, {wall_ms / 16:.3f} ms of wall time")
+        return g_s, wall_ms / 16
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         # Kernel path against the plain matmul on the card, 2 layers deep.
         small, _ = build_bci(write_llama_config(tmp, 2), "int8", dev)
-        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        with torch.no_grad(), autocast():
             embeds, mask, _ = small.prepare_embeds(**batch)
             k_logits, _ = small.llm(inputs_embeds=embeds, attention_mask=mask)
+            decode_graph.reset_counters()
             k_tokens = small.generate(**batch, max_new_tokens=new_tokens, eos_token_id=-1)
             kernel_matmul = tllama.int8_matmul
             tllama.int8_matmul = quant.int8_matmul_plain
@@ -1048,6 +1203,9 @@ def bci_serve_phase(power_line: str, profile) -> dict:
                 p_tokens = small.generate(**batch, max_new_tokens=new_tokens, eos_token_id=-1)
             finally:
                 tllama.int8_matmul = kernel_matmul
+        # each decode captured its own step: the second from the plain product
+        if decode_graph.CAPTURES != 2:
+            raise AssertionError(f"{decode_graph.CAPTURES} captures for two decodes, want 2")
         top = p_logits.abs().max().item()
         err = (k_logits - p_logits).abs()
         # bf16 activations through 15 products in a chain (2 layers and
@@ -1080,61 +1238,67 @@ def bci_serve_phase(power_line: str, profile) -> dict:
         say("bci", f"BCI with a 32-layer int8 Llama-2-7B-width base built on the card in "
             f"{build_s:.1f} s, {weights_gib:.2f} GiB allocated")
 
-        def greedy(m, n=new_tokens):
-            with torch.autocast("cuda", dtype=torch.bfloat16):
-                return m.generate(**batch, max_new_tokens=n, eos_token_id=-1)
-
-        def diverse(m):
-            with torch.autocast("cuda", dtype=torch.bfloat16):
-                return m.generate(**batch, max_new_tokens=new_tokens, num_beams=beams,
-                                  num_beam_groups=beams, diversity_penalty=1.2,
-                                  num_return_sequences=beams, eos_token_id=2)
-
         ic.reset_counters()
+        decode_graph.reset_counters()
         tokens = greedy(model)
         result = diverse(model)
         torch.cuda.synchronize()
-        launches = {"int8_matmul_small_m": ic.SMALL_M_LAUNCHES,
-                    "int8_matmul_tiled": ic.TILED_LAUNCHES}
+        launches = int8_launches()
+        graphs = (decode_graph.EAGER_STEPS, decode_graph.CAPTURES, decode_graph.REPLAYS)
         check_ids(tokens, (BCI_B, new_tokens), "greedy")
         check_ids(result.sequences, (BCI_B, beams, new_tokens), "diverse beam")
         if tuple(result.scores.shape) != (BCI_B, beams) or not torch.isfinite(result.scores).all():
             raise AssertionError("diverse beam scores have the wrong shape or are not finite")
         if (result.scores[:, :-1] < result.scores[:, 1:]).any():
             raise AssertionError("diverse beam hypotheses are not sorted best-first")
-        # each decode: one prefill (M = B x 185 rows, tiled) and 31 single-token
-        # steps (M = 8 greedy, 40 with 5 beams: split-K)
-        want = {"int8_matmul_tiled": 2 * INT8_PER_FORWARD,
-                "int8_matmul_small_m": 2 * (new_tokens - 1) * INT8_PER_FORWARD}
+        # Each decode: one eager prefill (M = B x 185 rows or 5 times that:
+        # wgmma tiles), then 31 token steps (M = 8 greedy, 40 with 5 beams:
+        # the cluster kernel): the first eager, then captured once and
+        # replayed 30 times. The wrappers count on the host: the eager step
+        # and the capture; the device runs the eager step and the replays.
+        if graphs != (2, 2, 2 * (new_tokens - 2)):
+            raise AssertionError(f"eager steps, captures, replays {graphs}, "
+                                 f"want (2, 2, {2 * (new_tokens - 2)})")
+        want = {INT8_TILED: 2 * INT8_PER_FORWARD,
+                INT8_CLUSTER: (graphs[0] + graphs[1]) * INT8_PER_FORWARD}
         if launches != want or ic.LAUNCHES != sum(want.values()):
             raise AssertionError(f"int8 launches {launches} (total {ic.LAUNCHES}), want {want}")
+        on_device = (graphs[0] + graphs[2]) * INT8_PER_FORWARD
         say("bci", f"greedy ({new_tokens} tokens) + diverse beam ({beams} groups) at 32 layers: "
-            f"int8 launches {launches} = {INT8_PER_FORWARD} a model call x "
-            f"{2 * new_tokens} calls")
+            f"2 prefills, {graphs[0]} eager token steps, {graphs[1]} captures, {graphs[2]} "
+            f"replays; int8 launches on the host {launches} = {INT8_PER_FORWARD} a model call x "
+            f"(2 prefills | {graphs[0]} eager steps + {graphs[1]} captures); cluster kernel runs "
+            f"on the device {on_device} = {INT8_PER_FORWARD} x ({graphs[0]} + {graphs[2]}) = "
+            f"{INT8_PER_FORWARD} x 2 x {new_tokens - 1}")
 
-        def timed(fn, reps=2):
-            fn()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) / reps
+        # The graph's greedy ids against the un-graphed step function on the
+        # card, fed the same tokens: the same argmax at every step.
+        with torch.no_grad(), autocast():
+            first, step, P = prefill_step(model, batch, new_tokens)
+            eager = [first]
+            for t in range(new_tokens - 1):
+                step.key_mask[:, P + t] = 1
+                step.embeds = model.llm.embed(tokens[:, t:t + 1])
+                step.position.fill_(P + t)
+                eager.append(torch.argmax(step.run_eager(), -1))
+            eager = torch.stack(eager, 1)
+        if not torch.equal(eager, tokens):
+            raise AssertionError(f"greedy ids from the graph differ from the eager step's at "
+                                 f"{int((eager != tokens).sum())} of {tokens.numel()} places")
+        say("bci", f"greedy ids from the replayed graph equal the un-graphed step's on the card "
+            f"({tokens.numel()} ids)")
+        del step
 
-        g_s = timed(lambda: greedy(model))
+        g_s, g_step_ms = decode_times(model, "int8 base, 32 layers")
         d_s = timed(lambda: diverse(model), reps=1)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        say("bci", f"int8 base, 32 layers, B={BCI_B}, prompt {BCI_PROMPT}: greedy "
-            f"{BCI_B * new_tokens / g_s:.1f} tokens/s ({g_s * 1e3 / new_tokens:.2f} ms a token "
-            f"step, prefill included); diverse beam {BCI_B / d_s:.2f} sequences/s "
-            f"({d_s * 1e3:.0f} ms for {BCI_B} x {beams} hypotheses); peak memory {peak:.2f} GiB; "
+        say("bci", f"int8 base, diverse beam ({beams} groups, M={BCI_B * beams}): "
+            f"{BCI_B / d_s:.2f} sequences/s ({d_s * 1e3:.0f} ms for {BCI_B} x {beams} "
+            f"hypotheses of {new_tokens} tokens, each decode capturing its own token step); "
             f"card {power_line}")
-        device_profile(lambda: greedy(model, 8), "greedy decode, 8 tokens, int8 base, 32 layers",
-                       power_line, profile, timed(lambda: greedy(model, 8)) * 1e3)
         del model
         torch.cuda.empty_cache()
 
-        # The same greedy decode on a bf16 base.
+        # The same greedy decode on a bf16 base, through the same graph.
         torch.cuda.reset_peak_memory_stats()
         model, build_s = build_bci(path32, None, dev)
         before = ic.LAUNCHES
@@ -1142,13 +1306,9 @@ def bci_serve_phase(power_line: str, profile) -> dict:
         check_ids(tokens_bf16, (BCI_B, new_tokens), "greedy (bf16 base)")
         if ic.LAUNCHES != before:
             raise AssertionError("the bf16 base launched the int8 kernel")
-        b_s = timed(lambda: greedy(model))
-        say("bci", f"bf16 base, 32 layers (built in {build_s:.1f} s): greedy "
-            f"{BCI_B * new_tokens / b_s:.1f} tokens/s ({b_s * 1e3 / new_tokens:.2f} ms a token "
-            f"step); int8 / bf16 tokens/s = {b_s / g_s:.3f}; peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; card {power_line}")
-        device_profile(lambda: greedy(model, 8), "greedy decode, 8 tokens, bf16 base, 32 layers",
-                       power_line, profile, timed(lambda: greedy(model, 8)) * 1e3)
+        b_s, b_step_ms = decode_times(model, f"bf16 base, 32 layers (built in {build_s:.1f} s)")
+        say("bci", f"int8 / bf16 base greedy tokens/s = {b_s / g_s:.3f}, a replayed token step "
+            f"{g_step_ms:.3f} / {b_step_ms:.3f} ms of wall time; card {power_line}")
         del model
         torch.cuda.empty_cache()
     return launches
@@ -1206,14 +1366,12 @@ def bci_train_phase(power_line: str, profile) -> dict:
         trainer.train()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"int8_matmul_small_m": ic.SMALL_M_LAUNCHES,
-                    "int8_matmul_tiled": ic.TILED_LAUNCHES}
+        launches = int8_launches()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
     eval_batches = len(trainer.test_dataloader)
-    want = {"int8_matmul_small_m": 0,
-            "int8_matmul_tiled": INT8_PER_FORWARD * (steps + eval_batches)}
-    if launches != want:
+    want = {INT8_CLUSTER: 0, INT8_TILED: INT8_PER_FORWARD * (steps + eval_batches)}
+    if launches != want or ic.LAUNCHES != sum(want.values()):
         raise AssertionError(f"int8 launches {launches}, want {want} (0 in the backward)")
     hist = trainer.eval_history
     if len(hist) != 1 or hist[0]["step"] != steps:
@@ -1236,7 +1394,9 @@ def bci_train_phase(power_line: str, profile) -> dict:
     moved = sum(not torch.equal(state[key], before) for key, before in moving.items())
     if moved < 0.9 * len(moving):
         raise AssertionError(f"only {moved} of {len(moving)} trainable leaves changed")
-    say("bci", f"{steps} steps + eval ({eval_batches} batch) through the Trainer in {wall:.1f} s: "
+    say("bci", f"{steps} steps + eval ({eval_batches} batch) through the Trainer in {wall:.1f} s "
+        f"(metric_lag {trainer.metric_lag}: {trainer.readback.drains} readbacks of the train "
+        f"steps' losses and metric inputs): "
         f"loss per token {[round(x, 4) for x in losses]}, test_avg_loss "
         f"{h['test_avg_loss']:.4f}; int8 launches {launches} = {INT8_PER_FORWARD} a forward, "
         f"none in the backward; {len(frozen)} frozen leaves bit-identical, {moved} of "
@@ -1396,9 +1556,8 @@ def mlm_main_path_phase(power_line: str, profile) -> dict:
         trainer = port_main.main(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"flash_fwd_kernel": fc.FWD_LAUNCHES, "flash_dq_kernel": fc.BWD_DQ_LAUNCHES,
-                    "flash_dkv_kernel": fc.BWD_DKV_LAUNCHES,
-                    "flash_delta_kernel": fc.BWD_DELTA_LAUNCHES}
+        launches = {FWD_WG: fc.FWD_LAUNCHES, DQ_WG: fc.BWD_DQ_LAUNCHES,
+                    DKV_WG: fc.BWD_DKV_LAUNCHES, "flash_delta_kernel": fc.BWD_DELTA_LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
 
     tr = trainer.config.model.encoder.transformer
@@ -1412,9 +1571,8 @@ def mlm_main_path_phase(power_line: str, profile) -> dict:
         if not np.isfinite(h[key]):
             raise AssertionError(f"{key} is not finite: {h[key]}")
     eval_batches = len(trainer.test_dataloader)
-    want = {"flash_fwd_kernel": n_layers * (steps + eval_batches),
-            "flash_dq_kernel": n_layers * steps, "flash_dkv_kernel": n_layers * steps,
-            "flash_delta_kernel": n_layers * steps}
+    want = {FWD_WG: n_layers * (steps + eval_batches), DQ_WG: n_layers * steps,
+            DKV_WG: n_layers * steps, "flash_delta_kernel": n_layers * steps}
     if launches != want:
         raise AssertionError(f"flash launches {launches}, expected {want}")
     say("mlm", f"{steps} steps + eval ({eval_batches} batch) through llm_bci_tpu_torch.main in "
@@ -1506,24 +1664,23 @@ def profile_step(trainer, batch, power_line: str, path: str) -> None:
 
 
 KERNELS = {
-    # name: (source, the TPU kernel it replaces)
+    # name of the kernel that runs at the timed shape: (source, the TPU kernel
+    # it replaces). Float32 and head sizes without a wgmma plan take other
+    # kernels of the same sources (flash_fwd_kernel, flash_dq_kernel,
+    # flash_dkv_kernel, int8_f32_kernel); no main path runs them.
     "ctc_alpha_kernel": ("llm_bci_tpu_torch/csrc/ctc.cu", "llm_bci_tpu/ops/ctc_pallas.py:77"),
     "ctc_beta_kernel": ("llm_bci_tpu_torch/csrc/ctc.cu", "llm_bci_tpu/ops/ctc_pallas.py:93"),
-    "flash_fwd_kernel": ("llm_bci_tpu_torch/csrc/flash_attention.cu",
-                         "llm_bci_tpu/ops/flash_attention.py:103"),
-    "flash_dq_kernel": ("llm_bci_tpu_torch/csrc/flash_attention.cu",
-                        "llm_bci_tpu/ops/flash_attention.py:237"),
-    "flash_dkv_kernel": ("llm_bci_tpu_torch/csrc/flash_attention.cu",
-                         "llm_bci_tpu/ops/flash_attention.py:294"),
+    FWD_WG: ("llm_bci_tpu_torch/csrc/flash_attention.cu", "llm_bci_tpu/ops/flash_attention.py:103"),
+    DQ_WG: ("llm_bci_tpu_torch/csrc/flash_attention.cu", "llm_bci_tpu/ops/flash_attention.py:237"),
+    DKV_WG: ("llm_bci_tpu_torch/csrc/flash_attention.cu",
+             "llm_bci_tpu/ops/flash_attention.py:294"),
     # the expression that XLA fuses into one pass there
     "flash_delta_kernel": ("llm_bci_tpu_torch/csrc/flash_attention.cu",
                            "llm_bci_tpu/ops/flash_attention.py:367"),
-    # one TPU kernel, two regimes of the port's kernel: M <= 64 (split-K and a
-    # reduce pass) and M > 64 (wgmma tiles), timed at (K, N) = (4096, 11008)
-    "int8_matmul_small_m": ("llm_bci_tpu_torch/csrc/int8_matmul.cu",
-                            "llm_bci_tpu/ops/quant.py:127"),
-    "int8_matmul_tiled": ("llm_bci_tpu_torch/csrc/int8_matmul.cu",
-                          "llm_bci_tpu/ops/quant.py:127"),
+    # one TPU kernel, two kernels of the port: M <= 64 (a decode step) and M >
+    # 64 (prefill, fine-tune), timed at (K, N) = (4096, 11008)
+    INT8_CLUSTER: ("llm_bci_tpu_torch/csrc/int8_matmul.cu", "llm_bci_tpu/ops/quant.py:127"),
+    INT8_TILED: ("llm_bci_tpu_torch/csrc/int8_matmul.cu", "llm_bci_tpu/ops/quant.py:127"),
 }
 
 

@@ -151,6 +151,8 @@ def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Tra
     elif config.model.model_class == "BCI":
         # flax infers the input width at init; here the embedder needs it
         config["model"]["ndt1"]["encoder"]["embedder"]["n_channels"] = n_channels
+    elif config.model.model_class == "PhonemeLLM":
+        raise not_ported("Model class 'PhonemeLLM'", "Queue 1, slice 6, item 10")
     else:
         raise not_ported(f"Model class {config.model.model_class!r}", "Queue 1, slice 7")
 

@@ -287,7 +287,8 @@ class BCI(nn.Module):
         returned. ``(B, max_new_tokens)`` ids when ``num_return_sequences ==
         1``, else a :class:`BeamResult` with the hypotheses sorted
         best-first. ``num_beam_groups == num_beams > 1`` selects diverse beam
-        search."""
+        search. Each decode captures its token step as one CUDA graph on the
+        card and replays it (``models/decode_graph.py``)."""
         if num_return_sequences > num_beams:
             raise ValueError("num_return_sequences must be <= num_beams")
         if num_beam_groups > 1 and num_beam_groups != num_beams:

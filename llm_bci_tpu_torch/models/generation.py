@@ -1,15 +1,17 @@
 """Autoregressive decoding: greedy, beam search, diverse beam search
 (counterpart of ``llm_bci_tpu/models/generation.py``).
 
-The prompt is consumed in one prefill call, then ``max_new_tokens`` tokens
-are chosen one model call at a time. The JAX package runs those steps under
-``lax.scan``; here they are a Python loop over fixed-length buffers (token
-buffers of ``max_new_tokens``, a key mask and a KV cache of ``P +
-max_new_tokens``). Nothing inside a loop reads a value back to the host (no
-``.item()``, no branch on a tensor), so a later change can capture a step in
-a CUDA graph. The model call after the last token, which the scan makes and
-throws away, is not made: ``max_new_tokens`` tokens cost one prefill and
-``max_new_tokens - 1`` single-token calls.
+The prompt is consumed in one eager prefill call, then ``max_new_tokens``
+tokens are chosen one token step at a time. The JAX package runs those steps
+under ``lax.scan`` in one compiled program; here every step goes through the
+static buffers of a :class:`~llm_bci_tpu_torch.models.decode_graph.TokenStep`
+(token embeddings, the key mask and KV cache of ``P + max_new_tokens`` slots,
+a 0-dim position tensor, the logits), which on the card captures the step
+once as a CUDA graph and replays it for every later token. Nothing inside a
+loop reads a value back to the host (no ``.item()``, no branch on a tensor).
+The model call after the last token, which the scan makes and throws away,
+is not made: ``max_new_tokens`` tokens cost one prefill and
+``max_new_tokens - 1`` token steps.
 
 Beam search follows HF ``BeamSearchScorer`` semantics:
 
@@ -29,8 +31,11 @@ groups pick tokens one after the other, each penalized by the count of the
 tokens that earlier groups chose at that step.
 
 ``decode_step(embeds, attention_mask, cache, cache_index) -> (logits, cache)``
-is the model hook (``cache_index`` a Python int; the cache is updated in
-place), ``embed_tokens`` maps chosen ids back to embeddings. Token ids are
+is the model hook: ``cache_index`` is the int 0 for the prefill and the
+token step's 0-dim position tensor afterwards; the cache is updated in place.
+``cache`` is a new cache of ``P + max_new_tokens`` slots; the decode's
+:class:`TokenStep` takes it as its static cache and lives as long as the
+decode. ``embed_tokens`` maps chosen ids back to embeddings. Token ids are
 int64.
 """
 from __future__ import annotations
@@ -38,6 +43,8 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Tuple
 
 import torch
+
+from llm_bci_tpu_torch.models.decode_graph import TokenStep
 
 NEG_INF = -1e9
 
@@ -51,14 +58,14 @@ def _top_k_stable(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def _prefill(decode_step, inputs_embeds, attn_mask_prompt, cache, total_len):
-    """Run the prompt through the model once; returns ``(last_logits, cache,
-    key_mask)`` with ``key_mask`` the (B, total_len) validity mask over the
-    cache."""
+    """Run the prompt through the model once; returns ``(last_logits, step)``
+    with ``step`` the :class:`TokenStep` over the filled cache and the (B,
+    total_len) validity mask of its keys."""
     B, P, _ = inputs_embeds.shape
-    key_mask = attn_mask_prompt.new_zeros((B, total_len))
-    key_mask[:, :P] = attn_mask_prompt
-    logits, cache = decode_step(inputs_embeds, key_mask, cache, 0)
-    return logits[:, -1, :], cache, key_mask
+    step = TokenStep(decode_step, cache, attn_mask_prompt.new_zeros((B, total_len)))
+    step.key_mask[:, :P] = attn_mask_prompt
+    logits, _ = decode_step(inputs_embeds, step.key_mask, step.cache, 0)
+    return logits[:, -1, :], step
 
 
 @torch.no_grad()
@@ -73,8 +80,7 @@ def greedy_decode(
     pad_token_id: int,
 ) -> torch.Tensor:                   # (B, max_new_tokens)
     B, P, _ = inputs_embeds.shape
-    logits, cache, key_mask = _prefill(
-        decode_step, inputs_embeds, attention_mask, cache, P + max_new_tokens)
+    logits, step = _prefill(decode_step, inputs_embeds, attention_mask, cache, P + max_new_tokens)
     tokens = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.long,
                         device=inputs_embeds.device)
     done = torch.zeros((B,), dtype=torch.bool, device=inputs_embeds.device)
@@ -85,9 +91,8 @@ def greedy_decode(
         tokens[:, t] = token
         if t + 1 == max_new_tokens:
             break
-        key_mask[:, P + t] = 1
-        step_logits, cache = decode_step(embed_tokens(token[:, None]), key_mask, cache, P + t)
-        logits = step_logits[:, -1, :]
+        step.key_mask[:, P + t] = 1
+        logits = step(embed_tokens(token[:, None]), P + t)
     return tokens
 
 
@@ -125,14 +130,14 @@ def beam_search(
 ) -> BeamResult:
     """HF-semantics beam search; returns all ``num_beams`` hypotheses per
     batch element sorted by penalized score (see the module docstring). The
-    live beams' cache rows are reordered every step by building new cache
-    tensors."""
+    live beams' cache rows and key mask are reordered every step, gathered and
+    copied back into the token step's static buffers."""
     B, P, _ = inputs_embeds.shape
     K = num_beams
     dev = inputs_embeds.device
     expand = lambda x: x.repeat_interleave(K, dim=0)
 
-    logits, cache, key_mask = _prefill(
+    logits, step = _prefill(
         decode_step, expand(inputs_embeds), expand(attention_mask), cache, P + max_new_tokens)
     log_probs = torch.log_softmax(logits, dim=-1)                 # (B*K, V)
     V = log_probs.shape[-1]
@@ -183,13 +188,11 @@ def beam_search(
         if t + 1 == max_new_tokens:
             break
         # One decode step for the refilled live beams.
-        cache = tuple({name: _gather_beams(c, live_src, B, K) for name, c in layer.items()}
-                      for layer in cache)
-        key_mask = _gather_beams(key_mask, live_src, B, K)
-        key_mask[:, P + t] = 1
-        step_logits, cache = decode_step(
-            embed_tokens(live_tok.reshape(B * K, 1)), key_mask, cache, P + t)
-        log_probs = torch.log_softmax(step_logits[:, -1, :], dim=-1)
+        for buf in [step.key_mask] + [c for layer in step.cache for c in layer.values()]:
+            buf.copy_(_gather_beams(buf, live_src, B, K))
+        step.key_mask[:, P + t] = 1
+        log_probs = torch.log_softmax(step(embed_tokens(live_tok.reshape(B * K, 1)), P + t),
+                                      dim=-1)
 
     # Finalize: merge the still-live beams of unfinished batches.
     pen_live = torch.where(stopped[:, None], neg_inf,
@@ -225,7 +228,7 @@ def diverse_beam_search(
     dev = inputs_embeds.device
     expand = lambda x: x.repeat_interleave(G, dim=0)
 
-    logits, cache, key_mask = _prefill(
+    logits, step = _prefill(
         decode_step, expand(inputs_embeds), expand(attention_mask), cache, P + max_new_tokens)
     log_probs = torch.log_softmax(logits, dim=-1)                 # (B*G, V)
     V = log_probs.shape[-1]
@@ -285,10 +288,9 @@ def diverse_beam_search(
 
         if t + 1 == max_new_tokens:
             break
-        key_mask[:, P + t] = 1
-        step_logits, cache = decode_step(
-            embed_tokens(live_tok.reshape(B * G, 1)), key_mask, cache, P + t)
-        log_probs = torch.log_softmax(step_logits[:, -1, :], dim=-1)
+        step.key_mask[:, P + t] = 1
+        log_probs = torch.log_softmax(step(embed_tokens(live_tok.reshape(B * G, 1)), P + t),
+                                      dim=-1)
 
     # Finalize per group: the finished hypothesis if any, else the live beam.
     pen_live = live_scores / (float(max_new_tokens) ** length_penalty)

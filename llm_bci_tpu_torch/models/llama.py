@@ -18,8 +18,13 @@
 * Grouped-query attention through ``ops.attention.dot_product_attention``;
   RMSNorm computes in float32; logits leave as float32.
 * The KV cache is a tuple of ``{"k", "v"}`` buffers a layer, **updated in
-  place** at ``cache_index`` (a Python int) and handed back for the JAX
-  package's call shape; beam search reorders it by building a new one.
+  place** at ``cache_index`` and handed back for the JAX package's call shape.
+  ``cache_index`` is a Python int (prefill, training, every eager caller) or a
+  0-dim int64 tensor on the model's device (a decode token step, the JAX
+  package's traced index): then the KV write is an ``index_copy_`` at
+  ``cache_index + arange(T)`` and positions and mask are built on the device,
+  so nothing reads the position back and a CUDA graph of the step replays at
+  whatever position the tensor holds (``models/decode_graph.py``).
 * Every leaf is created directly on ``device`` in its storage dtype, drawn
   from ``generator``: a 7B base never exists in float32 or on the host.
   ``remat`` is not ported.
@@ -188,7 +193,7 @@ def apply_lora_group(x: torch.Tensor, deferred: Sequence, *, alpha: float, r: in
 def make_causal_padding_mask(
     attention_mask: torch.Tensor,    # (B, S) 1 = valid keys
     q_len: int,
-    q_offset: int = 0,
+    q_offset=0,                      # int, or a 0-dim int64 tensor on the mask's device
 ) -> torch.Tensor:                   # (B, 1, q_len, S) bool
     """Query at absolute position ``q_offset + i`` may attend to key ``j``
     iff ``j <= q_offset + i`` and key ``j`` is valid."""
@@ -250,8 +255,13 @@ class LlamaAttention(nn.Module):
         q = qh.transpose(1, 2).to(spec.dtype)
         k = kh.transpose(1, 2).to(spec.dtype)
         if cache is not None:
-            cache["k"][:, cache_index:cache_index + T] = k
-            cache["v"][:, cache_index:cache_index + T] = v
+            if torch.is_tensor(cache_index):
+                at = cache_index + torch.arange(T, device=k.device)
+                cache["k"].index_copy_(1, at, k)
+                cache["v"].index_copy_(1, at, v)
+            else:
+                cache["k"][:, cache_index:cache_index + T] = k
+                cache["v"][:, cache_index:cache_index + T] = v
             k, v = cache["k"], cache["v"]
         out = dot_product_attention(q, k, v, mask=mask).reshape(B, T, nH * hd)
         return self.o_proj(out, generator=generator)
@@ -350,7 +360,7 @@ class LlamaForCausalLM(nn.Module):
         attention_mask: Optional[torch.Tensor] = None,   # (B, S) over keys
         positions: Optional[torch.Tensor] = None,        # (B, T)
         cache: Optional[Tuple[Dict[str, torch.Tensor], ...]] = None,
-        cache_index: Optional[int] = None,
+        cache_index=None,                                # int, or a 0-dim int64 tensor
         generator: Optional[torch.Generator] = None,
     ):
         if inputs_embeds is None:
@@ -359,7 +369,9 @@ class LlamaForCausalLM(nn.Module):
         B, T, _ = x.shape
         if attention_mask is None:
             attention_mask = torch.ones((B, T), dtype=torch.int32, device=x.device)
-        q_offset = int(cache_index) if cache_index is not None else 0
+        # a tensor index stays on the device: no int() of it, no sync
+        q_offset = 0 if cache_index is None else (
+            cache_index if torch.is_tensor(cache_index) else int(cache_index))
         mask = make_causal_padding_mask(attention_mask, T, q_offset)
         if positions is None:
             positions = (torch.arange(T, device=x.device) + q_offset)[None, :].expand(B, T)

@@ -14,7 +14,9 @@ float32 with dropout and noise off, the debug Llama and LoRA ``B`` non-zero.
 * checkpoint save -> load round trip, ``from_pt`` reload, NDT1 warm start;
 * ``llm_bci_tpu_torch.main`` on a pre-tokenized dataset with the A-WER fn.
 """
+import gc
 import os
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -226,6 +228,14 @@ def test_generate_matches_jax(quantize):
         tm.generate(**tb, num_beams=2, num_return_sequences=3)
     with pytest.raises(ValueError, match="group size 1"):
         tm.generate(**tb, num_beams=4, num_beam_groups=2)
+    # a decode leaves nothing that keeps its model alive: no reference cycle
+    gc.disable()
+    try:
+        model = weakref.ref(tm)
+        del tm
+        assert model() is None
+    finally:
+        gc.enable()
 
 
 # ------------------------------------------------------------------ trainer

@@ -29,7 +29,8 @@ def hooks(config, variant):
                         cache=cache, cache_index=idx)
 
     def tdecode(embeds, mask, cache, idx):
-        assert isinstance(idx, int)
+        # the prefill's int, then each token step's 0-dim position tensor
+        assert idx == 0 if isinstance(idx, int) else (torch.is_tensor(idx) and idx.dim() == 0)
         return tm(inputs_embeds=embeds, attention_mask=mask, cache=cache, cache_index=idx)
 
     jembed = lambda ids: jm.apply({"params": params}, ids, method=jm.embed)

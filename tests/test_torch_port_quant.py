@@ -7,7 +7,10 @@ against the JAX package (``llm_bci_tpu.ops.quant``), on the CPU.
   ``int8_matmul(impl="xla")`` and against the Pallas kernel in interpret mode
   (``block_n=128, block_k=128``), rtol 1e-5 in float32;
 * ``dx`` through the port's autograd Function against ``jax.grad``;
-* the launch plan of the CUDA wrapper (pure Python) covers K exactly;
+* the launch plans of the CUDA wrapper (pure Python): the cluster kernel's
+  K-split covers K with no empty rank and fits the card at every decode M,
+  and the wrapper refuses a plan that is not the kernel's before the device
+  check;
 * grouped-query attention against a repeat of the key / value heads.
 """
 import jax
@@ -140,17 +143,79 @@ def test_int8_matmul_under_autocast_sees_bf16():
                                  (32, 32), (48, 80)])
 @pytest.mark.parametrize("bf16", [True, False])
 def test_small_m_plan_covers_k_with_no_empty_block(M, K, N, bf16):
-    config, split, k_per_split = int8_matmul_cuda.plan(M, K, N, bf16)
-    bk = 64 if bf16 else 32
-    assert config == (1 if M <= 16 else 2 if M <= 32 else 3)
-    assert split >= 1 and k_per_split % bk == 0
-    assert split * k_per_split >= K                  # K is covered
-    assert (split - 1) * k_per_split < K             # and the last block has work
+    """bf16: the ranks of a cluster split K into whole 64-deep k-tiles, cover
+    it, and the last rank has work; float32 makes one pass over K."""
+    ic = int8_matmul_cuda
+    if not bf16:
+        assert ic.regime(M, False) == "f32"
+        return
+    assert ic.regime(M, True) == "cluster"
+    p = ic.cluster_plan(M, K, N)
+    assert p.cluster in ic.CLUSTER_SIZES and p.grid == (p.cluster, -(-N // 128))
+    assert p.k_per_rank % 64 == 0
+    assert p.cluster * p.k_per_rank >= K                  # K is covered
+    assert (p.cluster - 1) * p.k_per_rank < K             # and the last rank has work
+    assert 8 * p.m_tiles >= M and (p.m_tiles == 1 or 8 * ic.CLUSTER_M_TILES[
+        ic.CLUSTER_M_TILES.index(p.m_tiles) - 1] < M)     # the smallest x box that holds M
 
 
 def test_large_m_plan_is_one_pass():
-    assert int8_matmul_cuda.plan(65, 4096, 11008, True) == (0, 1, 4096)
-    assert int8_matmul_cuda.plan(1480, 11008, 4096, True) == (0, 1, 11008)
+    ic = int8_matmul_cuda
+    assert ic.regime(65, True) == "tiled" and ic.regime(1480, True) == "tiled"
+    assert ic.tile_plan(65, 4096, 11008).grid == (1, 86)          # every block walks all of K
+    assert ic.tile_plan(1480, 11008, 4096).grid == (6, 32)
+    with pytest.raises(ValueError, match="1..64"):
+        ic.cluster_plan(65, 4096, 11008)
+
+
+@pytest.mark.parametrize("K,N", [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)])
+def test_cluster_plan_fits_the_card_at_every_decode_m(K, N):
+    """Every M of a decode step at each Llama-2-7B shape: a plan the kernel
+    takes, within one block's shared memory, C <= 8, and three blocks an SM
+    (each block also holds 1 KB of the SM's 228 KB for itself)."""
+    ic = int8_matmul_cuda
+    for M in range(1, 65):
+        p = ic.cluster_plan(M, K, N)
+        ic.check_cluster_plan(p, M, K, N)
+        assert p.smem_bytes <= ic.MAX_SMEM_BYTES == 232448
+        assert p.cluster <= 8 and p.threads == 160
+        assert 3 * (p.smem_bytes + 1024) <= 228 * 1024
+        assert p.stages * 64 * 128 >= 32 * 1024                  # 32 KB of codes in flight a block
+        assert p.stages == 8 or 3 * (p.smem_bytes + p.smem_bytes // p.stages + 1024) > 228 * 1024
+
+
+@pytest.mark.parametrize("K,N,cluster,rank_tiles,blocks", [
+    (4096, 4096, 8, 8, 256), (4096, 11008, 4, 16, 344), (11008, 4096, 8, 22, 256),
+    (4096, 32000, 1, 64, 250),
+])
+@pytest.mark.parametrize("M,m_tiles,stages,smem", [(8, 1, 8, 74880), (40, 5, 5, 67664)])
+def test_cluster_plan_at_the_decode_shapes(K, N, cluster, rank_tiles, blocks, M, m_tiles, stages,
+                                           smem):
+    """Greedy (M=8) and 5 beams (M=40): about one or two waves of two blocks
+    an SM, every rank streaming at least 8 k-tiles."""
+    p = int8_matmul_cuda.cluster_plan(M, K, N)
+    assert (p.cluster, p.k_per_rank // 64, p.grid[0] * p.grid[1]) == (cluster, rank_tiles, blocks)
+    assert (p.m_tiles, p.stages, p.smem_bytes) == (m_tiles, stages, smem)
+
+
+@pytest.mark.parametrize("field", int8_matmul_cuda.ClusterPlan._fields)
+def test_cuda_wrapper_refuses_an_altered_cluster_plan(field, monkeypatch):
+    """A plan that differs from the kernel's constants in any field is
+    refused before the device check, and nothing is launched or loaded."""
+    ic = int8_matmul_cuda
+    real = ic.cluster_plan
+
+    def altered(M, K, N):
+        p = real(M, K, N)
+        value = getattr(p, field)
+        return p._replace(**{field: (value[0], value[1] + 1) if field == "grid" else value + 1})
+
+    monkeypatch.setattr(ic, "cluster_plan", altered)
+    x, q, s = _cuda_args(M=8, K=4096, N=4096)
+    before = ic.LAUNCHES
+    with pytest.raises(ValueError, match="not the cluster kernel's"):
+        ic.int8_matmul_cuda(x, q, s, torch.bfloat16)
+    assert ic._LIB is None and ic.LAUNCHES == before
 
 
 @pytest.mark.parametrize("M", [65, 129, 185, 256, 257, 1480, 4096])

@@ -291,7 +291,8 @@ def test_port_main_on_speechbci_files(tmp_path):
         args = port_main.parse_args([
             "-c", "configs/trainer_ctc_ndt1.yaml",
             "-k", f"data.data_dir={tmp_path / 'mat'}", f"dirs.checkpoint_dir={tmp_path / 'ck'}",
-            "training.max_steps=2", "training.eval_every=2", "training.save_every=2",
+            f"dirs.log_dir={tmp_path / 'logs'}", "training.max_steps=2", "training.eval_every=2",
+            "training.save_every=2",
             "training.train_batch_size=4", "training.test_batch_size=4", "verbosity=3",
             "precision.compute_dtype=float32", "model.encoder.transformer.n_layers=1",
             "model.encoder.transformer.hidden_size=16", "model.encoder.transformer.n_heads=2",
