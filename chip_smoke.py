@@ -8,16 +8,22 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
 1. the card: ``torch.cuda.is_available()``, its name and power limit;
 2. build the CUDA kernels from ``llm_bci_tpu_torch/csrc``, one ``nvcc`` a
    source, all started together;
-3. kernels: the CTC forward and backward kernels against the plain PyTorch
-   version on the card at the NDT1-CTC flagship shapes (B=64, T'=121,
-   V=41, S=64, partial input lengths, an empty and an infeasible target,
-   repeated labels) on float32 log-probs: loss rtol 1e-4 and gradient atol
-   1e-4 against the plain version run in float64 (the kernels recurse in
-   double; the plain version's own float32 error over 121 sequential
-   log-sum-exps is printed beside it); torch's native CTC through the
-   logits as an independent oracle; kernel and float32 plain times from
-   CUDA events after warm-up, and ``torch.nn.functional.ctc_loss`` timed
-   beside them (``library_ms``; the port never calls it);
+3. kernels: the CTC kernels against the plain PyTorch version run in
+   float64, on float32 log-probs: loss rtol 1e-4 / atol 1e-4, gradient atol
+   1e-4 (the plain version's own float32 error over 121 sequential
+   log-sum-exps is printed beside it). Every path: ``ctc_alpha_beta_kernel``
+   (the forward with the gradient) with its lattice in shared memory at the
+   NDT1-CTC flagship shapes (B=64, T'=121, V=41, S=64, partial input
+   lengths, an empty and an infeasible target, repeated labels), with and
+   without ``zero_infinity`` (the infeasible row: loss exactly 0 or the 1e30
+   sentinel, gradient exactly 0), on a confident model (logits x 15) and with
+   its lattice in a global scratch (B=8, T=1000); ``ctc_alpha_kernel`` (the
+   forward without a gradient) on each, the same bits as the fused loss;
+   torch's native CTC through the logits as an independent oracle; the
+   launcher's refusal of a plan that differs in any field; device times from
+   CUDA graphs of 20 launches (``graph_ms``), the eager calls, the float32
+   plain version and ``torch.nn.functional.ctc_loss`` (eager; ``library_ms``,
+   the port never calls it); the kernels' registers and stack as compiled;
 4. kernels: the banded flash-attention forward, dQ and dK/dV kernels
    against the plain version on the card, in float32 (out atol 5e-5,
    gradients atol 2e-4 + rtol 2e-4: float32 sums in another order) and in
@@ -46,7 +52,8 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    phoneme targets) through ``llm_bci_tpu_torch.main`` with
    ``configs/trainer_ctc_ndt1.yaml`` at full width (5 x 1024, bf16
    autocast): 4 training steps and one eval with the CER metric. The
-   launch counters must show the CTC kernels ran; the model's loss on a
+   launch counters must show the CTC kernels ran (the fused kernel once a
+   training step, the alpha kernel in the eval); the model's loss on a
    test batch must agree with the plain CTC on the same log-probs;
 6. main path (NDT1-mlm): synthetic Poisson spikes (rate 1.0, 64 train and
    32 val trials of 896-1024 bins x 256 channels) in a pickle through
@@ -87,9 +94,9 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    and none in the backward; the metric readback's batches.
 
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train`` runs one
-phase (for development); ``--profile PATH`` adds ``torch.profiler`` tables
-of the mlm train step (written to ``PATH``) and of the replayed BCI greedy
-token steps and the fine-tune step (appended to ``PATH``).
+phase (for development); ``--profile PATH`` writes ``torch.profiler`` tables
+of the NDT1-CTC and mlm train steps, the replayed BCI greedy token steps and
+the fine-tune step to ``PATH``.
 
 The second-to-last line is a JSON object with the kernels' launches,
 errors and times; the last line is
@@ -234,16 +241,20 @@ def bound(ops: float, nbytes: float, dtype: str) -> dict:
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def ctc_case(device):
-    """Flagship-shaped CTC inputs with the edge cases in the batch."""
+def ctc_case(device, n_batch: int = B, n_frames: int = T, scale: float = 1.0, seed: int = 0):
+    """Flagship-shaped CTC inputs (logits) with the edge cases in the batch:
+    an empty target, an infeasible one (64 labels in 40 frames), repeated
+    labels, one label 30 times; ``scale`` multiplies the logits (15: a
+    confident model, whose likeliest paths lie up to hundreds of nats below a
+    frame's best slot)."""
     import torch
 
-    rng = np.random.default_rng(0)
-    logits = rng.normal(size=(B, T, V)).astype(np.float32) * 2.0
-    targets = rng.integers(1, V, size=(B, S)).astype(np.int64)
-    il = rng.integers(90, T + 1, size=B).astype(np.int64)
-    il[0] = T
-    tl = rng.integers(20, S + 1, size=B).astype(np.int64)
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(n_batch, n_frames, V)).astype(np.float32) * 2.0 * scale
+    targets = rng.integers(1, V, size=(n_batch, S)).astype(np.int64)
+    il = rng.integers(int(0.75 * n_frames), n_frames + 1, size=n_batch).astype(np.int64)
+    il[0] = n_frames
+    tl = rng.integers(20, S + 1, size=n_batch).astype(np.int64)
     tl[1] = 0                                  # empty target
     il[2], tl[2] = 40, S                       # infeasible: 64 labels in 40 frames
     targets[3, :12] = [5, 5, 5, 7, 7, 9, 9, 9, 9, 2, 2, 5]   # repeated labels
@@ -254,6 +265,61 @@ def ctc_case(device):
     return t(logits), t(targets), t(il), t(tl)
 
 
+CTC_INFEASIBLE = 2     # the row of ctc_case with no feasible alignment
+
+
+def ctc_check(label: str, logits, targets, il, tl, zero_infinity: bool, lattice: str) -> dict:
+    """One CTC path against the plain version in float64: the loss and the
+    gradient through ``ctc_loss_cuda`` with a gradient (``ctc_alpha_beta_kernel``,
+    its lattice where ``lattice`` says) and the loss without one
+    (``ctc_alpha_kernel``, the same bits). Gates: loss rtol 1e-4 / atol 1e-4,
+    gradient atol 1e-4; the infeasible row's loss exactly 0 under
+    ``zero_infinity`` and the float32 sentinel 1e30 without it, its gradient
+    exactly 0 (the JAX package's convention; the plain version's autograd
+    leaves -0.5 on its last frame's terminal slots without ``zero_infinity``,
+    so that row's gradient is held to 0 and not to the plain version)."""
+    import torch
+    from llm_bci_tpu_torch.ops import ctc_cuda
+    from llm_bci_tpu_torch.ops.ctc import NEG_INF, ctc_loss_plain
+
+    lp = torch.log_softmax(logits, -1).detach()
+    Bx, Tx, _ = lp.shape
+    plan = ctc_cuda.ctc_plan(Tx, S, V, want_grad=True)
+    if plan.lattice != lattice:
+        raise AssertionError(f"CTC {label}: plan {plan}, expected the lattice in {lattice}")
+    x = lp.clone().requires_grad_(True)
+    fused0 = ctc_cuda.FUSED_LAUNCHES
+    loss = ctc_cuda.ctc_loss_cuda(x, targets, il, tl, zero_infinity=zero_infinity)
+    (grad,) = torch.autograd.grad(loss.sum(), x)
+    fwd0 = ctc_cuda.FWD_LAUNCHES
+    with torch.no_grad():
+        loss_fwd = ctc_cuda.ctc_loss_cuda(lp, targets, il, tl, zero_infinity=zero_infinity)
+    if (ctc_cuda.FUSED_LAUNCHES - fused0, ctc_cuda.FWD_LAUNCHES - fwd0) != (1, 1):
+        raise AssertionError(f"CTC {label}: expected one fused and one forward-only launch")
+    xr = lp.double().requires_grad_(True)
+    ref = ctc_loss_plain(xr, targets, il, tl, zero_infinity=zero_infinity)
+    (ref_grad,) = torch.autograd.grad(ref.sum(), xr)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(loss).all() and torch.isfinite(grad).all()):
+        raise AssertionError(f"CTC {label}: non-finite values")
+    sentinel = 0.0 if zero_infinity else float(np.float32(-NEG_INF))
+    if loss[CTC_INFEASIBLE].item() != sentinel or grad[CTC_INFEASIBLE].abs().max().item() != 0.0:
+        raise AssertionError(f"CTC {label}: infeasible row: loss {loss[CTC_INFEASIBLE].item()} "
+                             f"(expected {sentinel}) and a non-zero gradient")
+    if not torch.equal(loss, loss_fwd):
+        raise AssertionError(f"CTC {label}: the forward without a gradient differs from the fused one")
+    feasible = torch.arange(Bx, device=lp.device) != CTC_INFEASIBLE
+    ref_loss = ref.detach().float()
+    loss_err = (loss - ref_loss).abs().max().item()
+    grad_err = (grad[feasible].double() - ref_grad[feasible]).abs().max().item()
+    say("kernels", f"CTC {label} (B={Bx} T={Tx} V={V} S={S}, zero_infinity={zero_infinity}, "
+        f"lattice in {plan.lattice}, {plan.smem_bytes} B shared): against the plain version "
+        f"in float64: loss max|err|={loss_err:.3e}, grad max|err|={grad_err:.3e}")
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(grad[feasible].double(), ref_grad[feasible], rtol=0.0, atol=1e-4)
+    return {"loss_err": loss_err, "grad_err": grad_err}
+
+
 def kernel_phase(results: dict) -> None:
     import torch
     import torch.nn.functional as F
@@ -261,37 +327,23 @@ def kernel_phase(results: dict) -> None:
     from llm_bci_tpu_torch.ops.ctc import ctc_loss_plain
 
     dev = torch.device("cuda")
+    flag = ctc_check("flagship", *ctc_case(dev), True, "shared")
+    ctc_check("flagship", *ctc_case(dev), False, "shared")
+    ctc_check("confident (logits x 15)", *ctc_case(dev, scale=15.0), True, "shared")
+    ctc_check("confident (logits x 15)", *ctc_case(dev, scale=15.0), False, "shared")
+    ctc_check("unstacked trials", *ctc_case(dev, n_batch=8, n_frames=1000, seed=1), True, "global")
+
     logits, targets, il, tl = ctc_case(dev)
     lp = torch.log_softmax(logits, -1).detach()
-
-    def kernel_fb():
-        x = lp.clone().requires_grad_(True)
-        loss = ctc_cuda.ctc_loss_cuda(x, targets, il, tl)
-        (g,) = torch.autograd.grad(loss.sum(), x)
-        return loss.detach(), g
-
-    def plain_fb(dtype):
-        x = lp.to(dtype).requires_grad_(True)
-        loss = ctc_loss_plain(x, targets, il, tl)
-        (g,) = torch.autograd.grad(loss.sum(), x)
-        return loss.detach().float(), g.float()
-
-    k_loss, k_grad = kernel_fb()
-    p_loss, p_grad = plain_fb(torch.float64)     # the reference
-    f_loss, f_grad = plain_fb(torch.float32)     # for scale: float32's own error
-    torch.cuda.synchronize()
-    if not (torch.isfinite(k_loss).all() and torch.isfinite(k_grad).all()):
-        raise AssertionError("CTC kernel produced non-finite values")
-    if k_loss[2].item() != 0.0 or k_grad[2].abs().max().item() != 0.0:
-        raise AssertionError("infeasible target: expected zero loss and zero gradient")
-    fwd_err = (k_loss - p_loss).abs().max().item()
-    bwd_err = (k_grad - p_grad).abs().max().item()
-    say("kernels", f"CTC at B={B} T={T} V={V} S={S}, against the plain version in float64: "
-        f"kernel loss max|err|={fwd_err:.3e} grad max|err|={bwd_err:.3e}; plain float32 "
-        f"loss max|err|={(f_loss - p_loss).abs().max().item():.3e} "
-        f"grad max|err|={(f_grad - p_grad).abs().max().item():.3e}")
-    torch.testing.assert_close(k_loss, p_loss, rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(k_grad, p_grad, rtol=0.0, atol=1e-4)
+    xf = lp.clone().requires_grad_(True)
+    f_loss = ctc_loss_plain(xf, targets, il, tl)
+    (f_grad,) = torch.autograd.grad(f_loss.sum(), xf)
+    xr = lp.double().requires_grad_(True)
+    r_loss = ctc_loss_plain(xr, targets, il, tl)
+    (r_grad,) = torch.autograd.grad(r_loss.sum(), xr)
+    say("kernels", f"for scale, the plain version in float32 against float64: loss max|err|="
+        f"{(f_loss.double() - r_loss).abs().max().item():.3e}, grad max|err|="
+        f"{(f_grad.double() - r_grad).abs().max().item():.3e}")
 
     # Independent oracle: torch's native CTC in float64, compared through the
     # logits (its log_probs gradient assumes log-softmax's backward follows).
@@ -306,38 +358,118 @@ def kernel_phase(results: dict) -> None:
         (g,) = torch.autograd.grad(loss.sum(), x)
         grads.append((loss.detach().float(), g))
     torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-4, atol=1e-4)
-    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=0.0, atol=1e-4)
+    torch.testing.assert_close(grads[0][1], grads[1][1].float(), rtol=0.0, atol=1e-4)
     say("kernels", "CTC kernel vs torch native CTC in float64 (through the logits): agree, "
         f"grad max|err|={(grads[0][1] - grads[1][1]).abs().max().item():.3e}")
 
-    # Times: forward alone, and backward alone on a retained graph.
-    x = lp.clone().requires_grad_(True)
-    k_fwd = cuda_ms(lambda: ctc_cuda.ctc_loss_cuda(x, targets, il, tl), 50)
-    p_fwd = cuda_ms(lambda: ctc_loss_plain(x, targets, il, tl), 5)
-    k_out = ctc_cuda.ctc_loss_cuda(x, targets, il, tl).sum()
-    p_out = ctc_loss_plain(x, targets, il, tl).sum()
-    k_bwd = cuda_ms(lambda: torch.autograd.grad(k_out, x, retain_graph=True), 50)
-    p_bwd = cuda_ms(lambda: torch.autograd.grad(p_out, x, retain_graph=True), 5)
-    # torch's own CTC on the same float32 log-probs: timed only.
-    xt = lp.transpose(0, 1).contiguous().requires_grad_(True)
-    lib_loss = lambda: F.ctc_loss(xt, targets, il, tl, reduction="none", zero_infinity=True)
-    l_fwd = cuda_ms(lib_loss, 50)
-    l_out = lib_loss().sum()
-    l_bwd = cuda_ms(lambda: torch.autograd.grad(l_out, xt, retain_graph=True), 50)
-    say("kernels", f"CTC forward: kernel {k_fwd:.4f} ms, plain {p_fwd:.4f} ms, "
-        f"F.ctc_loss {l_fwd:.4f} ms; backward: kernel {k_bwd:.4f} ms, plain {p_bwd:.4f} ms, "
-        f"F.ctc_loss {l_bwd:.4f} ms")
+    # The launcher refuses a plan that is not the kernel's, in any field.
+    plan = ctc_cuda.ctc_plan(T, S, V, want_grad=True)
+    args = (lp, targets.int(), il.int(), tl.int(), 0, True)
+    loss_buf = torch.empty(B, device=dev)
+    occ_buf = torch.empty_like(lp)
+    for field, value in (("kernel", ctc_cuda.FWD_KERNEL), ("slots", plan.slots + 1),
+                         ("threads", plan.threads + 32), ("smem_bytes", plan.smem_bytes + 16),
+                         ("lattice", "global"), ("cluster", 1)):
+        rc = ctc_cuda.raw_launch(plan._replace(**{field: value}), *args, loss_buf, occ_buf)
+        if rc == 0:
+            raise AssertionError(f"CTC launcher took a plan with {field}={value}")
+    torch.cuda.synchronize()
+    say("kernels", "CTC launcher refuses a plan that differs in kernel, slots, threads, shared "
+        "memory, lattice or cluster")
+
+    t = {**ctc_times(lp, targets.int(), il.int(), tl.int()),
+         **ctc_eager_times(lp, targets.int(), il.int(), tl.int(), with_plain=True)}
+    say("kernels", f"CTC device time (CUDA graphs of 20 launches): ctc_alpha_kernel "
+        f"{t['fwd_ms']:.4f} ms ({t['fwd_ms'] * 1e3 / T:.3f} us a frame), "
+        f"ctc_alpha_beta_kernel {t['fused_ms']:.4f} ms ({t['fused_ms'] * 1e3 / T:.3f} us a "
+        f"frame), with the backward's multiply {t['pair_ms']:.4f} ms; eager, with the host's "
+        f"enqueue: forward {t['fwd_eager_ms']:.4f} ms, forward with the gradient + backward "
+        f"{t['pair_eager_ms']:.4f} ms; plain (float32) forward {t['plain_fwd_ms']:.3f} ms, "
+        f"forward + backward {t['plain_pair_ms']:.3f} ms; F.ctc_loss (eager) forward "
+        f"{t['lib_fwd_ms']:.4f} ms, forward + backward {t['lib_pair_ms']:.4f} ms")
     # Bounds: the (B, T, V) float32 log-probs read once, int32 labels and
-    # lengths, the loss (forward) or the gradient (backward) written once;
-    # about 10 float operations a lattice slot (three-way log-sum-exp).
+    # lengths, the loss (and the (B, T, V) occupancy sums) written once; about
+    # 10 float operations a lattice slot and recursion.
     slots = B * T * (2 * S + 1)
     in_bytes = B * T * V * 4 + B * S * 4 + 2 * B * 4
-    fwd_bound = bound(10 * slots, in_bytes + B * 4, "float32")
-    bwd_bound = bound(10 * slots, in_bytes + B * 4 + B * T * V * 4, "float32")
-    results["ctc_alpha_kernel"] = dict(max_abs_err=fwd_err, ms=k_fwd, plain_ms=p_fwd,
-                                       library_ms=l_fwd, **fwd_bound)
-    results["ctc_beta_kernel"] = dict(max_abs_err=bwd_err, ms=k_bwd, plain_ms=p_bwd,
-                                      library_ms=l_bwd, **bwd_bound)
+    results["ctc_alpha_kernel"] = dict(
+        max_abs_err=flag["loss_err"], ms=t["fwd_ms"], plain_ms=t["plain_fwd_ms"],
+        library_ms=t["lib_fwd_ms"], **bound(10 * slots, in_bytes + B * 4, "float32"))
+    results["ctc_alpha_beta_kernel"] = dict(
+        max_abs_err=max(flag["loss_err"], flag["grad_err"]), ms=t["fused_ms"],
+        plain_ms=t["plain_pair_ms"], library_ms=t["lib_pair_ms"],
+        **bound(20 * slots, in_bytes + B * 4 + B * T * V * 4, "float32"))
+
+    found = _build_resources("ctc", ("ctc_",))
+    say("kernels", "CTC kernels as compiled (registers a thread, stack bytes): " + ", ".join(
+        f"{name} {reg}/{stack}" for name, (reg, stack) in sorted(found.items())))
+
+
+def ctc_times(lp, targets, il, tl) -> dict:
+    """Device times of the CTC kernels at one shape, from CUDA graphs of 20
+    launches on preallocated outputs (``graph_ms``): the forward without a
+    gradient, the fused forward, and the pair a training step runs (the fused
+    forward and the backward's multiply)."""
+    import torch
+    from llm_bci_tpu_torch.ops import ctc_cuda
+
+    Bx, Tx, Vx = lp.shape
+    Sx = targets.shape[1]
+    dev = lp.device
+    fwd_plan = ctc_cuda.ctc_plan(Tx, Sx, Vx, want_grad=False)
+    fused_plan = ctc_cuda.ctc_plan(Tx, Sx, Vx, want_grad=True)
+    loss = torch.empty(Bx, device=dev)
+    occ = torch.empty_like(lp)
+    grad = torch.empty_like(lp)
+    neg_g = -torch.ones(Bx, 1, 1, device=dev)
+    scratch = (torch.empty(ctc_cuda.scratch_shape(Bx, Tx, Sx), device=dev, dtype=torch.float64)
+               if fused_plan.lattice == "global" else None)
+    args = (lp, targets, il, tl, 0, True, loss)
+
+    def pair():
+        ctc_cuda.launch(fused_plan, *args, occ, scratch)
+        torch.mul(occ, neg_g, out=grad)
+
+    return {
+        "fwd_ms": graph_ms(lambda: ctc_cuda.launch(fwd_plan, *args), 20),
+        "fused_ms": graph_ms(lambda: ctc_cuda.launch(fused_plan, *args, occ, scratch), 20),
+        "pair_ms": graph_ms(pair, 20),
+    }
+
+
+def ctc_eager_times(lp, targets, il, tl, with_plain: bool) -> dict:
+    """Through autograd, one call at a time (CUDA events; the host's enqueue
+    included): ``ctc_loss_cuda``'s forward and its forward + backward, the
+    float32 plain version's (``with_plain``) and ``F.ctc_loss``'s on the same
+    log-probs, time-major (eager: its CUDA-tensor lengths go to the host, so it
+    cannot be captured; timed only, the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from llm_bci_tpu_torch.ops import ctc_cuda
+    from llm_bci_tpu_torch.ops.ctc import ctc_loss_plain
+
+    ones = torch.ones(lp.shape[0], device=lp.device)
+
+    def pair(fn, inp):
+        x = inp.clone().requires_grad_(True)
+        return lambda: torch.autograd.grad(fn(x), x, ones)
+
+    t64, il64, tl64 = targets.long(), il.long(), tl.long()
+    lib = lambda v: F.ctc_loss(v, t64, il64, tl64, reduction="none", zero_infinity=True)
+    kernel = lambda v: ctc_cuda.ctc_loss_cuda(v, targets, il, tl)
+    plain = lambda v: ctc_loss_plain(v, targets, il, tl)
+    xt = lp.transpose(0, 1).contiguous()
+    out = {}
+    with torch.no_grad():
+        out["fwd_eager_ms"] = cuda_ms(lambda: kernel(lp), 50)
+        out["lib_fwd_ms"] = cuda_ms(lambda: lib(xt), 50)
+        if with_plain:
+            out["plain_fwd_ms"] = cuda_ms(lambda: plain(lp), 5)
+    out["pair_eager_ms"] = cuda_ms(pair(kernel, lp), 50)
+    out["lib_pair_ms"] = cuda_ms(pair(lib, xt), 50)
+    if with_plain:
+        out["plain_pair_ms"] = cuda_ms(pair(plain, lp), 5)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -732,7 +864,8 @@ def _build_resources(name: str, patterns) -> dict:
         if raw.startswith("Function "):
             current = raw[len("Function "):].rstrip(":")
         elif raw.startswith("REG:") and current and any(p in current for p in patterns):
-            short = re.search(r"flash_(?:fwd|dq|dkv|delta)_\w*?kernelI\w*?Li\d+", current)
+            short = re.search(r"flash_(?:fwd|dq|dkv|delta)_\w*?kernelI\w*?Li\d+"
+                              r"|ctc_alpha(?:_beta)?_kernel", current)
             reg, stack = re.search(r"REG:(\d+)", raw), re.search(r"STACK:(\d+)", raw)
             found[short.group(0) if short else current] = (int(reg.group(1)), int(stack.group(1)))
     return found
@@ -1427,7 +1560,7 @@ def bci_train_phase(power_line: str, profile) -> dict:
     return launches
 
 
-def main_path_phase(power_line: str) -> dict:
+def main_path_phase(power_line: str, profile) -> dict:
     import torch
     from llm_bci_tpu_torch import main as port_main
     from llm_bci_tpu_torch.ops import ctc_cuda
@@ -1452,7 +1585,7 @@ def main_path_phase(power_line: str) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"ctc_alpha_kernel": ctc_cuda.FWD_LAUNCHES,
-                    "ctc_beta_kernel": ctc_cuda.BWD_LAUNCHES}
+                    "ctc_alpha_beta_kernel": ctc_cuda.FUSED_LAUNCHES}
         peak = torch.cuda.max_memory_allocated()
 
     hist = trainer.eval_history
@@ -1465,7 +1598,9 @@ def main_path_phase(power_line: str) -> dict:
     cer = h["test_avg_metrics"].get("CER")
     if cer is None or not 0.0 <= cer <= 2.0:
         raise AssertionError(f"eval CER missing or out of range: {cer}")
-    if launches["ctc_alpha_kernel"] < 5 or launches["ctc_beta_kernel"] < 4:
+    # a training step forms its gradient in the forward (the fused kernel);
+    # the eval's forward needs none (the alpha kernel)
+    if launches["ctc_alpha_beta_kernel"] < 4 or launches["ctc_alpha_kernel"] < 1:
         raise AssertionError(f"CTC kernels not on the main path: launches {launches}")
     say("main", f"4 steps + eval through llm_bci_tpu_torch.main in {wall:.1f} s "
         f"(data, G2P and model set-up included): train_avg_loss={h['train_avg_loss']:.4f} "
@@ -1504,6 +1639,10 @@ def main_path_phase(power_line: str) -> dict:
         f"{1.0 / step_s:.3f} steps/s, {n / step_s:.1f} samples/s, "
         f"{step_s * 1e3:.2f} ms/step; peak memory of the main run "
         f"{peak / 2**30:.3f} GiB; card {power_line}")
+    if profile:
+        profile_step(trainer, batch, power_line, profile, "ctc", "NDT1-CTC",
+                     {"CTC kernels": ("ctc_",),
+                      "convolutions": ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad")})
     return launches
 
 
@@ -1612,13 +1751,16 @@ def mlm_main_path_phase(power_line: str, profile) -> dict:
         f"{step_s * 1e3:.2f} ms/step, {n / step_s:.1f} samples/s; peak memory of the main run "
         f"{peak / 2**30:.3f} GiB; card {power_line}")
     if profile:
-        profile_step(trainer, batch, power_line, profile)
+        profile_step(trainer, batch, power_line, profile, "mlm", "NDT1-mlm",
+                     {"flash attention kernels": ("flash_",)})
     return launches
 
 
-def profile_step(trainer, batch, power_line: str, path: str) -> None:
+def profile_step(trainer, batch, power_line: str, path: str, phase: str, label: str,
+                 own: dict) -> None:
     """``torch.profiler`` over 3 steady train steps: device time by kernel,
-    as a table in ``path``."""
+    appended as a table to ``path``; ``own`` names the groups of kernels that
+    are looked for before the common ones."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1639,28 +1781,29 @@ def profile_step(trainer, batch, power_line: str, path: str) -> None:
     total = sum(dev_us(ev) for ev in events)
     rows = sorted(((dev_us(ev), ev.count, ev.key) for ev in events if dev_us(ev) > 0),
                   reverse=True)
-    groups = {"flash attention kernels": ("flash_",), "GEMMs": ("nvjet", "gemm", "cutlass"),
+    groups = {**own, "GEMMs": ("nvjet", "gemm", "cutlass"),
               "copies and casts": ("copy", "Memcpy"), "LayerNorm": ("layer_norm",),
               "random draws": ("distribution", "philox", "rand"),
               "AdamW": ("multi_tensor", "adam")}
-    shares = dict.fromkeys([*groups, "other (elementwise, reductions, softmax)"], 0.0)
+    other = "other (elementwise, reductions, softmax)"
+    shares = dict.fromkeys([*groups, other], 0.0)
     for us, _, key in rows:
-        name = next((g for g, pats in groups.items() if any(p in key for p in pats)),
-                    "other (elementwise, reductions, softmax)")
+        name = next((g for g, pats in groups.items() if any(p in key for p in pats)), other)
         shares[name] += us
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(f"card: {power_line}\n3 mlm train steps: wall {wall_ms:.1f} ms, device busy "
-                f"{total / 1e3:.1f} ms ({total / 1e3 / wall_ms:.3f} of the wall time)\n")
+    with open(path, "a") as f:
+        f.write(f"\ncard: {power_line}\n3 {label} train steps: wall {wall_ms:.1f} ms, device "
+                f"busy {total / 1e3:.1f} ms ({total / 1e3 / wall_ms:.3f} of the wall time)\n")
         for name, us in shares.items():
             f.write(f"{us / 1e3 / 3:10.3f} ms/step {us / total:7.3%} {name}\n")
         for us, count, key in rows[:40]:
             f.write(f"{us / 1e3:10.3f} ms {us / total:7.3%} x{count:<5d} {key[:110]}\n")
-    say("mlm", f"profile of 3 steps: wall {wall_ms:.1f} ms, device busy {total / 1e3:.1f} ms "
-        f"({total / 1e3 / wall_ms:.3f}); table in {os.path.relpath(path, REPO)}")
+    say(phase, f"profile of 3 {label} steps: wall {wall_ms:.1f} ms, device busy "
+        f"{total / 1e3:.1f} ms ({total / 1e3 / wall_ms:.3f}); table in "
+        f"{os.path.relpath(path, REPO)}")
     for name, us in shares.items():
-        say("mlm", f"  {us / 1e3 / 3:9.3f} ms/step {us / total:7.3%} {name}")
+        say(phase, f"  {us / 1e3 / 3:9.3f} ms/step {us / total:7.3%} {name}")
 
 
 KERNELS = {
@@ -1668,8 +1811,11 @@ KERNELS = {
     # it replaces). Float32 and head sizes without a wgmma plan take other
     # kernels of the same sources (flash_fwd_kernel, flash_dq_kernel,
     # flash_dkv_kernel, int8_f32_kernel); no main path runs them.
+    # the forward without a gradient (eval), and the one with it (a training
+    # step: alpha and beta at once, the gradient written in the forward)
     "ctc_alpha_kernel": ("llm_bci_tpu_torch/csrc/ctc.cu", "llm_bci_tpu/ops/ctc_pallas.py:77"),
-    "ctc_beta_kernel": ("llm_bci_tpu_torch/csrc/ctc.cu", "llm_bci_tpu/ops/ctc_pallas.py:93"),
+    "ctc_alpha_beta_kernel": ("llm_bci_tpu_torch/csrc/ctc.cu",
+                              "llm_bci_tpu/ops/ctc_pallas.py:93"),
     FWD_WG: ("llm_bci_tpu_torch/csrc/flash_attention.cu", "llm_bci_tpu/ops/flash_attention.py:103"),
     DQ_WG: ("llm_bci_tpu_torch/csrc/flash_attention.cu", "llm_bci_tpu/ops/flash_attention.py:237"),
     DKV_WG: ("llm_bci_tpu_torch/csrc/flash_attention.cu",
@@ -1714,6 +1860,9 @@ def main(only=None, profile=None) -> int:
             lib, secs = future.result()      # a failed build raises here
             say("build", f"{os.path.relpath(lib, REPO)} built in {secs:.1f} s")
 
+    if profile:
+        os.makedirs(os.path.dirname(os.path.abspath(profile)), exist_ok=True)
+        open(os.path.abspath(profile), "w").close()     # the phases append their tables
     results: dict = {}
     launches: dict = {}
     if only in (None, "ctc"):
@@ -1723,7 +1872,7 @@ def main(only=None, profile=None) -> int:
     if only in (None, "int8"):
         int8_kernel_phase(results, power_line)
     if only in (None, "ctc-main"):
-        launches.update(main_path_phase(power_line))
+        launches.update(main_path_phase(power_line, profile))
     if only in (None, "mlm-main"):
         launches.update(mlm_main_path_phase(power_line, profile))
     for phase, run in (("bci-serve", bci_serve_phase), ("bci-train", bci_train_phase)):
@@ -1751,7 +1900,7 @@ if __name__ == "__main__":
                         choices=["ctc", "flash", "int8", "ctc-main", "mlm-main", "bci-serve",
                                  "bci-train"])
     parser.add_argument("--profile", metavar="PATH", default=None,
-                        help="write the torch.profiler tables of the mlm train step, the BCI "
-                             "greedy decode and the BCI fine-tune step to PATH")
+                        help="write the torch.profiler tables of the CTC and mlm train steps, "
+                             "the BCI greedy decode and the BCI fine-tune step to PATH")
     cli = parser.parse_args()
     sys.exit(main(cli.only, cli.profile))

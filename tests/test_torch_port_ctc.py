@@ -123,7 +123,7 @@ def test_cuda_dispatch_is_lazy_and_cpu_never_builds():
     _, lp, targets, il, tl = make_case("full_lengths")
     ctc_loss(torch.from_numpy(lp), torch.from_numpy(targets), torch.from_numpy(il),
              torch.from_numpy(tl))
-    assert ctc_cuda.FWD_LAUNCHES == 0 and ctc_cuda._LIB is None
+    assert (ctc_cuda.FWD_LAUNCHES, ctc_cuda.FUSED_LAUNCHES) == (0, 0) and ctc_cuda._LIB is None
     assert "ctc" not in _build._LOADED
     with pytest.raises(ValueError, match="CUDA"):
         ctc_cuda.CTCLossFunction.apply(
