@@ -65,8 +65,9 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    a training step;
 7. kernels: the int8 dequant-matmul kernels against ``int8_matmul_plain`` on
    the card: float32 ``x`` at small and ragged M, K, N (rtol 1e-4, atol
-   1e-4 x max|out|); bf16 ``x`` at the four Llama-2-7B shapes x M in {1, 8,
-   40, 64, 1480} and at ragged M, K, N (clusters of 1 to 8 ranks) against the
+   1e-4 x max|out|); bf16 ``x`` at the four Llama-2-7B shapes x M in {1, 5,
+   8, 40, 64, 137, 185, 685, 1480} (every M of phases 8, 9 and 12) and at
+   ragged M, K, N (clusters of 1 to 8 ranks) against the
    plain version in float32 of the same bf16 inputs (rtol 2^-8: one bf16
    rounding of the output; atol 1e-4 x max|out|: the order of the float32
    sums), each call once more for the same bits; codes of +-127 with zero
@@ -91,12 +92,43 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    with ``configs/trainer_bci.yaml`` on pre-tokenized synthetic trials: 4
    steps and one eval; finite losses, only LoRA / encoder / projector
    leaves change, the frozen leaves keep their bits, 225 launches a forward
-   and none in the backward; the metric readback's batches.
+   and none in the backward; the metric readback's batches;
+10. co-smoothing (``llm_bci_tpu_torch.eval.co_smoothing``): at the IBL shape of
+   ``bench.py::bench_cosmooth`` (NDT1 5 x 1024, seeded weights, 256 channels in
+   4 regions, T=100, 64 trials in batches of 32, dense attention) every
+   neuron of the ``neuron`` mode; then the mlm model of phase 6 at T=1024
+   (B=32, the flash path) in all three modes with 16 neurons: 5 flash forward
+   launches a folded pass of 8 sweep points, every bits-per-spike finite or
+   NaN, and two neurons of a folded pass against a pass of each alone
+   (log-rates atol 2e-2, bits-per-spike 1e-3); the flash forward kernel at
+   the folded pass's own inputs (256 rows, the pickle's key padding, no
+   dropout) against the plain version in float32 (out atol 2e-2); neurons/s
+   of the sweep, the host's scoring not timed;
+11. PhonemeLLM at 32 layers x Llama-2-7B width, bf16 base, LoRA r=8 on all
+   seven projections, B=8, 121 x 41 CTC posteriors spliced into a 64-token
+   prompt: a forward with the loss and one step of LoRA + coupler (the
+   frozen leaves keep their bits), greedy (32 tokens) and beam 5 through the
+   graphed token step, the graph's greedy ids against the un-graphed step's;
+   tokens/s and peak memory;
+12. ``llm_bci_tpu_torch.eval_phonemes``: first the quantization-layout repair
+   of ``BCI.load_checkpoint_params``, 2 layers deep at the Llama-2-7B widths:
+   a bf16 checkpoint with its base served int8 (every int8 leaf
+   ``quantize_int8`` of the saved weight), saved and served on a bf16 base
+   again, the int8 logits against the dequantized bf16 model's (max 2^-5,
+   mean 2^-8 of the largest logit); then the BCI of phase 9 trained 1 step
+   on a bf16 base, saved without its frozen base (``training.component_blobs:
+   false``), and evaluated on 4 pre-tokenized trials with ``beams=1,5`` and
+   ``quantize=int8`` through a stub tokenizer (``WordTokenizer``); the int8
+   base there holds fresh seeded codes beside the trained LoRA, encoder and
+   projector. The int8 launches reconcile with the forwards, prefills, eager
+   steps and captures, every int8 product is at a shape phase 7 checks, one
+   predictions pickle a beam size, a finite WER; seconds a trial.
 
-``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train`` runs one
-phase (for development); ``--profile PATH`` writes ``torch.profiler`` tables
-of the NDT1-CTC and mlm train steps, the replayed BCI greedy token steps and
-the fine-tune step to ``PATH``.
+``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train|cosmooth|
+phoneme-llm|eval-phonemes`` runs one phase (for development); ``--profile
+PATH`` writes ``torch.profiler`` tables of the NDT1-CTC and mlm train steps,
+the replayed BCI greedy token steps, the fine-tune step and one folded
+co-smoothing pass at each shape to ``PATH``.
 
 The second-to-last line is a JSON object with the kernels' launches,
 errors and times; the last line is
@@ -106,6 +138,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -877,9 +910,10 @@ def _build_resources(name: str, patterns) -> dict:
 
 # (K, N) of the frozen Llama-2-7B base: q/k/v/o, gate/up, down, lm_head.
 INT8_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
-# a token step at one row, greedy (B=8), 5 beams (B=8), the cluster kernel's
-# largest M; prefill / fine-tune
-INT8_MS = (1, 8, 40, 64, 1480)
+# a token step at one row, 5 beams of one trial, greedy (B=8), 5 beams (B=8),
+# the cluster kernel's largest M; the prefill of one trial, the forward of one
+# trial (eval-phonemes), its prefill with 5 beams; prefill / fine-tune (B=8)
+INT8_MS = (1, 5, 8, 40, 64, 137, 185, 685, 1480)
 INT8_TIMED_MS = (8, 40, 1480)
 
 
@@ -1141,6 +1175,20 @@ def bci_rows(n: int, seed: int) -> list:
     return rows
 
 
+class WordTokenizer:
+    """A stand-in for the Llama tokenizer over a fixed word list (the words of
+    ``SENTENCES``): ids 0, 1, 2 are unk, bos and eos, which
+    ``skip_special_tokens`` drops; any other id decodes to a word."""
+
+    unk_token_id, bos_token_id, eos_token_id = 0, 1, 2
+    WORDS = sorted({w for s in SENTENCES for w in s.split()})
+
+    def decode(self, ids, skip_special_tokens=True):
+        ids = [int(i) for i in np.asarray(ids).reshape(-1)]
+        return " ".join(self.WORDS[i % len(self.WORDS)] for i in ids
+                        if not (skip_special_tokens and i < 3))
+
+
 def bci_serving_batch(device):
     import torch
 
@@ -1156,7 +1204,8 @@ def bci_serving_batch(device):
     }
 
 
-def device_profile(fn, label: str, power_line: str, path=None, wall_ms_unprofiled=None) -> dict:
+def device_profile(fn, label: str, power_line: str, path=None, wall_ms_unprofiled=None,
+                   phase: str = "bci") -> dict:
     """``torch.profiler`` over ``fn()``: device-busy time (the sum of the
     kernel rows) and its split by kind of kernel, beside the wall time under
     the profiler and, where given, the wall time of the same call without it
@@ -1178,7 +1227,8 @@ def device_profile(fn, label: str, power_line: str, path=None, wall_ms_unprofile
     rows = sorted(((dev_us(ev), ev.count, ev.key) for ev in events if dev_us(ev) > 0),
                   reverse=True)
     total = sum(us for us, _, _ in rows)
-    groups = {"int8 matmul kernels": ("int8_",), "GEMMs": ("nvjet", "gemm", "cutlass", "gemv"),
+    groups = {"int8 matmul kernels": ("int8_",), "flash attention kernels": ("flash_",),
+              "GEMMs": ("nvjet", "gemm", "cutlass", "gemv"),
               "copies and casts": ("copy", "Memcpy"), "softmax": ("softmax",),
               "index / gather / scatter": ("index", "gather", "scatter"),
               "random draws": ("distribution", "philox", "rand"),
@@ -1192,11 +1242,11 @@ def device_profile(fn, label: str, power_line: str, path=None, wall_ms_unprofile
         n_launches += count
     busy = (f"{total / 1e3 / wall_ms_unprofiled:.3f} of the {wall_ms_unprofiled:.1f} ms the call "
             f"takes without the profiler, " if wall_ms_unprofiled else "")
-    say("bci", f"{label}: device busy {total / 1e3:.1f} ms ({busy}"
+    say(phase, f"{label}: device busy {total / 1e3:.1f} ms ({busy}"
         f"{total / 1e3 / wall_ms:.3f} of the {wall_ms:.1f} ms under the profiler), "
         f"{n_launches} kernel launches; card {power_line}")
     for name, us in shares.items():
-        say("bci", f"  {us / 1e3:9.3f} ms {us / max(total, 1):7.3%} {name}")
+        say(phase, f"  {us / 1e3:9.3f} ms {us / max(total, 1):7.3%} {name}")
     if path:
         path = os.path.abspath(path)
         os.makedirs(os.path.dirname(path), exist_ok=True)
@@ -1647,17 +1697,21 @@ def main_path_phase(power_line: str, profile) -> dict:
 
 
 def write_spike_pickle(path: str, n_train: int = 64, n_val: int = 32, bins=(896, 1024),
-                       channels: int = 256, seed: int = 0) -> str:
+                       channels: int = 256, seed: int = 0, n_regions: int = 0) -> str:
     """Synthetic Poisson spikes (rate 1.0) as ``{split: [{"spikes": (T, N)
-    float32}]}``; the first trial of each split has the longest length."""
+    float32}]}``; the first trial of each split has the longest length. With
+    ``n_regions`` each row also names the region of each channel (``R0`` ..,
+    in turn), as an IBL session does."""
     import pickle
 
     rng = np.random.default_rng(seed)
+    regions = [f"R{i % n_regions}" for i in range(channels)] if n_regions else None
     data = {}
     for split, n in (("train", n_train), ("val", n_val)):
         lengths = rng.integers(bins[0], bins[1] + 1, size=n)
         lengths[0] = bins[1]
-        data[split] = [{"spikes": rng.poisson(1.0, size=(int(t), channels)).astype(np.float32)}
+        data[split] = [{"spikes": rng.poisson(1.0, size=(int(t), channels)).astype(np.float32),
+                        **({"neuron_regions": list(regions)} if regions else {})}
                        for t in lengths]
     with open(path, "wb") as f:
         pickle.dump(data, f)
@@ -1753,6 +1807,515 @@ def mlm_main_path_phase(power_line: str, profile) -> dict:
     if profile:
         profile_step(trainer, batch, power_line, profile, "mlm", "NDT1-mlm",
                      {"flash attention kernels": ("flash_",)})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Co-smoothing, PhonemeLLM, eval_phonemes
+# ---------------------------------------------------------------------------
+
+# bench.py::bench_cosmooth's IBL shape: 256 channels in 4 regions, T=100 bins,
+# 64 trials in test batches of 32
+COSMOOTH_IBL = {"channels": 256, "regions": 4, "bins": 100, "trials": 64, "batch": 32}
+
+
+def neuron_sweep(trainer, n_points: int, label: str, power_line: str, profile=None):
+    """The neuron-mode sweep's held-out rates of the first ``n_points``
+    channels, ``(n_points, trials, T)``, and its neurons/s; one chunk runs
+    first as a warm-up. The scoring on the host is not timed. With
+    ``profile``, a table of one chunk's kernels goes there."""
+    import torch
+    from llm_bci_tpu_torch.eval import co_smoothing as cs
+
+    batches, region_list = cs.sweep_inputs(trainer)
+    run = lambda points: np.concatenate([
+        rates for _, rates in cs.run_sweep(trainer, batches, cs.SWEEP_MASKERS["neuron"],
+                                           cs.mode_overrides("neuron", region_list), points,
+                                           channel_for=lambda n: n)])
+    run(list(range(cs.SWEEP_BATCH)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rates = run(list(range(n_points)))
+    seconds = time.perf_counter() - t0
+    if profile:
+        chunk = list(range(cs.SWEEP_BATCH))
+        device_profile(lambda: run(chunk), f"co-smoothing, one folded pass of "
+                       f"{cs.SWEEP_BATCH} neurons, {label}", power_line, profile,
+                       seconds * 1e3 * cs.SWEEP_BATCH / n_points, phase="cosmooth")
+    return rates, n_points / seconds
+
+
+def check_bps(res: dict, want: dict, label: str) -> None:
+    for mode, n in want.items():
+        bps = np.asarray(res[mode]["bps"], np.float64)
+        if len(bps) != n or np.isinf(bps).any():
+            raise AssertionError(f"{label} {mode}: {len(bps)} bits-per-spike (want {n}), "
+                                 f"finite or NaN: {bps[:8]}")
+
+
+def cosmooth_phase(power_line: str, profile=None) -> dict:
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+    from llm_bci_tpu_torch.config import DictConfig, resolve_path, update_config
+    from llm_bci_tpu_torch.eval import co_smoothing as cs
+    from llm_bci_tpu_torch.eval.metrics import bits_per_spike
+    from llm_bci_tpu_torch.models import ndt1
+    from llm_bci_tpu_torch.ops import flash_attention as fa
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+    from llm_bci_tpu_torch.training.trainer import Trainer
+
+    # IBL shape, dense attention (T=100 < FLASH_AUTO_MIN_T): every neuron
+    ibl = COSMOOTH_IBL
+    C, Tb = ibl["channels"], ibl["bins"]
+    rng = np.random.default_rng(0)
+    rows = [{"spikes": rng.poisson(0.5, size=(Tb, C)).astype(np.float32),
+             "neuron_regions": [f"R{i % ibl['regions']}" for i in range(C)]}
+            for _ in range(ibl["trials"])]
+    pad = {"dim": 0, "side": "right", "value": 0, "truncate": None, "min_length": None}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        trainer = Trainer(DictConfig({
+            "savestring": "cosmooth", "verbosity": 3, "seed": 0,
+            "dirs": {"checkpoint_dir": tmp, "log_dir": None},
+            "training": {"num_epochs": 1, "train_batch_size": ibl["batch"],
+                         "test_batch_size": ibl["batch"], "save_on_preemption": False},
+            "model": update_config(resolve_path("configs/ndt1.yaml"), {"encoder": {
+                "masker": {"neuron": {"active": True, "mode": "co-smooth", "ratio": 1.0,
+                                      "channels": [0]}},
+                "embedder": {"n_channels": C, "max_F": Tb, "input_dim": 256,
+                             "stack": {"active": False}}}}),
+            "data": {"dataset_class": "base"},
+            "method": {"model_kwargs": {"method_name": "mlm", "loss": "poisson_nll",
+                                        "log_input": True},
+                       "dataset_kwargs": {}, "metric_kwargs": {},
+                       "dataloader_kwargs": {"pad_dict": {
+                           k: dict(pad) for k in ("spikes", "spikes_mask", "spikes_timestamp")}}},
+            "optimizer": {"lr": 1e-3, "scheduler": "cosine", "warmup_pct": 0.1},
+            "precision": {"compute_dtype": "bfloat16"},
+        }), dataset={"train": rows, "test": rows})
+    tr = trainer.config.model.encoder.transformer
+    if (tr.n_layers, tr.hidden_size) != (5, 1024) or trainer.model.encoder._use_flash_now(Tb):
+        raise AssertionError("not the full-width NDT1 on the dense path")
+    fc.reset_counters()
+    t0 = time.perf_counter()
+    res = cs.co_smoothing_eval(trainer, modes=["neuron"])
+    wall = time.perf_counter() - t0
+    if fc.FWD_LAUNCHES:
+        raise AssertionError(f"{fc.FWD_LAUNCHES} flash launches at T={Tb} (the dense path)")
+    check_bps(res, {"neuron": C}, "IBL shape")
+    bps = np.asarray(res["neuron"]["bps"])
+    _, rate = neuron_sweep(trainer, C, "IBL shape", power_line, profile)
+    say("cosmooth", f"IBL shape (NDT1 5 x 1024, {C} channels in {ibl['regions']} regions, "
+        f"T={Tb}, {ibl['trials']} trials, dense attention, bf16): co_smoothing_eval of all {C} "
+        f"neurons in {wall:.2f} s with the scoring; the sweep alone {rate:.1f} neurons/s "
+        f"({cs.SWEEP_BATCH} neurons a folded pass of {cs.SWEEP_BATCH * ibl['batch']} rows); "
+        f"bps median {np.nanmedian(bps):.4f}, {int(np.isnan(bps).sum())} NaN; card {power_line}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # The mlm model of the mlm main path at T=1024 (B=32): the flash path
+    max_N, n_regions = 16, 4
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        write_spike_pickle(os.path.join(tmp, "spikes.pkl"), n_train=8, n_regions=n_regions)
+        trainer = port_main.build_trainer(port_main.parse_args([
+            "-c", os.path.join(REPO, "configs", "trainer_ssl_ndt1.yaml"),
+            "-k", *MLM_OVERRIDES, f"data.data_dir={tmp}", "data.data_file=spikes.pkl",
+            "training.save_every=null", f"dirs.checkpoint_dir={os.path.join(tmp, 'ckpt')}",
+            "dirs.log_dir=null", "verbosity=3",
+        ]))
+    batches, region_list = cs.sweep_inputs(trainer)
+    n, T, N = batches[0]["spikes"].shape
+    if (len(batches), n, T, N) != (1, 32, 1024, 256) or not trainer.model.encoder._use_flash_now(T):
+        raise AssertionError(f"not the mlm shape on the flash path: {len(batches)} x {(n, T, N)}")
+    fc.reset_counters()
+    t0 = time.perf_counter()
+    res = cs.co_smoothing_eval(trainer, max_N=max_N)
+    wall = time.perf_counter() - t0
+    launches = {FWD_WG: fc.FWD_LAUNCHES}
+    passes = 2 * -(-max_N // cs.SWEEP_BATCH) + n_regions
+    if launches[FWD_WG] != 5 * passes:
+        raise AssertionError(f"{launches[FWD_WG]} flash forward launches, want 5 a folded pass "
+                             f"x {passes} passes")
+    check_bps(res, {"neuron": max_N, "intra-region": max_N, "inter-region": max_N}, "mlm")
+
+    # Two neurons of a folded pass of 8 against a pass of each alone (K=1).
+    # The folded pass's first flash call is recorded, to hold the kernel
+    # against its plain version on those inputs below.
+    seen, wrapped = [], ndt1.banded_flash_attention
+
+    def record(q, k, v, key_valid, **kw):
+        if not seen:
+            seen.append((q.clone(), k.clone(), v.clone(), key_valid.clone(), dict(kw)))
+        return wrapped(q, k, v, key_valid, **kw)
+
+    ndt1.banded_flash_attention = record
+    try:
+        ((_, folded),) = cs.run_sweep(trainer, batches, cs.SWEEP_MASKERS["neuron"],
+                                      cs.mode_overrides("neuron", region_list), list(range(8)),
+                                      channel_for=lambda c: c)
+    finally:
+        ndt1.banded_flash_attention = wrapped
+    spikes = batches[0]["spikes"]
+    worst = [0.0, 0.0]
+    for c in (0, 5):
+        ((_, alone),) = cs.run_sweep(trainer, batches, cs.SWEEP_MASKERS["neuron"],
+                                     cs.mode_overrides("neuron", region_list), [c],
+                                     channel_for=lambda x: x, sweep_batch=1)
+        err = float(np.abs(np.log(folded[c]) - np.log(alone[0])).max())
+        d_bps = abs(bits_per_spike(folded[c][:, :, None], spikes[:, :, [c]])
+                    - bits_per_spike(alone[0][:, :, None], spikes[:, :, [c]]))
+        if not (err <= 2e-2 and d_bps <= 1e-3):
+            raise AssertionError(f"neuron {c}: the folded pass differs from a pass alone: "
+                                 f"log-rate max|err| {err}, bps {d_bps}")
+        worst = [max(worst[0], err), max(worst[1], d_bps)]
+
+    # The flash forward at the folded pass's own inputs (K x B rows, the
+    # pickle's key padding, no dropout) against the plain version in float32,
+    # 32 rows at a time (its (B, H, T, T) logits), at the bf16 out tolerance
+    # of the flash phase.
+    q, k, v, key_valid, kw = seen[0]
+    if (tuple(q.shape) != (8 * n, T, 8, 128) or q.dtype != torch.bfloat16
+            or kw["dropout_rate"] != 0.0 or not (key_valid == 0).any()):
+        raise AssertionError(f"the folded pass's flash call: {tuple(q.shape)} {q.dtype} "
+                             f"dropout {kw['dropout_rate']}, padded keys "
+                             f"{int((key_valid == 0).sum())}")
+    band = {b: kw[b] for b in ("context_forward", "context_backward")}
+    got = fa.banded_flash_attention(q, k, v, key_valid, **band).float()
+    ref = torch.cat([fa.banded_flash_attention_plain(
+        q[i:i + n].float(), k[i:i + n].float(), v[i:i + n].float(), key_valid[i:i + n],
+        **band) for i in range(0, len(q), n)])
+    torch.cuda.synchronize()
+    o_atol = FLASH_TOL["bfloat16"][0]
+    flash_err = (got - ref).abs().max().item()
+    torch.testing.assert_close(got, ref, atol=o_atol, rtol=0.0,
+                               msg=lambda m: f"flash forward at the folded shape: {m}")
+    say("cosmooth", f"{FWD_WG} at the folded pass's inputs (B={len(q)}, T={T}, H=8, D=128, "
+        f"bf16, no dropout, {int((key_valid == 0).sum())} padded keys, band {band}) against "
+        f"the plain version in float32: out max|err| {flash_err:.2e} (atol {o_atol})")
+    del q, k, v, key_valid, got, ref, seen
+
+    _, rate = neuron_sweep(trainer, max_N, "mlm shape", power_line, profile)
+    say("cosmooth", f"mlm model (5 x 1024, 8 heads, D=128, B={n}, T={T}, bf16, flash): "
+        f"co_smoothing_eval of {max_N} neurons in 3 modes ({passes} folded passes, "
+        f"{launches[FWD_WG]} flash forward launches = 5 a pass) in {wall:.2f} s with the "
+        f"scoring; neuron sweep {rate:.1f} neurons/s ({cs.SWEEP_BATCH * n} rows a pass); "
+        f"folded against alone (neurons 0, 5): log-rate max|err| {worst[0]:.2e} "
+        f"(atol 2e-2), bps {worst[1]:.2e} (1e-3); card {power_line}")
+    del trainer, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+PHONEME_FRAMES, PHONEME_VOCAB = (BCI_BINS - 32) // 4 + 1, 41     # 121 CTC frames x 41
+
+
+def phoneme_batch(device, seed: int = 0) -> tuple:
+    """B=8: CTC posteriors (softmax of seeded normals, 121 frames x 41) spliced
+    into a 64-token prompt at 8; the loss on the last 48 text tokens."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(size=(BCI_B, PHONEME_FRAMES, PHONEME_VOCAB))
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    ids = rng.integers(3, LLAMA2_7B["vocab_size"], size=(BCI_B, BCI_TEXT))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    batch = {"input_ids": t(ids), "attention_mask": t(np.ones_like(ids)),
+             "input_split": t(np.full((BCI_B,), BCI_SPLIT)),
+             "phoneme_probs": t(probs.astype(np.float32)),
+             "phonemes_mask": t(np.ones((BCI_B, PHONEME_FRAMES), np.int64))}
+    return batch, t(np.where(np.arange(BCI_TEXT) >= 16, ids, -100))
+
+
+def phoneme_llm_phase(power_line: str) -> dict:
+    import torch
+    from llm_bci_tpu_torch.config import DictConfig
+    from llm_bci_tpu_torch.models import decode_graph
+    from llm_bci_tpu_torch.models.phoneme_llm import PhonemeLLM
+
+    dev = torch.device("cuda")
+    new_tokens, beams = 32, 5
+    vocab = LLAMA2_7B["vocab_size"]
+    autocast = lambda: torch.autocast("cuda", dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        torch.manual_seed(0)
+        t0 = time.perf_counter()
+        model = PhonemeLLM.from_config(DictConfig({}), llm_path=write_llama_config(tmp, 32),
+                                       lora=dict(LORA), compute_dtype="bfloat16", device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    if dataclasses.asdict(model.llama_config) != LLAMA2_7B or model.dtype != torch.bfloat16:
+        raise AssertionError(f"not a bf16 Llama-2-7B: {model.llama_config}")
+    batch, targets = phoneme_batch(dev)
+    trains = {k for k, p in model.named_parameters() if p.requires_grad}
+    if not trains or any(".lora_" not in k and not k.startswith("coupler") for k in trains):
+        raise AssertionError(f"unexpected trainable leaves: {sorted(trains)[:5]}")
+    state = model.state_dict()
+    frozen = {k: v.clone() for k, v in state.items() if k not in trains}
+    moving = {k: v.clone() for k, v in state.items() if k.endswith("lora_B") or
+              k.startswith("coupler")}
+
+    # one forward with a loss, one step of LoRA + coupler
+    opt = torch.optim.AdamW([p for p in model.parameters() if p.requires_grad], lr=1e-4)
+    model.train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with autocast():
+        out = model(**batch, targets=targets)
+    out.loss.backward()
+    opt.step()
+    opt.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    n_tokens = BCI_B * (BCI_TEXT - 16)
+    if tuple(out.preds.shape) != (BCI_B, BCI_TEXT + PHONEME_FRAMES, vocab):
+        raise AssertionError(f"logits shape {tuple(out.preds.shape)}")
+    if not torch.isfinite(out.loss) or int(out.n_examples) != n_tokens:
+        raise AssertionError(f"loss {out.loss.item()} over {int(out.n_examples)} tokens")
+    state = model.state_dict()
+    for key, before in frozen.items():
+        if not torch.equal(state[key], before):
+            raise AssertionError(f"frozen leaf changed: {key}")
+    stuck = [k for k, before in moving.items() if torch.equal(state[k], before)]
+    if stuck:
+        raise AssertionError(f"{len(stuck)} LoRA B / coupler leaves did not move: {stuck[:3]}")
+    say("phoneme", f"PhonemeLLM (32 layers x Llama-2-7B width, bf16 base, LoRA r=8 on 7 "
+        f"projections, B={BCI_B}, {PHONEME_FRAMES} x {PHONEME_VOCAB} posteriors spliced into "
+        f"{BCI_TEXT} tokens) built in {build_s:.1f} s; a forward with the loss and one "
+        f"LoRA + coupler step {step_s * 1e3:.1f} ms (the first): loss/token "
+        f"{out.loss.item() / n_tokens:.4f}; {len(frozen)} frozen leaves bit-identical, "
+        f"{len(moving)} LoRA B and coupler leaves moved")
+    del frozen, moving, state, opt, out
+
+    model.eval()
+
+    def greedy():
+        with autocast():
+            return model.generate(**batch, max_new_tokens=new_tokens, eos_token_id=-1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    decode_graph.reset_counters()
+    tokens = greedy()
+    again, g_s = timed(greedy)
+    with autocast():
+        result, b_s = timed(lambda: model.generate(
+            **batch, max_new_tokens=new_tokens, num_beams=beams, num_return_sequences=beams,
+            eos_token_id=2))
+    graphs = (decode_graph.EAGER_STEPS, decode_graph.CAPTURES, decode_graph.REPLAYS)
+    if graphs != (3, 3, 3 * (new_tokens - 2)):
+        raise AssertionError(f"eager steps, captures, replays {graphs}")
+    if tuple(tokens.shape) != (BCI_B, new_tokens) or not torch.equal(tokens, again):
+        raise AssertionError("greedy ids have the wrong shape or differ between two decodes")
+    if (tuple(result.sequences.shape) != (BCI_B, beams, new_tokens)
+            or not torch.isfinite(result.scores).all()
+            or (result.scores[:, :-1] < result.scores[:, 1:]).any()):
+        raise AssertionError("beam hypotheses have the wrong shape, or are not finite and sorted")
+    for ids in (tokens, result.sequences):
+        if int(ids.min()) < 0 or int(ids.max()) >= vocab:
+            raise AssertionError("token ids out of range")
+    # the graph's greedy ids against the un-graphed step, fed the same tokens
+    with torch.no_grad(), autocast():
+        first, step, P = prefill_step(model, batch, new_tokens)
+        eager = [first]
+        for t in range(new_tokens - 1):
+            step.key_mask[:, P + t] = 1
+            step.embeds = model.llm.embed(tokens[:, t:t + 1])
+            step.position.fill_(P + t)
+            eager.append(torch.argmax(step.run_eager(), -1))
+        eager = torch.stack(eager, 1)
+    if not torch.equal(eager, tokens):
+        raise AssertionError(f"greedy ids from the graph differ from the eager step's at "
+                             f"{int((eager != tokens).sum())} of {tokens.numel()} places")
+    say("phoneme", f"greedy {BCI_B * new_tokens / g_s:.1f} tokens/s ({g_s * 1e3:.1f} ms for "
+        f"{new_tokens} tokens of B={BCI_B}, its capture included), beam {beams} "
+        f"{BCI_B / b_s:.2f} sequences/s ({b_s * 1e3:.0f} ms); the graph's greedy ids equal the "
+        f"un-graphed step's ({tokens.numel()} ids); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; card {power_line}")
+    del model, step
+    torch.cuda.empty_cache()
+    return {}
+
+
+def quantization_repair_check(tmp: str, power_line: str) -> None:
+    """``BCI.load_checkpoint_params`` puts a saved LLM blob into the model's
+    quantization layout, on the card, 2 layers deep at Llama-2-7B width: a
+    bf16 checkpoint (the whole base) served int8, and that int8 checkpoint
+    served on a bf16 base again. Every int8 leaf must equal ``quantize_int8``
+    (axis 0, the JAX package's rule) of the saved weight; the int8 model's
+    prompt logits, through the int8 kernels, must agree with those of the bf16
+    model that holds the dequantized codes within the tolerance of the
+    kernel's own check in the bci-serve phase (2^-5 and 2^-8 of the largest
+    logit, max and mean)."""
+    import torch
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+    from llm_bci_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    batch = bci_serving_batch(dev)
+    path = write_llama_config(tmp, 2)
+
+    def logits(model):
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            embeds, mask, _ = model.prepare_embeds(**batch)
+            return model.llm(inputs_embeds=embeds, attention_mask=mask)[0].float()
+
+    def saved(model, name):
+        os.makedirs(os.path.join(tmp, name))
+        model.save_checkpoint(os.path.join(tmp, name))
+        return os.path.join(tmp, name)
+
+    t0 = time.perf_counter()
+    trained, _ = build_bci(path, None, dev)
+    ck_bf16, bf16_logits = saved(trained, "repair_bf16"), logits(trained)
+    del trained
+    served, _ = build_bci(path, "int8", dev)          # its own codes, replaced below
+    served.load_checkpoint_params(ck_bf16)
+    blob = torch.load(os.path.join(ck_bf16, "llm.pt"), map_location="cpu", weights_only=True)
+    state, n = served.llm.state_dict(), 0
+    for key, w in blob.items():
+        prefix = key[:-len(".weight")]
+        if key.endswith(".weight") and prefix + ".kernel" in state:
+            q, scale = quant.quantize_int8(w.float().numpy().T, axis=0)
+            if not (np.array_equal(state[prefix + ".kernel"].cpu().numpy(), q)
+                    and np.array_equal(state[prefix + ".kernel_scale"].cpu().numpy(), scale)):
+                raise AssertionError(f"{prefix}: the int8 leaves are not quantize_int8 of the "
+                                     f"saved weight")
+            n += 1
+    if n != 7 * 2 + 1:
+        raise AssertionError(f"{n} layers quantized from the bf16 checkpoint, want 15")
+    del blob, state
+    before = ic.LAUNCHES
+    int8_logits = logits(served)
+    if ic.LAUNCHES == before:
+        raise AssertionError("the int8 model launched no int8 kernel")
+    ck_int8 = saved(served, "repair_int8")
+    del served
+    back, _ = build_bci(path, None, dev)
+    back.load_checkpoint_params(ck_int8)
+    if any(k.endswith((".kernel", ".kernel_scale")) for k in back.llm.state_dict()):
+        raise AssertionError("the bf16 model holds int8 leaves")
+    ref = logits(back)
+    del back
+    seconds = time.perf_counter() - t0
+    top = ref.abs().max().item()
+    err = (int8_logits - ref).abs()
+    if not (err.max().item() <= 2.0 ** -5 * top and err.mean().item() <= 2.0 ** -8 * top):
+        raise AssertionError(f"int8 logits against the dequantized bf16 model: max|err| "
+                             f"{err.max().item()} mean|err| {err.mean().item()} of {top}")
+    q_err = (int8_logits - bf16_logits).abs()
+    say("eval-ph", f"quantization-layout repair, 2 layers at 7B width: a bf16 checkpoint "
+        f"served int8 ({n} layers quantized, each equal to quantize_int8 of the saved "
+        f"weight), saved and served on a bf16 base again: int8 logits against the "
+        f"dequantized bf16 model max|err| {err.max().item():.3e}, mean|err| "
+        f"{err.mean().item():.3e} of max {top:.3e} (held to 2^-5 and 2^-8 of it); against "
+        f"the trained bf16 model (the quantization's own error, not held) max|err| "
+        f"{q_err.max().item():.3e}, mean|err| {q_err.mean().item():.3e}; {seconds:.1f} s "
+        f"with two saves and loads; card {power_line}")
+    del int8_logits, bf16_logits, ref, err, q_err
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def eval_phonemes_phase(power_line: str) -> dict:
+    import pickle
+
+    import torch
+    from llm_bci_tpu_torch import eval_phonemes as tep
+    from llm_bci_tpu_torch import main as port_main
+    from llm_bci_tpu_torch.models import decode_graph
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+    trials, beam_sizes, new_tokens = 4, (1, 5), 20
+    test = bci_rows(trials, seed=3)
+    for i, row in enumerate(test):
+        row["sentence"] = SENTENCES[i]
+    dataset = {"train": bci_rows(BCI_B, seed=1), "test": test}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        quantization_repair_check(tmp, power_line)
+        # One step on a bf16 base, saved without the frozen base (a 7B base
+        # is gigabytes a save). The eval builds its int8 base from the same
+        # seed, but an int8 layer draws its codes directly: it serves fresh
+        # int8 codes with the trained LoRA factors, encoder and projector.
+        # The repair of a saved base is held above, 2 layers deep.
+        t0 = time.perf_counter()
+        trainer = port_main.main(port_main.parse_args([
+            "-c", os.path.join(REPO, "configs", "trainer_bci.yaml"),
+            "-k", f"method.model_kwargs.llm_path={write_llama_config(tmp, 32)}",
+            f"training.train_batch_size={BCI_B}", f"training.test_batch_size={BCI_B}",
+            "training.max_steps=1", "training.eval_every=null", "training.save_every=1",
+            "training.component_blobs=false", f"dirs.checkpoint_dir={os.path.join(tmp, 'ck')}",
+            "dirs.log_dir=null", "verbosity=1",
+        ]), dataset=dataset)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        if trainer.model.quant is not None or trainer.model.dtype != torch.bfloat16:
+            raise AssertionError("not a bf16 base")
+        ckpt = os.path.join(trainer.checkpoint_dir, "STEP1")
+        saved = torch.load(os.path.join(ckpt, "llm.pt"), map_location="cpu", weights_only=True)
+        if not saved or any(".lora_" not in k for k in saved):
+            raise AssertionError("llm.pt holds more than the LoRA factors")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the shapes of every int8 product are recorded on the way, to show
+        # that the int8 phase held each kernel against its plain version there
+        save, shapes, wrapped = os.path.join(tmp, "wer"), set(), ic.int8_matmul_cuda
+
+        def record(x, q, scale, out_dtype):
+            shapes.add((x.shape[0], *q.shape, x.dtype, out_dtype))
+            return wrapped(x, q, scale, out_dtype)
+
+        ic.int8_matmul_cuda = record
+        ic.reset_counters()
+        decode_graph.reset_counters()
+        try:
+            metrics = tep.main(tep.parse_args([
+                "-k", f"from_pt={ckpt}", f"beams={','.join(map(str, beam_sizes))}",
+                f"savestring={save}", f"test_len={trials}", "quantize=int8",
+            ]), dataset=dataset, tokenizer=WordTokenizer())
+        finally:
+            ic.int8_matmul_cuda = wrapped
+        torch.cuda.synchronize()
+        launches = int8_launches()
+        graphs = (decode_graph.EAGER_STEPS, decode_graph.CAPTURES, decode_graph.REPLAYS)
+        for k in beam_sizes:
+            with open(f"{save}_{k}.pkl", "rb") as f:
+                preds = pickle.load(f)
+            if len(preds) != trials or any(t.shape != (k, new_tokens) for t, _ in preds):
+                raise AssertionError(f"{save}_{k}.pkl: {[t.shape for t, _ in preds]}")
+    # a trial: the eval's forward (M = 185) and a decode: its prefill (M = 137,
+    # 5 x 137 with beams), its eager first token step and the capture of the
+    # step (M = 1 or 5), then the replays
+    decodes = trials * len(beam_sizes)
+    if graphs != (decodes, decodes, decodes * (new_tokens - 2)):
+        raise AssertionError(f"eager steps, captures, replays {graphs}")
+    want = {INT8_TILED: INT8_PER_FORWARD * 2 * decodes, INT8_CLUSTER: INT8_PER_FORWARD * 2 * decodes}
+    if launches != want or ic.LAUNCHES != sum(want.values()):
+        raise AssertionError(f"int8 launches {launches} (total {ic.LAUNCHES}), want {want}")
+    unchecked = sorted((M, K, N) for M, K, N, dt, out in shapes
+                       if M not in INT8_MS or (K, N) not in INT8_SHAPES
+                       or dt != torch.bfloat16 or out != torch.bfloat16)
+    if unchecked:
+        raise AssertionError(f"int8 products at shapes the int8 phase does not check: {unchecked}")
+    say("eval-ph", f"int8 products at M = {sorted({sh[0] for sh in shapes})} on the "
+        f"Llama-2-7B (K, N), bf16: each held against the plain version by the int8 phase")
+    if sorted(metrics) != list(beam_sizes) or not all(np.isfinite(m["WER"])
+                                                      for m in metrics.values()):
+        raise AssertionError(f"WER {metrics}")
+    per_trial = ", ".join(f"beams={k}: {metrics[k]['seconds'] / trials:.3f} s/trial, WER "
+                          f"{metrics[k]['WER']:.3f}" for k in beam_sizes)
+    say("eval-ph", f"BCI at 32 layers x Llama-2-7B width trained 1 step on a bf16 base "
+        f"({train_s:.1f} s with the build), saved without its base, served int8 by "
+        f"llm_bci_tpu_torch.eval_phonemes on {trials} trials ({new_tokens} new tokens, diverse "
+        f"beam): {per_trial}; int8 launches {launches} = {INT8_PER_FORWARD} x {2 * decodes} "
+        f"(forwards + prefills | eager steps + captures), {graphs[2]} replays; card {power_line}")
     return launches
 
 
@@ -1875,10 +2438,17 @@ def main(only=None, profile=None) -> int:
         launches.update(main_path_phase(power_line, profile))
     if only in (None, "mlm-main"):
         launches.update(mlm_main_path_phase(power_line, profile))
-    for phase, run in (("bci-serve", bci_serve_phase), ("bci-train", bci_train_phase)):
+    for phase, run in (("bci-serve", bci_serve_phase), ("bci-train", bci_train_phase),
+                       ("cosmooth", cosmooth_phase),
+                       ("phoneme-llm", lambda p, _: phoneme_llm_phase(p)),
+                       ("eval-phonemes", lambda p, _: eval_phonemes_phase(p))):
         if only in (None, phase):
             for name, n in run(power_line, profile).items():
                 launches[name] = launches.get(name, 0) + n
+            # a trainer holds reference cycles: free what the phase left, so
+            # that the next phase's peak memory is its own
+            gc.collect()
+            torch.cuda.empty_cache()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1898,9 +2468,10 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default=None,
                         choices=["ctc", "flash", "int8", "ctc-main", "mlm-main", "bci-serve",
-                                 "bci-train"])
+                                 "bci-train", "cosmooth", "phoneme-llm", "eval-phonemes"])
     parser.add_argument("--profile", metavar="PATH", default=None,
                         help="write the torch.profiler tables of the CTC and mlm train steps, "
-                             "the BCI greedy decode and the BCI fine-tune step to PATH")
+                             "the BCI greedy decode, the BCI fine-tune step and a folded "
+                             "co-smoothing pass to PATH")
     cli = parser.parse_args()
     sys.exit(main(cli.only, cli.profile))

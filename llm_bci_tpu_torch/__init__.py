@@ -4,14 +4,18 @@ The JAX package ``llm_bci_tpu`` stays the reference; this package mirrors
 its module layout and names so each counterpart is easy to find. It imports
 ``torch`` and never ``jax``, and nothing of ``llm_bci_tpu``: host-side
 code that imports no JAX is kept here as a copy under the same relative
-name (``config``, ``registry``, ``data``: datasets, speechbci loader, G2P;
-``eval.eval_bci``: CER / WER; ``native``: the C edit distance).
+name (``config``, ``registry``, ``data``: datasets, speechbci and IBL
+loaders, G2P; ``eval.eval_bci``: CER / WER; ``eval.metrics``,
+``eval.ctc_decode``, ``eval.viz_neuron_fit``; ``native``: the C edit
+distance).
 
 Slice 1 covers NDT1-CTC phoneme decoding trained on speechbci; the CTC
 loss runs through hand-written CUDA kernels (``csrc/ctc.cu``). Slice 2
 covers NDT1 masked-spike pretraining (``mlm``) and the autoregressive
 method at the unstacked length; attention there runs through hand-written
-banded flash-attention kernels (``csrc/flash_attention.cu``).
+banded flash-attention kernels (``csrc/flash_attention.cu``). Slice 3 serves
+and fine-tunes BCI with an int8 base (``csrc/int8_matmul.cu``). ROADMAP slice
+6 adds co-smoothing, the IBL loader, PhonemeLLM and ``eval_phonemes``.
 """
 
 

@@ -1,3 +1,22 @@
-"""Host-side evaluation utilities of the port (``eval_bci``: WER / CER and
-the greedy CTC collapse). The other ``eval`` modules of ``llm_bci_tpu``
-come with the slices that need them."""
+"""Host-side evaluation utilities of the port, the names that
+``llm_bci_tpu/eval/__init__.py`` exports: CTC prefix beam search, WER / CER
+and the greedy CTC collapse, bits-per-spike and the regression summaries.
+``co_smoothing`` and ``viz_neuron_fit`` are modules of this package too;
+behaviour decoding comes with the iTransformer / PatchTST slice."""
+from llm_bci_tpu_torch.eval.ctc_decode import (  # noqa: F401
+    CTCPrefixDecoder,
+    ctc_prefix_beam_search,
+)
+from llm_bci_tpu_torch.eval.eval_bci import (  # noqa: F401
+    edit_distance,
+    format_ctc,
+    smoothed_RMS,
+    word_error_count,
+    word_edit_distance,
+)
+from llm_bci_tpu_torch.eval.metrics import (  # noqa: F401
+    bits_per_spike,
+    metrics_list,
+    neg_log_likelihood,
+    r2_score_np,
+)

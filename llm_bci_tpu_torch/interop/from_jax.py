@@ -11,8 +11,10 @@ that the port's strided conv reads. Load the result with
 ``model.load_state_dict(sd, strict=True)``. An active factors projection,
 which the port's NDT1 does not build yet, raises.
 
-:func:`llama_state_dict_from_jax` and :func:`bci_state_dict_from_jax` do the
-same for the Llama stack and the BCI model. The port's Llama names are
+:func:`llama_state_dict_from_jax`, :func:`bci_state_dict_from_jax` and
+:func:`phoneme_llm_state_dict_from_jax` do the same for the Llama stack, the
+BCI model and PhonemeLLM (whose coupler ``Dense`` kernels become ``Linear``
+weights). The port's Llama names are
 Hugging Face's (``model.layers.{i}.self_attn.q_proj`` ...). A float base
 ``kernel`` (in, out) becomes ``weight`` (out, in); an int8 ``kernel`` keeps
 its (in, out) layout and its dtype beside ``kernel_scale``; ``lora_A`` /
@@ -139,4 +141,14 @@ def bci_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     for name in ("projector_in", "projector_out"):
         if name in params:
             out.linear(params[name], name)
+    return out.sd
+
+
+def phoneme_llm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``PhonemeLLM`` params ``{"llm", "coupler_in", "coupler_out"}`` ->
+    the port's PhonemeLLM state dict."""
+    out = _StateDict()
+    _put_llama(out, params["llm"], "llm.")
+    for name in ("coupler_in", "coupler_out"):
+        out.linear(params[name], name)
     return out.sd

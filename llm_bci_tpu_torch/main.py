@@ -1,19 +1,23 @@
 """CLI train entry point of the port:
 ``python -m llm_bci_tpu_torch.main -c configs/trainer_ctc_ndt1.yaml -k a.b=1 ...``
-(NDT1-CTC on speechbci files) or ``-c configs/trainer_ssl_ndt1.yaml -k
-data.data_load=file ...`` (NDT1 masked-spike pretraining on a pickle
-``{split: [{"spikes": (T, N) float32, ...}]}``).
+(NDT1-CTC on speechbci files), ``-c configs/trainer_ssl_ndt1.yaml`` (NDT1
+masked-spike pretraining on an IBL session saved with ``datasets``, or with
+``-k data.data_load=file ...`` on a pickle ``{split: [{"spikes": (T, N)
+float32, ...}]}``) or ``-c configs/trainer_bci.yaml`` (the BCI LoRA
+fine-tune).
 
 The counterpart of the repo's ``main.py`` (which imports the JAX trainer):
-the same configs and dotted ``-k`` overrides, the ``file`` and
+the same configs and dotted ``-k`` overrides, the ``file``, ``ibl`` and
 ``speechbci`` datasets (G2P phoneme labels through ``data.vocab_file``),
 the CTC CER metric fns, the ``endtoend`` assisted-WER metric fn,
 ``method.model_kwargs`` (``method_name``, ``loss``, ``log_input``, ``lora``,
-``quantize`` ...) handed to the model, and ``n_channels`` inference for NDT1
-and BCI. ``transformers`` (the tokenizer) is imported only when
-``data.tokenizer_path`` is set. The ``ibl`` loader, the behaviour methods'
-metrics and the iTransformer / PatchTST config surgery belong to later
-slices and raise ``NotImplementedError``. ``--device`` defaults to CUDA; the trainer raises
+``quantize`` ...) handed to the model, ``n_channels`` inference for NDT1
+and BCI, and the model classes NDT1, BCI and PhonemeLLM (the last goes to the
+trainer unchanged, as in the JAX CLI). ``transformers`` (the tokenizer) is
+imported only when ``data.tokenizer_path`` is set, ``datasets`` only by the
+``ibl`` loader. The behaviour methods' metrics and the iTransformer /
+PatchTST config surgery belong to a later slice and raise
+``NotImplementedError``. ``--device`` defaults to CUDA; the trainer raises
 when there is no card.
 """
 from __future__ import annotations
@@ -25,6 +29,7 @@ import pickle
 from typing import List, Optional
 
 from llm_bci_tpu_torch.config import ParseKwargs, config_from_kwargs, resolve_path, update_config
+from llm_bci_tpu_torch.data.ibl import load_ibl_dataset
 from llm_bci_tpu_torch.data.speechbci import (
     create_llm_labels,
     create_phonemes_ctc_labels,
@@ -126,7 +131,7 @@ def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Tra
             )
             dataset = create_llm_labels(dataset, tokenizer, config.data.prompt)
     elif config.data.data_load == "ibl":
-        raise not_ported("The IBL loader (data/ibl.py)", "Queue 1, slice 6")
+        dataset = load_ibl_dataset(**config.data)
     else:
         raise ValueError(f"Unknown data_load {config.data.data_load!r}")
 
@@ -145,15 +150,14 @@ def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Tra
     elif method in ("stat_behaviour", "dyn_behaviour"):
         raise not_ported(f"The {method!r} method and its metrics", "Queue 1, slice 7")
 
-    n_channels = dataset["train"][0]["spikes"].shape[1]
     if config.model.model_class == "NDT1":
-        config["model"]["encoder"]["embedder"]["n_channels"] = n_channels
+        config["model"]["encoder"]["embedder"]["n_channels"] = dataset["train"][0][
+            "spikes"].shape[1]
     elif config.model.model_class == "BCI":
         # flax infers the input width at init; here the embedder needs it
-        config["model"]["ndt1"]["encoder"]["embedder"]["n_channels"] = n_channels
-    elif config.model.model_class == "PhonemeLLM":
-        raise not_ported("Model class 'PhonemeLLM'", "Queue 1, slice 6, item 10")
-    else:
+        config["model"]["ndt1"]["encoder"]["embedder"]["n_channels"] = dataset["train"][0][
+            "spikes"].shape[1]
+    elif config.model.model_class != "PhonemeLLM":     # PhonemeLLM goes as configured
         raise not_ported(f"Model class {config.model.model_class!r}", "Queue 1, slice 7")
 
     return Trainer(

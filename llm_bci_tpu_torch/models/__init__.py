@@ -2,3 +2,4 @@
 :data:`llm_bci_tpu_torch.registry.NAME2MODEL`."""
 from llm_bci_tpu_torch.models.ndt1 import NDT1  # noqa: F401
 from llm_bci_tpu_torch.models.bci import BCI  # noqa: F401
+from llm_bci_tpu_torch.models.phoneme_llm import PhonemeLLM  # noqa: F401

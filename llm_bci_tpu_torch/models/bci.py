@@ -47,6 +47,7 @@ from llm_bci_tpu_torch.models.llama import (
     LlamaForCausalLM,
     load_base_state_dict,
     load_hf_llama_params,
+    load_llm_state,
 )
 from llm_bci_tpu_torch.models.ndt1 import ACT2FN, NeuralEncoder
 from llm_bci_tpu_torch.ops.losses import cross_entropy_loss
@@ -351,19 +352,16 @@ class BCI(nn.Module):
     def load_checkpoint_params(self, load_dir: str) -> None:
         """Load what :meth:`save_checkpoint` wrote (each blob optional).
         Every saved key must exist here; the LLM blob may lack frozen leaves
-        only."""
+        only, and is put into this model's quantization layout first: a
+        checkpoint trained on a bf16 base serves with ``quantize: int8``, and
+        the other way round (:func:`~llm_bci_tpu_torch.models.llama.load_llm_state`)."""
         if _is_reference_checkpoint(load_dir):
             raise not_ported("Import of a reference-format torch checkpoint "
                              "(interop/torch_import.py)", "Queue 1, slice 3, left")
         load = lambda name: torch.load(os.path.join(load_dir, name), map_location="cpu",
                                        weights_only=True)
         if os.path.exists(os.path.join(load_dir, "llm.pt")):
-            result = self.llm.load_state_dict(load("llm.pt"), strict=False)
-            trains = {k for k, p in self.llm.named_parameters() if p.requires_grad}
-            missing = [k for k in result.missing_keys if k in trains]
-            if missing or result.unexpected_keys:
-                raise RuntimeError(f"llm.pt does not fit: missing trainable leaves {missing}, "
-                                   f"unexpected {list(result.unexpected_keys)}")
+            load_llm_state(self.llm, load("llm.pt"))
         if os.path.exists(os.path.join(load_dir, "encoder.pt")):
             self.ndt1_encoder.load_state_dict(load("encoder.pt"), strict=True)
         if os.path.exists(os.path.join(load_dir, "projector.pt")):

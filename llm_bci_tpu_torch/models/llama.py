@@ -34,13 +34,19 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.ops.attention import dot_product_attention, dropout
-from llm_bci_tpu_torch.ops.quant import QUANT_MODES, int8_matmul, quantize_int8
+from llm_bci_tpu_torch.ops.quant import (
+    QUANT_MODES,
+    dequantize_int8,
+    int8_matmul,
+    quantize_int8,
+)
 from llm_bci_tpu_torch.ops.rotary import apply_rotary_pos_emb, rope_cos_sin
 
 
@@ -405,22 +411,26 @@ _QUANT_PROJ_NAMES = (
 
 
 def quantize_llama_params(state_dict: Dict[str, torch.Tensor], mode: str = "int8",
-                          quant_lm_head: bool = True) -> Dict[str, torch.Tensor]:
+                          quant_lm_head: bool = True,
+                          layers: Optional[set] = None) -> Dict[str, torch.Tensor]:
     """Quantize the projection weights (and ``lm_head``) of a Llama state
     dict: ``<proj>.weight`` (out, in) becomes ``<proj>.kernel`` int8 (in, out)
     and ``<proj>.kernel_scale`` (out,), the layout ``LoRADense(quant=...)``
-    holds. Norms, embeddings, biases and LoRA factors pass through.
+    holds. Norms, embeddings, biases and LoRA factors pass through. With
+    ``layers`` (a set of module names), those layers are quantized instead.
     Host-side numpy."""
     if mode not in QUANT_MODES:
         raise ValueError(f"unknown quant mode {mode!r}")
     out: Dict[str, torch.Tensor] = {}
     for key, value in state_dict.items():
-        parts = key.split(".")
-        name = parts[-2] if len(parts) >= 2 else ""
-        if (parts[-1] == "weight" and name in _QUANT_PROJ_NAMES
-                and (quant_lm_head or name != "lm_head")):
+        prefix, _, leaf = key.rpartition(".")
+        name = prefix.rpartition(".")[2]
+        if layers is None:
+            chosen = name in _QUANT_PROJ_NAMES and (quant_lm_head or name != "lm_head")
+        else:
+            chosen = prefix in layers
+        if leaf == "weight" and chosen:
             q, scale = quantize_int8(value.detach().float().cpu().numpy().T, axis=0)
-            prefix = ".".join(parts[:-1])
             out[prefix + ".kernel"] = torch.from_numpy(q)
             out[prefix + ".kernel_scale"] = torch.from_numpy(scale)
         else:
@@ -452,3 +462,35 @@ def load_base_state_dict(llm: LlamaForCausalLM, state_dict: Dict[str, torch.Tens
         raise RuntimeError(f"Llama base weights do not fit: missing {missing}, "
                            f"unexpected {list(result.unexpected_keys)}")
 
+
+def adapt_state_dict_quantization(saved: Dict[str, torch.Tensor],
+                                  target: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``saved`` in the quantization layout of ``target`` (the ``state_dict``
+    of the model it goes into), so that a checkpoint serves with another
+    quantization than it was trained with, by the rules of the JAX package's
+    checkpoint restore: a float ``<proj>.weight`` going into an int8 layer is
+    quantized (:func:`quantize_llama_params`); an int8 ``kernel`` +
+    ``kernel_scale`` going into a float layer becomes ``weight``, dequantized
+    and cast to the layer's dtype. Every other leaf passes through."""
+    layers = lambda leaf: {k.rpartition(".")[0] for k in target if k.endswith("." + leaf)}
+    out = quantize_llama_params(saved, layers=layers("kernel"))
+    for prefix in layers("weight"):
+        if f"{prefix}.kernel" in out and f"{prefix}.kernel_scale" in out:
+            w = dequantize_int8(out.pop(f"{prefix}.kernel").cpu().numpy(),
+                                out.pop(f"{prefix}.kernel_scale").cpu().numpy())
+            out[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(w.T)).to(
+                target[f"{prefix}.weight"].dtype)
+    return out
+
+
+def load_llm_state(llm: LlamaForCausalLM, saved: Dict[str, torch.Tensor]) -> None:
+    """Load a saved LLM blob into ``llm``, put into its quantization layout
+    first (:func:`adapt_state_dict_quantization`). Every saved key must fit,
+    and the blob may lack frozen leaves only."""
+    result = llm.load_state_dict(adapt_state_dict_quantization(saved, llm.state_dict()),
+                                 strict=False)
+    trains = {k for k, p in llm.named_parameters() if p.requires_grad}
+    missing = [k for k in result.missing_keys if k in trains]
+    if missing or result.unexpected_keys:
+        raise RuntimeError(f"llm.pt does not fit: missing trainable leaves {missing}, "
+                           f"unexpected {list(result.unexpected_keys)}")

@@ -85,10 +85,12 @@ class MaskerConfig:
 
 @dataclasses.dataclass
 class MaskerOverrides:
-    """Selection overrides for eval harnesses: ``channels_onehot (N,)``
-    replaces the static co-smooth channel set, ``timesteps_onehot (T,)`` the
+    """Selection overrides for eval harnesses: ``channels_onehot`` replaces
+    the static co-smooth channel set, one ``(N,)`` set for the whole batch or
+    one ``(B, N)`` row for each example (the co-smoothing sweep folds its
+    points into the batch that way), ``timesteps_onehot (T,)`` the
     forward-pred timesteps, ``mask_region_sel`` / ``target_region_sel``
-    ``(B, N)`` replace region sampling."""
+    ``(B, N)`` (or ``(1, N)``) replace region sampling."""
 
     channels_onehot: Optional[torch.Tensor] = None
     timesteps_onehot: Optional[torch.Tensor] = None
@@ -187,7 +189,8 @@ def apply_masker(
             if cfg.channels is None:
                 raise ValueError("No channels to mask")
             onehot = _isin(torch.arange(N, device=dev), cfg.channels)
-        mask = onehot[None, None, :].expand(B, T, N)
+        rows = onehot if onehot.dim() == 2 else onehot[None, :]     # (B or 1, N)
+        mask = rows[:, None, :].expand(B, T, N)
     elif mode == "forward-pred":
         if ov.timesteps_onehot is not None:
             onehot = ov.timesteps_onehot.bool()
@@ -224,6 +227,10 @@ def apply_masker(
     zero_idx = _bernoulli(cfg.zero_ratio, (B, T, N), generator, dev) & mask
     spikes = torch.where(zero_idx, torch.zeros_like(spikes), spikes)
     random_idx = _bernoulli(cfg.random_ratio, (B, T, N), generator, dev) & mask & ~zero_idx
+    # The max spans the whole batch. Where a batch holds several examples'
+    # copies (the co-smoothing sweep's folded points) that couples them, but
+    # only through ``random_idx``, which is empty under ``zero_ratio = 1``:
+    # every masker of that sweep has it (``eval/co_smoothing.py``).
     random_spikes = spikes.max() * torch.rand(
         (B, T, N), generator=generator, device=dev, dtype=spikes.dtype
     )

@@ -2,8 +2,10 @@
 
 The check runs in a subprocess: this test process has JAX loaded already
 (``tests/conftest.py`` imports it). The subprocess forbids ``jax``, ``flax``,
-``optax``, ``orbax``, ``triton``, ``transformers`` and the exact top-level
-name ``llm_bci_tpu`` outright, imports every module of ``llm_bci_tpu_torch``,
+``optax``, ``orbax``, ``triton``, ``transformers``, ``datasets``,
+``matplotlib`` and the exact top-level name ``llm_bci_tpu`` outright, imports
+every module of ``llm_bci_tpu_torch`` (``eval_phonemes`` and
+``eval.co_smoothing`` among them),
 runs a tiny NDT1-CTC and a tiny NDT1-mlm forward and backward on the CPU (the
 latter through the flash branch) and a tiny int8 BCI forward, backward and
 greedy decode, and then checks that none of those was loaded and that no
@@ -23,7 +25,8 @@ PKG = os.path.join(REPO, "llm_bci_tpu_torch")
 SCRIPT = r'''
 import importlib, importlib.util, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "transformers", "llm_bci_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "transformers", "datasets",
+           "matplotlib", "llm_bci_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -46,6 +49,8 @@ for mod in pkgutil.walk_packages(llm_bci_tpu_torch.__path__, "llm_bci_tpu_torch.
     # native/_editdistance.so is a ctypes library built at first use, not a module
     if importlib.util.find_spec(mod.name).origin.endswith(".py"):
         importlib.import_module(mod.name)
+assert {"llm_bci_tpu_torch.eval_phonemes", "llm_bci_tpu_torch.eval.co_smoothing",
+        "llm_bci_tpu_torch.models.phoneme_llm", "llm_bci_tpu_torch.data.ibl"} <= set(sys.modules)
 
 from llm_bci_tpu_torch.models.ndt1 import NDT1
 
@@ -194,8 +199,8 @@ def test_int8_matmul_on_the_cpu_is_plain_and_the_cuda_wrapper_raises():
 
 
 def test_tokenizer_and_hf_loader_import_transformers_lazily():
-    """``transformers`` appears only inside the two functions that need it."""
-    for rel in ("main.py", os.path.join("models", "llama.py")):
+    """``transformers`` appears only inside the functions that need it."""
+    for rel in ("main.py", "eval_phonemes.py", os.path.join("models", "llama.py")):
         with open(os.path.join(PKG, rel)) as f:
             lines = [ln for ln in f.read().splitlines() if "transformers import" in ln]
         assert lines and all(ln.startswith("    ") for ln in lines), (rel, lines)

@@ -129,11 +129,31 @@ def test_wandb_and_tensorboard_absent(tmp_path, monkeypatch, capsys):
     assert not os.path.exists(tmp_path / "logs")
 
 
-def test_port_main_names_phoneme_llm_s_slice():
+def test_port_main_takes_phoneme_llm_and_names_itransformer_s_slice(tmp_path):
     from llm_bci_tpu_torch import main as port_main
 
-    args = port_main.parse_args(["-k", "model.model_class=PhonemeLLM",
+    rng = np.random.default_rng(0)
+
+    def row():
+        ids = rng.integers(3, 32000, size=(8,))
+        probs = rng.dirichlet(np.ones(41), size=6).astype(np.float32)
+        return {"spikes": probs, "phoneme_probs": probs, "phonemes_mask": np.ones(6, np.int64),
+                "input_ids": ids, "attention_mask": np.ones(8, np.int64),
+                "input_split": np.atleast_1d(2),
+                "targets": np.where(np.arange(8) >= 5, ids, -100)}
+
+    dataset = {"train": [row() for _ in range(4)], "test": [row() for _ in range(2)]}
+    args = port_main.parse_args([
+        "-k", "model.model_class=PhonemeLLM", "method.model_kwargs.method_name=endtoend",
+        "method.model_kwargs.debug=true", "precision.compute_dtype=float32",
+        "training.train_batch_size=2", "training.test_batch_size=2",
+        f"dirs.checkpoint_dir={tmp_path}", "dirs.log_dir=null", "--device", "cpu"])
+    trainer = port_main.build_trainer(args, dataset=dataset)
+    assert type(trainer.model).__name__ == "PhonemeLLM"
+    assert trainer.model.coupler_in.in_features == 41          # as configured, no surgery
+    out = trainer.train_step(trainer.to_device(next(iter(trainer.train_dataloader))[0]))
+    assert np.isfinite(float(out["loss"])) and int(out["n_examples"]) == 2 * 3
+    args = port_main.parse_args(["-k", "model.model_class=iTransformer",
                                  "method.model_kwargs.method_name=mlm", "--device", "cpu"])
-    dataset = {"train": [{"spikes": np.zeros((4, 8), np.float32)}]}
-    with pytest.raises(NotImplementedError, match=r"PhonemeLLM.*Queue 1, slice 6, item 10"):
-        port_main.build_trainer(args, dataset=dataset)
+    with pytest.raises(NotImplementedError, match=r"iTransformer.*Queue 1, slice 7"):
+        port_main.build_trainer(args, dataset={"train": [{"spikes": np.zeros((4, 8))}]})
