@@ -122,13 +122,36 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    base there holds fresh seeded codes beside the trained LoRA, encoder and
    projector. The int8 launches reconcile with the forwards, prefills, eager
    steps and captures, every int8 product is at a shape phase 7 checks, one
-   predictions pickle a beam size, a finite WER; seconds a trial.
+   predictions pickle a beam size, a finite WER; seconds a trial;
+13. iTransformer at ``configs/itransformer.yaml``'s widths (768 x 5, 8 heads,
+   MLP embedder, 1500 channel embeddings, region embeddings) through
+   ``llm_bci_tpu_torch.main``, 4 steps and one eval each: the IBL shape of
+   phase 10 (256 neurons in 4 regions, T=100; 48 train and 16 val trials
+   in a pickle, with a ``choice`` in {-1, 1} and a ``wheel-speed`` trace,
+   normalised where the config says) under ``trainer_ssl_itransformer.yaml``,
+   ``trainer_choice_itransformer.yaml`` and ``trainer_wheel_itransformer.yaml``
+   at B=16 (``max_n_bins`` pinned to 100, 4 regions; accuracy in [0, 1] and a
+   finite r2 from ``behaviour_decoding_eval``), then the ``ctc`` head with the
+   data, method and optimizer of ``trainer_ctc_ndt1.yaml`` (the ``.mat`` files
+   of phase 5, B=64, T'=512, region embeddings off: speechbci has no regions):
+   ``ctc_alpha_beta_kernel`` once a step on the global-scratch plan,
+   ``ctc_alpha_kernel`` once an eval batch, the kernels at the head's own
+   float32 log-probs against the plain version in float64 (phase 3's gates),
+   graph-timed beside ``F.ctc_loss``, a CER within what 512 frames can give;
+14. PatchTST at ``configs/patchtst.yaml``'s widths (d_model 256, 4 layers, 8
+   heads, FFN 1024, BatchNorm, patches 10 / 10, pre-norm): ``mlm`` at the IBL
+   shape (B=16, context 100, 10 patches) and ``ctc`` at the speechbci shape
+   (B=64, context 520, 52 patches: 16,384 sequences a batch; the
+   shared-memory plan, feasible and infeasible rows counted), each with
+   BatchNorm's running averages finite, moved by training and left by an
+   eval, and the CTC checks of phase 13.
 
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train|cosmooth|
-phoneme-llm|eval-phonemes`` runs one phase (for development); ``--profile
-PATH`` writes ``torch.profiler`` tables of the NDT1-CTC and mlm train steps,
-the replayed BCI greedy token steps, the fine-tune step and one folded
-co-smoothing pass at each shape to ``PATH``.
+phoneme-llm|eval-phonemes|itransformer|patchtst`` runs one phase (for
+development); ``--profile PATH`` writes ``torch.profiler`` tables of the
+NDT1-CTC and mlm train steps, the replayed BCI greedy token steps, the
+fine-tune step, one folded co-smoothing pass at each shape and the
+iTransformer and PatchTST ``ctc`` steps to ``PATH``.
 
 The second-to-last line is a JSON object with the kernels' launches,
 errors and times; the last line is
@@ -301,23 +324,37 @@ def ctc_case(device, n_batch: int = B, n_frames: int = T, scale: float = 1.0, se
 CTC_INFEASIBLE = 2     # the row of ctc_case with no feasible alignment
 
 
-def ctc_check(label: str, logits, targets, il, tl, zero_infinity: bool, lattice: str) -> dict:
-    """One CTC path against the plain version in float64: the loss and the
-    gradient through ``ctc_loss_cuda`` with a gradient (``ctc_alpha_beta_kernel``,
-    its lattice where ``lattice`` says) and the loss without one
-    (``ctc_alpha_kernel``, the same bits). Gates: loss rtol 1e-4 / atol 1e-4,
-    gradient atol 1e-4; the infeasible row's loss exactly 0 under
-    ``zero_infinity`` and the float32 sentinel 1e30 without it, its gradient
-    exactly 0 (the JAX package's convention; the plain version's autograd
-    leaves -0.5 on its last frame's terminal slots without ``zero_infinity``,
-    so that row's gradient is held to 0 and not to the plain version)."""
+def min_frames(targets, tl) -> "torch.Tensor":
+    """Frames an alignment of each target needs: its labels and a blank
+    between each pair of equal neighbours."""
+    import torch
+
+    S_ = targets.shape[1]
+    live = torch.arange(1, S_, device=targets.device)[None, :] < tl[:, None]
+    repeats = ((targets[:, 1:] == targets[:, :-1]) & live).sum(1)
+    return tl + repeats
+
+
+def ctc_check(label: str, lp, targets, il, tl, zero_infinity: bool, lattice: str) -> dict:
+    """One CTC path at log-probs ``lp`` against the plain version in float64:
+    the loss and the gradient through ``ctc_loss_cuda`` with a gradient
+    (``ctc_alpha_beta_kernel``, its lattice where ``lattice`` says) and the
+    loss without one (``ctc_alpha_kernel``, the same bits). Gates on the rows
+    with a feasible alignment: loss rtol 1e-4 / atol 1e-4, gradient atol 1e-4;
+    on the infeasible rows (fewer input frames than ``min_frames``): loss
+    exactly 0 under ``zero_infinity`` and the float32 sentinel 1e30 without it,
+    gradient exactly 0 (the JAX package's convention; the plain version's
+    autograd leaves -0.5 on such a row's last frame's terminal slots without
+    ``zero_infinity``, so that row's gradient is held to 0 and not to the
+    plain version). Returns the errors and the count of feasible rows."""
     import torch
     from llm_bci_tpu_torch.ops import ctc_cuda
     from llm_bci_tpu_torch.ops.ctc import NEG_INF, ctc_loss_plain
 
-    lp = torch.log_softmax(logits, -1).detach()
-    Bx, Tx, _ = lp.shape
-    plan = ctc_cuda.ctc_plan(Tx, S, V, want_grad=True)
+    lp = lp.detach().float().contiguous()
+    Bx, Tx, Vx = lp.shape
+    Sx = targets.shape[1]
+    plan = ctc_cuda.ctc_plan(Tx, Sx, Vx, want_grad=True)
     if plan.lattice != lattice:
         raise AssertionError(f"CTC {label}: plan {plan}, expected the lattice in {lattice}")
     x = lp.clone().requires_grad_(True)
@@ -335,22 +372,27 @@ def ctc_check(label: str, logits, targets, il, tl, zero_infinity: bool, lattice:
     torch.cuda.synchronize()
     if not (torch.isfinite(loss).all() and torch.isfinite(grad).all()):
         raise AssertionError(f"CTC {label}: non-finite values")
+    infeasible = il.long() < min_frames(targets.long(), tl.long())
     sentinel = 0.0 if zero_infinity else float(np.float32(-NEG_INF))
-    if loss[CTC_INFEASIBLE].item() != sentinel or grad[CTC_INFEASIBLE].abs().max().item() != 0.0:
-        raise AssertionError(f"CTC {label}: infeasible row: loss {loss[CTC_INFEASIBLE].item()} "
-                             f"(expected {sentinel}) and a non-zero gradient")
+    if infeasible.any() and not (bool((loss[infeasible] == sentinel).all())
+                                 and grad[infeasible].abs().max().item() == 0.0):
+        raise AssertionError(f"CTC {label}: infeasible rows: loss {loss[infeasible].tolist()} "
+                             f"(expected {sentinel}) or a non-zero gradient")
     if not torch.equal(loss, loss_fwd):
         raise AssertionError(f"CTC {label}: the forward without a gradient differs from the fused one")
-    feasible = torch.arange(Bx, device=lp.device) != CTC_INFEASIBLE
+    feasible = ~infeasible
     ref_loss = ref.detach().float()
     loss_err = (loss - ref_loss).abs().max().item()
     grad_err = (grad[feasible].double() - ref_grad[feasible]).abs().max().item()
-    say("kernels", f"CTC {label} (B={Bx} T={Tx} V={V} S={S}, zero_infinity={zero_infinity}, "
-        f"lattice in {plan.lattice}, {plan.smem_bytes} B shared): against the plain version "
-        f"in float64: loss max|err|={loss_err:.3e}, grad max|err|={grad_err:.3e}")
+    n_feasible = int(feasible.sum())
+    say("kernels", f"CTC {label} (B={Bx} T={Tx} V={Vx} S={Sx}, zero_infinity={zero_infinity}, "
+        f"lattice in {plan.lattice}, {plan.smem_bytes} B shared; {n_feasible} feasible rows, "
+        f"{Bx - n_feasible} infeasible): against the plain version in float64: loss "
+        f"max|err|={loss_err:.3e}, grad max|err|={grad_err:.3e}")
     torch.testing.assert_close(loss, ref_loss, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(grad[feasible].double(), ref_grad[feasible], rtol=0.0, atol=1e-4)
-    return {"loss_err": loss_err, "grad_err": grad_err}
+    return {"loss_err": loss_err, "grad_err": grad_err, "feasible": n_feasible,
+            "infeasible": infeasible}
 
 
 def kernel_phase(results: dict) -> None:
@@ -360,11 +402,20 @@ def kernel_phase(results: dict) -> None:
     from llm_bci_tpu_torch.ops.ctc import ctc_loss_plain
 
     dev = torch.device("cuda")
-    flag = ctc_check("flagship", *ctc_case(dev), True, "shared")
-    ctc_check("flagship", *ctc_case(dev), False, "shared")
-    ctc_check("confident (logits x 15)", *ctc_case(dev, scale=15.0), True, "shared")
-    ctc_check("confident (logits x 15)", *ctc_case(dev, scale=15.0), False, "shared")
-    ctc_check("unstacked trials", *ctc_case(dev, n_batch=8, n_frames=1000, seed=1), True, "global")
+
+    def case(label, zero_infinity, lattice, **kw):
+        logits, targets, il, tl = ctc_case(dev, **kw)
+        out = ctc_check(label, torch.log_softmax(logits, -1), targets, il, tl, zero_infinity,
+                        lattice)
+        if not out["infeasible"][CTC_INFEASIBLE]:
+            raise AssertionError(f"CTC {label}: row {CTC_INFEASIBLE} counted feasible")
+        return out
+
+    flag = case("flagship", True, "shared")
+    case("flagship", False, "shared")
+    case("confident (logits x 15)", True, "shared", scale=15.0)
+    case("confident (logits x 15)", False, "shared", scale=15.0)
+    case("unstacked trials", True, "global", n_batch=8, n_frames=1000, seed=1)
 
     logits, targets, il, tl = ctc_case(dev)
     lp = torch.log_softmax(logits, -1).detach()
@@ -420,22 +471,31 @@ def kernel_phase(results: dict) -> None:
         f"{t['pair_eager_ms']:.4f} ms; plain (float32) forward {t['plain_fwd_ms']:.3f} ms, "
         f"forward + backward {t['plain_pair_ms']:.3f} ms; F.ctc_loss (eager) forward "
         f"{t['lib_fwd_ms']:.4f} ms, forward + backward {t['lib_pair_ms']:.4f} ms")
-    # Bounds: the (B, T, V) float32 log-probs read once, int32 labels and
-    # lengths, the loss (and the (B, T, V) occupancy sums) written once; about
-    # 10 float operations a lattice slot and recursion.
-    slots = B * T * (2 * S + 1)
-    in_bytes = B * T * V * 4 + B * S * 4 + 2 * B * 4
+    fwd_bound, fused_bound = ctc_bounds(lp, targets, il, tl)
     results["ctc_alpha_kernel"] = dict(
         max_abs_err=flag["loss_err"], ms=t["fwd_ms"], plain_ms=t["plain_fwd_ms"],
-        library_ms=t["lib_fwd_ms"], **bound(10 * slots, in_bytes + B * 4, "float32"))
+        library_ms=t["lib_fwd_ms"], **fwd_bound)
     results["ctc_alpha_beta_kernel"] = dict(
         max_abs_err=max(flag["loss_err"], flag["grad_err"]), ms=t["fused_ms"],
-        plain_ms=t["plain_pair_ms"], library_ms=t["lib_pair_ms"],
-        **bound(20 * slots, in_bytes + B * 4 + B * T * V * 4, "float32"))
+        plain_ms=t["plain_pair_ms"], library_ms=t["lib_pair_ms"], **fused_bound)
 
     found = _build_resources("ctc", ("ctc_",))
     say("kernels", "CTC kernels as compiled (registers a thread, stack bytes): " + ", ".join(
         f"{name} {reg}/{stack}" for name, (reg, stack) in sorted(found.items())))
+
+
+def ctc_bounds(lp, targets, il, tl) -> tuple:
+    """Bounds of the forward without and with the gradient at these inputs:
+    the (B, T, V) float32 log-probs read once, int32 labels and lengths, the
+    loss (and the (B, T, V) occupancy sums) written once; about 10 float
+    operations a lattice slot and frame that the recursion visits, each
+    example's input length x (2 x its target length + 1), twice with the
+    gradient (alpha and beta)."""
+    Bx, Tx, Vx = lp.shape
+    slots = int((il.long() * (2 * tl.long() + 1)).sum())
+    in_bytes = Bx * Tx * Vx * 4 + targets.numel() * 4 + 2 * Bx * 4
+    return (bound(10 * slots, in_bytes + Bx * 4, "float32"),
+            bound(20 * slots, in_bytes + Bx * 4 + Bx * Tx * Vx * 4, "float32"))
 
 
 def ctc_times(lp, targets, il, tl) -> dict:
@@ -1610,10 +1670,61 @@ def bci_train_phase(power_line: str, profile) -> dict:
     return launches
 
 
-def main_path_phase(power_line: str, profile) -> dict:
+def drive_main(cfg_path: str, overrides: list, tmp: str) -> tuple:
+    """4 training steps and one eval through ``llm_bci_tpu_torch.main``, with
+    the CTC launch counters set to 0 just before and read just after. Checks
+    one eval at step 4 with finite losses; returns (trainer, launches, wall
+    seconds, peak bytes)."""
     import torch
     from llm_bci_tpu_torch import main as port_main
     from llm_bci_tpu_torch.ops import ctc_cuda
+
+    args = port_main.parse_args([
+        "-c", cfg_path, "-k", *overrides, "training.max_steps=4", "training.eval_every=4",
+        "training.save_every=null", f"dirs.checkpoint_dir={os.path.join(tmp, 'ckpt')}",
+        "dirs.log_dir=null", "verbosity=1",
+    ])
+    torch.cuda.reset_peak_memory_stats()
+    ctc_cuda.reset_counters()
+    t0 = time.perf_counter()
+    trainer = port_main.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"ctc_alpha_kernel": ctc_cuda.FWD_LAUNCHES,
+                "ctc_alpha_beta_kernel": ctc_cuda.FUSED_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.eval_history
+    if len(hist) != 1 or hist[0]["step"] != 4:
+        raise AssertionError(f"{cfg_path}: expected one eval at step 4, got {hist}")
+    for key in ("train_avg_loss", "test_avg_loss"):
+        if not np.isfinite(hist[0][key]):
+            raise AssertionError(f"{cfg_path}: {key} is not finite: {hist[0][key]}")
+    return trainer, launches, wall, peak
+
+
+def steady_step_ms(trainer, reps: int = 20) -> tuple:
+    """ms of a full train step on one fixed batch (3 warm-up steps first),
+    and that batch."""
+    import torch
+
+    batch = trainer.to_device(next(iter(trainer.train_dataloader))[0])
+    for _ in range(3):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3, batch
+
+
+def add_launches(total: dict, launches: dict) -> None:
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+
+
+def main_path_phase(power_line: str, profile) -> dict:
+    import torch
     from llm_bci_tpu_torch.ops.ctc import ctc_loss_plain
     from llm_bci_tpu_torch.models.ndt1 import stacked_lengths
 
@@ -1621,30 +1732,11 @@ def main_path_phase(power_line: str, profile) -> dict:
         t0 = time.perf_counter()
         write_mat_dataset(os.path.join(tmp, "mat"))
         say("main", f"synthetic speechbci files written in {time.perf_counter() - t0:.1f} s")
-        args = port_main.parse_args([
-            "-c", os.path.join(REPO, "configs", "trainer_ctc_ndt1.yaml"),
-            "-k", f"data.data_dir={os.path.join(tmp, 'mat')}",
-            "training.max_steps=4", "training.eval_every=4", "training.save_every=null",
-            f"dirs.checkpoint_dir={os.path.join(tmp, 'ckpt')}", "dirs.log_dir=null",
-            "verbosity=1",
-        ])
-        torch.cuda.reset_peak_memory_stats()
-        ctc_cuda.reset_counters()
-        t0 = time.perf_counter()
-        trainer = port_main.main(args)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"ctc_alpha_kernel": ctc_cuda.FWD_LAUNCHES,
-                    "ctc_alpha_beta_kernel": ctc_cuda.FUSED_LAUNCHES}
-        peak = torch.cuda.max_memory_allocated()
+        trainer, launches, wall, peak = drive_main(
+            os.path.join(REPO, "configs", "trainer_ctc_ndt1.yaml"),
+            [f"data.data_dir={os.path.join(tmp, 'mat')}"], tmp)
 
-    hist = trainer.eval_history
-    if len(hist) != 1 or hist[0]["step"] != 4:
-        raise AssertionError(f"expected one eval at step 4, got {hist}")
-    h = hist[0]
-    for key in ("train_avg_loss", "test_avg_loss"):
-        if not np.isfinite(h[key]):
-            raise AssertionError(f"{key} is not finite: {h[key]}")
+    h = trainer.eval_history[0]
     cer = h["test_avg_metrics"].get("CER")
     if cer is None or not 0.0 <= cer <= 2.0:
         raise AssertionError(f"eval CER missing or out of range: {cer}")
@@ -1674,17 +1766,9 @@ def main_path_phase(power_line: str, profile) -> dict:
         f"== plain CTC {plain.item():.4f}")
 
     # Steady-state train step at full width on one fixed batch.
-    batch = trainer.to_device(next(iter(trainer.train_dataloader))[0])
+    step_ms, batch = steady_step_ms(trainer)
+    step_s = step_ms / 1e3
     n = int(batch["spikes"].shape[0])
-    for _ in range(3):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    reps = 20
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        trainer.train_step(batch)
-    torch.cuda.synchronize()
-    step_s = (time.perf_counter() - t0) / reps
     say("main", f"full-width train step (B={n}, 5x1024, bf16 autocast): "
         f"{1.0 / step_s:.3f} steps/s, {n / step_s:.1f} samples/s, "
         f"{step_s * 1e3:.2f} ms/step; peak memory of the main run "
@@ -1697,11 +1781,15 @@ def main_path_phase(power_line: str, profile) -> dict:
 
 
 def write_spike_pickle(path: str, n_train: int = 64, n_val: int = 32, bins=(896, 1024),
-                       channels: int = 256, seed: int = 0, n_regions: int = 0) -> str:
+                       channels: int = 256, seed: int = 0, n_regions: int = 0,
+                       data_config=None) -> str:
     """Synthetic Poisson spikes (rate 1.0) as ``{split: [{"spikes": (T, N)
     float32}]}``; the first trial of each split has the longest length. With
     ``n_regions`` each row also names the region of each channel (``R0`` ..,
-    in turn), as an IBL session does."""
+    in turn), as an IBL session does. With a trainer config's ``data``
+    section, each row also has the behaviours an IBL session gives it: a
+    ``choice`` in {-1, 1} and a ``wheel-speed`` trace of T bins, normalised
+    over all trials when ``norm_behaviours`` says so (``data/ibl.py``'s rule)."""
     import pickle
 
     rng = np.random.default_rng(seed)
@@ -1713,6 +1801,20 @@ def write_spike_pickle(path: str, n_train: int = 64, n_val: int = 32, bins=(896,
         data[split] = [{"spikes": rng.poisson(1.0, size=(int(t), channels)).astype(np.float32),
                         **({"neuron_regions": list(regions)} if regions else {})}
                        for t in lengths]
+    if data_config is not None:
+        rows = [row for split in data.values() for row in split]
+        for row in rows:
+            spikes = row["spikes"]
+            row["choice"] = np.atleast_1d(np.float32(rng.choice([-1.0, 1.0])))
+            # a trace that the spikes carry: a few channels' smoothed rate
+            row["wheel-speed"] = (np.convolve(spikes[:, :8].mean(1), np.ones(5) / 5, "same")
+                                  + 0.1 * rng.normal(size=len(spikes))).astype(np.float32)
+        if data_config.get("norm_behaviours"):
+            for beh in data_config.get("dynamic_behaviours") or []:
+                trials = np.stack([row[beh] for row in rows])
+                mean, std = trials.mean(), trials.std()
+                for row in rows:
+                    row[beh] = (row[beh] - mean) / std
     with open(path, "wb") as f:
         pickle.dump(data, f)
     return path
@@ -2319,6 +2421,246 @@ def eval_phonemes_phase(power_line: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# iTransformer and PatchTST (ROADMAP slice 7)
+# ---------------------------------------------------------------------------
+
+CTC_KERNELS = ("ctc_alpha_kernel", "ctc_alpha_beta_kernel")
+# the IBL behaviour session: COSMOOTH_IBL's 256 neurons in 4 regions and
+# T=100 bins, its 64 trials split 48 / 16
+IBL_SPLIT = (48, 16)
+PATCHTST_CTC_BATCH = 64
+
+
+def trainer_yaml(tmp: str, base: str, model: str) -> str:
+    """``configs/<base>`` with ``model: include:configs/<model>``, written to
+    ``tmp``."""
+    import yaml
+
+    with open(os.path.join(REPO, "configs", base)) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"] = f"include:configs/{model}"
+    path = os.path.join(tmp, f"{os.path.splitext(base)[0]}_{model}")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def report_run(phase: str, label: str, trainer, launches: dict, wall: float, peak: int,
+               power_line: str) -> tuple:
+    """Prints a run's wall time, the steady train step, steps/s, peak memory
+    and the CTC launches; returns (ms a step, the batch it was timed on)."""
+    ms, batch = steady_step_ms(trainer)
+    n = int(batch["spikes"].shape[0])
+    h = trainer.eval_history[0]
+    say(phase, f"{label}: 4 steps + eval through llm_bci_tpu_torch.main in {wall:.1f} s (data "
+        f"and model set-up included): train_avg_loss={h['train_avg_loss']:.4f} test_avg_loss="
+        f"{h['test_avg_loss']:.4f} {h['test_avg_metrics']}; steady train step (B={n}) "
+        f"{ms:.2f} ms, {1e3 / ms:.2f} steps/s, {n * 1e3 / ms:.1f} samples/s; peak memory of "
+        f"the run {peak / 2**30:.3f} GiB; CTC launches {launches}; card {power_line}")
+    return ms, batch
+
+
+def ctc_head_check(phase: str, label: str, trainer, lens_of, lattice: str,
+                   power_line: str) -> dict:
+    """The model's own float32 log-probs on a test batch (eval, autocast as
+    trained) through the CTC kernels against the plain version in float64
+    (``ctc_check``), then the pair's device time (CUDA graphs), ``F.ctc_loss``
+    (eager) and the bound at those inputs."""
+    import torch
+
+    batch = trainer.to_device(next(iter(trainer.test_dataloader))[0])
+    trainer.model.eval()
+    with torch.no_grad(), trainer.autocast():
+        out = trainer.model(**batch)
+    lp = out.preds
+    if lp.dtype != torch.float32:
+        raise AssertionError(f"{label}: log-probs in {lp.dtype}, not float32")
+    il = lens_of(batch).int()
+    targets, tl = batch["targets"].int(), batch["targets_lengths"].int()
+    res = ctc_check(label, lp, targets, il, tl, True, lattice)
+    t = {**ctc_times(lp, targets, il, tl), **ctc_eager_times(lp, targets, il, tl, False)}
+    fwd_bound, fused_bound = ctc_bounds(lp, targets, il, tl)
+    say(phase, f"{label} CTC at (B, T', V, S) = {tuple(lp.shape)} + ({targets.shape[1]},), "
+        f"{res['feasible']} of {lp.shape[0]} rows feasible, lattice in {lattice}: device time "
+        f"(CUDA graphs of 20) ctc_alpha_kernel {t['fwd_ms']:.4f} ms (bound "
+        f"{fwd_bound['bound_ms']:.5f}, {fwd_bound['bound_by']}), ctc_alpha_beta_kernel "
+        f"{t['fused_ms']:.4f} ms, the pair with the backward's multiply {t['pair_ms']:.4f} ms "
+        f"(bound {fused_bound['bound_ms']:.5f}, {fused_bound['bound_by']}); eager forward "
+        f"{t['fwd_eager_ms']:.4f} ms, pair {t['pair_eager_ms']:.4f} ms; F.ctc_loss (eager) "
+        f"forward {t['lib_fwd_ms']:.4f} ms, forward + backward {t['lib_pair_ms']:.4f} ms; "
+        f"card {power_line}")
+    return res
+
+
+def check_ctc_run(label: str, trainer, launches: dict, frames: int) -> None:
+    """A CTC run: the fused kernel once a training step, the forward-only
+    kernel once an eval batch, a CER in [0, max(2, frames / the shortest
+    test target)]: an edit distance is at most the longer string, and the
+    greedy decode of ``frames`` frames has at most ``frames`` labels (an
+    untrained head over 512 frames decodes far more labels than a target
+    has)."""
+    want = {"ctc_alpha_beta_kernel": 4, "ctc_alpha_kernel": len(trainer.test_dataloader)}
+    if launches != want:
+        raise AssertionError(f"{label}: CTC launches {launches}, want {want}")
+    data = trainer.test_dataset
+    shortest = min(len(row[data.targets_name]) for row in data.dataset)
+    cer = trainer.eval_history[0]["test_avg_metrics"].get("CER")
+    if cer is None or not 0.0 <= cer <= max(2.0, frames / shortest):
+        raise AssertionError(f"{label}: eval CER missing or out of range: {cer} (at most "
+                             f"max(2, {frames} frames / {shortest} labels))")
+
+
+def itransformer_phase(power_line: str, profile=None) -> dict:
+    """iTransformer at ``configs/itransformer.yaml``'s widths: the three IBL
+    configs (mlm, choice, wheel speed) with behaviour decoding, then the
+    ``ctc`` head at the speechbci shape (T' = 512: the global-scratch plan)."""
+    import torch
+    from llm_bci_tpu_torch.config import update_config
+    from llm_bci_tpu_torch.eval.behaviour_decoding import behaviour_decoding_eval
+
+    ibl = COSMOOTH_IBL
+    total = dict.fromkeys(CTC_KERNELS, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for name in ("ssl", "choice", "wheel"):
+            cfg_path = os.path.join(REPO, "configs", f"trainer_{name}_itransformer.yaml")
+            write_spike_pickle(os.path.join(tmp, f"{name}.pkl"), *IBL_SPLIT,
+                               bins=(ibl["bins"], ibl["bins"]), channels=ibl["channels"],
+                               n_regions=ibl["regions"],
+                               data_config=update_config(cfg_path, None).data)
+            trainer, launches, wall, peak = drive_main(cfg_path, [
+                "data.data_load=file", f"data.data_dir={tmp}", f"data.data_file={name}.pkl"],
+                tmp)
+            add_launches(total, launches)
+            enc = trainer.model.config["encoder"]
+            width = (enc["hidden_size"], enc["n_layers"], enc["n_heads"], enc["max_n_channels"],
+                     enc["embedder"]["mode"], enc["embedder"]["max_n_bins"], len(enc["regions"]))
+            if width != (768, 5, 8, 1500, "mlp", ibl["bins"], ibl["regions"]):
+                raise AssertionError(f"{name}: not the config's widths, or max_n_bins / regions "
+                                     f"not pinned: {width}")
+            if any(launches.values()):
+                raise AssertionError(f"{name}: CTC launches without a CTC head: {launches}")
+            report_run("itransformer", f"{name} (trainer_{name}_itransformer.yaml, B=16, "
+                       f"{ibl['channels']} neurons, T={ibl['bins']})", trainer, launches, wall,
+                       peak, power_line)
+            if name == "choice":
+                acc = trainer.eval_history[0]["test_avg_metrics"]["accuracy"]
+                dec = behaviour_decoding_eval(trainer, is_cls=True)
+                if trainer.model.n_labels != 2 or not (0 <= acc <= 1 and 0 <= dec["acc"] <= 1):
+                    raise AssertionError(f"choice: n_labels {trainer.model.n_labels}, accuracy "
+                                         f"{acc}, behaviour decoding {dec}")
+                say("itransformer", f"choice: eval accuracy {acc:.4f}; behaviour_decoding_eval "
+                    f"{dec}")
+            elif name == "wheel":
+                dec = behaviour_decoding_eval(trainer, is_cls=False,
+                                              regression_metrics=["r2", "mse"])
+                if not np.isfinite(list(dec.values())).all():
+                    raise AssertionError(f"wheel: behaviour decoding {dec}")
+                say("itransformer", f"wheel: behaviour_decoding_eval {dec}")
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+
+        mat = write_mat_dataset(os.path.join(tmp, "mat"))
+        cfg_path = trainer_yaml(tmp, "trainer_ctc_ndt1.yaml", "itransformer.yaml")
+        # speechbci trials carry no brain regions
+        trainer, launches, wall, peak = drive_main(
+            cfg_path, [f"data.data_dir={mat}", "model.encoder.embed_region=false"], tmp)
+    add_launches(total, launches)
+    enc = trainer.model.config["encoder"]
+    if (enc["hidden_size"], enc["n_layers"], enc["embedder"]["max_n_bins"]) != (768, 5, 512):
+        raise AssertionError(f"ctc: widths or max_n_bins {enc}")
+    check_ctc_run("iTransformer ctc", trainer, launches, enc["embedder"]["max_n_bins"])
+    _, batch = report_run("itransformer", "ctc (trainer_ctc_ndt1.yaml with itransformer.yaml, "
+                          "B=64, 480-512 bins x 256 inputs)", trainer, launches, wall, peak,
+                          power_line)
+    ctc_head_check("itransformer", "iTransformer ctc head", trainer,
+                   lambda b: b["spikes_lengths"], "global", power_line)
+    if profile:
+        profile_step(trainer, batch, power_line, profile, "itransformer", "iTransformer-CTC",
+                     {"CTC kernels": ("ctc_",)})
+    del trainer
+    return total
+
+
+def running_stats(model) -> dict:
+    return {n: b.clone() for n, b in model.named_buffers() if n.endswith(("_mean", "_var"))}
+
+
+def check_running_stats(label: str, trainer) -> None:
+    """BatchNorm's running averages are finite and moved from their start (0,
+    1) by training, and an eval leaves them."""
+    import torch
+
+    stats = running_stats(trainer.model)
+    if len(stats) != 2 * 2 * trainer.config.model.encoder.num_hidden_layers:
+        raise AssertionError(f"{label}: running statistics {sorted(stats)}")
+    for n, v in stats.items():
+        start = torch.zeros_like(v) if n.endswith("_mean") else torch.ones_like(v)
+        if not torch.isfinite(v).all() or torch.equal(v, start):
+            raise AssertionError(f"{label}: {n} not finite or not moved by training")
+    trainer.evaluate()
+    if any(not torch.equal(v, stats[n]) for n, v in running_stats(trainer.model).items()):
+        raise AssertionError(f"{label}: an eval moved the running statistics")
+
+
+def patchtst_phase(power_line: str, profile=None) -> dict:
+    """PatchTST at ``configs/patchtst.yaml``'s widths: ``mlm`` at the IBL shape
+    (context 100, 10 patches) and ``ctc`` at the speechbci shape (context 520,
+    52 patches: the shared-memory plan)."""
+    import torch
+
+    ibl = COSMOOTH_IBL
+    total = dict.fromkeys(CTC_KERNELS, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        write_spike_pickle(os.path.join(tmp, "ibl.pkl"), *IBL_SPLIT,
+                           bins=(ibl["bins"], ibl["bins"]), channels=ibl["channels"],
+                           n_regions=ibl["regions"])
+        cfg_path = trainer_yaml(tmp, "trainer_ssl_itransformer.yaml", "patchtst.yaml")
+        trainer, launches, wall, peak = drive_main(cfg_path, [
+            "data.data_load=file", f"data.data_dir={tmp}", "data.data_file=ibl.pkl"], tmp)
+        add_launches(total, launches)
+        enc = trainer.model.config["encoder"]
+        width = (enc["d_model"], enc["num_hidden_layers"], enc["num_attention_heads"],
+                 enc["ffn_dim"], enc["norm_type"], enc["num_input_channels"],
+                 enc["context_length"])
+        if width != (256, 4, 8, 1024, "batchnorm", ibl["channels"], ibl["bins"]):
+            raise AssertionError(f"mlm: not the config's widths or the pinned context: {width}")
+        if any(launches.values()):
+            raise AssertionError(f"mlm: CTC launches without a CTC head: {launches}")
+        check_running_stats("PatchTST mlm", trainer)
+        report_run("patchtst", f"mlm (trainer_ssl_itransformer.yaml with patchtst.yaml, B=16, "
+                   f"{ibl['channels']} channels, T={ibl['bins']}, 10 patches)", trainer,
+                   launches, wall, peak, power_line)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        mat = write_mat_dataset(os.path.join(tmp, "mat"))
+        cfg_path = trainer_yaml(tmp, "trainer_ctc_ndt1.yaml", "patchtst.yaml")
+        trainer, launches, wall, peak = drive_main(cfg_path, [
+            f"data.data_dir={mat}", f"training.train_batch_size={PATCHTST_CTC_BATCH}",
+            f"training.test_batch_size={PATCHTST_CTC_BATCH}"], tmp)
+    add_launches(total, launches)
+    enc = trainer.model.config["encoder"]
+    if (enc["d_model"], enc["num_hidden_layers"], enc["context_length"]) != (256, 4, 520):
+        raise AssertionError(f"ctc: widths or context {enc}")
+    pl, ps = enc["patch_length"], enc["patch_stride"]
+    check_ctc_run("PatchTST ctc", trainer, launches, 1 + (enc["context_length"] - pl) // ps)
+    check_running_stats("PatchTST ctc", trainer)
+    _, batch = report_run("patchtst", f"ctc (trainer_ctc_ndt1.yaml with patchtst.yaml, "
+                          f"B={PATCHTST_CTC_BATCH}: {PATCHTST_CTC_BATCH * 256} sequences of 52 "
+                          f"patches)", trainer, launches, wall, peak, power_line)
+    ctc_head_check("patchtst", "PatchTST ctc head", trainer,
+                   lambda b: torch.div(b["spikes_lengths"] - pl, ps, rounding_mode="floor") + 1,
+                   "shared", power_line)
+    if profile:
+        profile_step(trainer, batch, power_line, profile, "patchtst", "PatchTST-CTC",
+                     {"CTC kernels": ("ctc_",), "BatchNorm": ("batch_norm", "welford")})
+    del trainer
+    return total
+
+
 def profile_step(trainer, batch, power_line: str, path: str, phase: str, label: str,
                  own: dict) -> None:
     """``torch.profiler`` over 3 steady train steps: device time by kernel,
@@ -2441,10 +2783,10 @@ def main(only=None, profile=None) -> int:
     for phase, run in (("bci-serve", bci_serve_phase), ("bci-train", bci_train_phase),
                        ("cosmooth", cosmooth_phase),
                        ("phoneme-llm", lambda p, _: phoneme_llm_phase(p)),
-                       ("eval-phonemes", lambda p, _: eval_phonemes_phase(p))):
+                       ("eval-phonemes", lambda p, _: eval_phonemes_phase(p)),
+                       ("itransformer", itransformer_phase), ("patchtst", patchtst_phase)):
         if only in (None, phase):
-            for name, n in run(power_line, profile).items():
-                launches[name] = launches.get(name, 0) + n
+            add_launches(launches, run(power_line, profile))
             # a trainer holds reference cycles: free what the phase left, so
             # that the next phase's peak memory is its own
             gc.collect()
@@ -2468,10 +2810,12 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", default=None,
                         choices=["ctc", "flash", "int8", "ctc-main", "mlm-main", "bci-serve",
-                                 "bci-train", "cosmooth", "phoneme-llm", "eval-phonemes"])
+                                 "bci-train", "cosmooth", "phoneme-llm", "eval-phonemes",
+                                 "itransformer", "patchtst"])
     parser.add_argument("--profile", metavar="PATH", default=None,
                         help="write the torch.profiler tables of the CTC and mlm train steps, "
-                             "the BCI greedy decode, the BCI fine-tune step and a folded "
-                             "co-smoothing pass to PATH")
+                             "the BCI greedy decode, the BCI fine-tune step, a folded "
+                             "co-smoothing pass and the iTransformer and PatchTST ctc steps "
+                             "to PATH")
     cli = parser.parse_args()
     sys.exit(main(cli.only, cli.profile))

@@ -15,7 +15,9 @@ covers NDT1 masked-spike pretraining (``mlm``) and the autoregressive
 method at the unstacked length; attention there runs through hand-written
 banded flash-attention kernels (``csrc/flash_attention.cu``). Slice 3 serves
 and fine-tunes BCI with an int8 base (``csrc/int8_matmul.cu``). ROADMAP slice
-6 adds co-smoothing, the IBL loader, PhonemeLLM and ``eval_phonemes``.
+6 adds co-smoothing, the IBL loader, PhonemeLLM and ``eval_phonemes``; slice 7
+iTransformer, PatchTST and behaviour decoding, their ``ctc`` heads on the CTC
+kernels.
 """
 
 

@@ -1,8 +1,8 @@
 """Host-side evaluation utilities of the port, the names that
 ``llm_bci_tpu/eval/__init__.py`` exports: CTC prefix beam search, WER / CER
 and the greedy CTC collapse, bits-per-spike and the regression summaries.
-``co_smoothing`` and ``viz_neuron_fit`` are modules of this package too;
-behaviour decoding comes with the iTransformer / PatchTST slice."""
+``behaviour_decoding``, ``co_smoothing`` and ``viz_neuron_fit`` are modules
+of this package too."""
 from llm_bci_tpu_torch.eval.ctc_decode import (  # noqa: F401
     CTCPrefixDecoder,
     ctc_prefix_beam_search,

@@ -22,6 +22,7 @@ its (in, out) layout and its dtype beside ``kernel_scale``; ``lora_A`` /
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -151,4 +152,47 @@ def phoneme_llm_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     _put_llama(out, params["llm"], "llm.")
     for name in ("coupler_in", "coupler_out"):
         out.linear(params[name], name)
+    return out.sd
+
+
+_LISTS = {"layer": "layers", "dense": "dense"}
+
+
+def _torch_name(name: str) -> str:
+    """``layer_3`` -> ``layers.3``, ``dense_0`` -> ``dense.0``; others as they are."""
+    return re.sub(r"^(layer|dense)_(\d+)$", lambda m: f"{_LISTS[m[1]]}.{m[2]}", name)
+
+
+def _put_tree(out: _StateDict, node: Mapping, prefix: str) -> None:
+    """Every leaf of a flax subtree under the port's names."""
+    for name, sub in node.items():
+        path = f"{prefix}.{_torch_name(name)}" if prefix else _torch_name(name)
+        if not isinstance(sub, Mapping):
+            out.put(path, sub)
+        elif "kernel" in sub:
+            out.linear(sub, path)
+        elif "scale" in sub:
+            out.norm(sub, path)
+        elif "mean" in sub and "var" in sub:
+            out.put(path + ".running_mean", sub["mean"])
+            out.put(path + ".running_var", sub["var"])
+        else:
+            _put_tree(out, sub, path)
+
+
+def itransformer_state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``iTransformer`` params ``{"encoder", "decoder_hidden",
+    "decoder_out"}`` -> the port's iTransformer state dict."""
+    out = _StateDict()
+    _put_tree(out, params, "")
+    return out.sd
+
+
+def patchtst_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """Flax ``PatchTSTForSpikingActivity`` variables ``{"params",
+    "batch_stats"}`` (``batch_stats`` only with BatchNorm) -> the port's state
+    dict, running averages included."""
+    out = _StateDict()
+    for collection in ("params", "batch_stats"):
+        _put_tree(out, variables.get(collection, {}), "")
     return out.sd

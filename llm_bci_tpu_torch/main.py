@@ -3,22 +3,29 @@
 (NDT1-CTC on speechbci files), ``-c configs/trainer_ssl_ndt1.yaml`` (NDT1
 masked-spike pretraining on an IBL session saved with ``datasets``, or with
 ``-k data.data_load=file ...`` on a pickle ``{split: [{"spikes": (T, N)
-float32, ...}]}``) or ``-c configs/trainer_bci.yaml`` (the BCI LoRA
-fine-tune).
+float32, ...}]}``), ``-c configs/trainer_bci.yaml`` (the BCI LoRA fine-tune)
+or ``-c configs/trainer_{ssl,choice,wheel}_itransformer.yaml`` (iTransformer
+pretraining, choice classification, wheel-speed regression; a PatchTST run
+takes ``model: include:configs/patchtst.yaml``).
 
 The counterpart of the repo's ``main.py`` (which imports the JAX trainer):
 the same configs and dotted ``-k`` overrides, the ``file``, ``ibl`` and
 ``speechbci`` datasets (G2P phoneme labels through ``data.vocab_file``),
 the CTC CER metric fns, the ``endtoend`` assisted-WER metric fn,
 ``method.model_kwargs`` (``method_name``, ``loss``, ``log_input``, ``lora``,
-``quantize`` ...) handed to the model, ``n_channels`` inference for NDT1
-and BCI, and the model classes NDT1, BCI and PhonemeLLM (the last goes to the
-trainer unchanged, as in the JAX CLI). ``transformers`` (the tokenizer) is
-imported only when ``data.tokenizer_path`` is set, ``datasets`` only by the
-``ibl`` loader. The behaviour methods' metrics and the iTransformer /
-PatchTST config surgery belong to a later slice and raise
-``NotImplementedError``. ``--device`` defaults to CUDA; the trainer raises
-when there is no card.
+``quantize`` ...) handed to the model, and the config surgery that depends on
+the dataset: ``n_channels`` for NDT1 and BCI; for a region-aware
+iTransformer the region vocabulary (``list(set(...))`` of the names, as the
+JAX CLI builds it), which also becomes every masker's target and mask
+regions, and the integer ``neuron_regions_idx`` columns; for
+``stat_behaviour`` with ``xent`` the labels remapped to contiguous classes,
+``n_labels`` and the ``accuracy`` metric fn; iTransformer's ``max_n_bins``
+and PatchTST's ``num_input_channels`` and ``context_length`` (the longest
+trial, rounded up to a multiple of ``patch_length``) pinned, and the spikes
+left-padded to that context. PhonemeLLM goes to the trainer unchanged, as in
+the JAX CLI. ``transformers`` (the tokenizer) is imported only when
+``data.tokenizer_path`` is set, ``datasets`` only by the ``ibl`` loader.
+``--device`` defaults to CUDA; the trainer raises when there is no card.
 """
 from __future__ import annotations
 
@@ -28,7 +35,15 @@ import os
 import pickle
 from typing import List, Optional
 
-from llm_bci_tpu_torch.config import ParseKwargs, config_from_kwargs, resolve_path, update_config
+import numpy as np
+
+from llm_bci_tpu_torch.config import (
+    DictConfig,
+    ParseKwargs,
+    config_from_kwargs,
+    resolve_path,
+    update_config,
+)
 from llm_bci_tpu_torch.data.ibl import load_ibl_dataset
 from llm_bci_tpu_torch.data.speechbci import (
     create_llm_labels,
@@ -37,6 +52,7 @@ from llm_bci_tpu_torch.data.speechbci import (
 )
 from llm_bci_tpu_torch.eval.eval_bci import format_ctc, word_error_count
 from llm_bci_tpu_torch import not_ported
+from llm_bci_tpu_torch.models.itransformer import region_names_to_idx
 from llm_bci_tpu_torch.training.trainer import Trainer, default_trainer_config
 
 
@@ -91,6 +107,73 @@ def make_assisted_wer_fn(tokenizer):
     return assisted_wer
 
 
+def accuracy(model, model_inputs, unused_inputs, outputs, **kwargs):
+    """Share of the batch whose argmax class is the target; ``prepare`` takes
+    the argmax on the device."""
+    prepared = kwargs.get("prepared")
+    preds = (
+        prepared if prepared is not None
+        else outputs["preds"].argmax(-1).cpu().numpy()
+    )
+    targets = np.asarray(model_inputs["targets"])[:, 0]
+    return (preds == targets).sum() / preds.shape[0]
+
+
+accuracy.prepare = lambda outputs: outputs["preds"].argmax(-1)
+
+
+def set_region_vocabulary(config, dataset) -> None:
+    """The region vocabulary of a region-aware iTransformer: every masker's
+    target and mask regions, and ``neuron_regions_idx`` columns in the rows.
+    Its order is the JAX CLI's, that of a ``set`` of strings."""
+    all_regions = list(set(
+        str(b) for rows in dataset.values() for row in rows for b in row["neuron_regions"]
+    ))
+    config["model"]["encoder"]["regions"] = all_regions
+    for key in config["model"]["masker"].keys():
+        config["model"]["masker"][key]["target_regions"] = all_regions
+        config["model"]["masker"][key]["mask_regions"] = all_regions
+    for rows in dataset.values():
+        region_names_to_idx(rows, all_regions)
+
+
+def remap_labels(config, dataset) -> None:
+    """Static behaviour labels -> contiguous classes 0..n-1 (in the order of
+    a ``set`` of the ints, as the JAX CLI enumerates them) and ``n_labels``."""
+    beh = config.method.dataset_kwargs.targets_name
+    all_labels = set(int(row[beh][0]) for rows in dataset.values() for row in rows)
+    l_to_i = {label: i for i, label in enumerate(all_labels)}
+    for rows in dataset.values():
+        for row in rows:
+            row[beh] = np.atleast_1d([l_to_i[int(row[beh][0])]])
+    config["method"]["model_kwargs"]["n_labels"] = len(all_labels)
+
+
+def pin_context(config, dataset):
+    """iTransformer's ``max_n_bins`` (the longest trial) or PatchTST's
+    ``num_input_channels`` and ``context_length`` (the longest trial rounded
+    up to a multiple of ``patch_length``), and the spikes, their mask and
+    timestamps left-padded to exactly that context. Returns the config."""
+    spikes_name = (
+        "spikes" if "spikes" in dataset["train"][0]
+        else config.method.dataset_kwargs.spikes_name
+    )
+    longest = max(row[spikes_name].shape[0] for rows in dataset.values() for row in rows)
+    if config.model.model_class == "PatchTST":
+        config["model"]["encoder"]["num_input_channels"] = dataset["train"][0][
+            spikes_name].shape[1]
+        p = config.model.encoder.patch_length
+        context = ((longest + p - 1) // p) * p
+        config["model"]["encoder"]["context_length"] = context
+    else:
+        context = longest
+        config["model"]["encoder"]["embedder"]["max_n_bins"] = context
+    pad_spec = {"dim": 0, "side": "left", "value": 0, "truncate": context,
+                "min_length": context}
+    return update_config(config, DictConfig({"method": {"dataloader_kwargs": {"pad_dict": {
+        key: dict(pad_spec) for key in ("spikes", "spikes_mask", "spikes_timestamp")}}}}))
+
+
 def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Trainer:
     """The ``Trainer`` that ``args`` describe: config merge, dataset, metric
     fns, model. ``dataset`` (and, for ``endtoend``, its ``tokenizer``) may be
@@ -135,6 +218,13 @@ def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Tra
     else:
         raise ValueError(f"Unknown data_load {config.data.data_load!r}")
 
+    model_class = config.model.model_class
+    if model_class == "iTransformer" and config.model.encoder.embed_region:
+        set_region_vocabulary(config, dataset)
+    if method == "stat_behaviour" and config.method.model_kwargs.get("loss") == "xent":
+        remap_labels(config, dataset)
+        metric_fns["accuracy"] = accuracy
+
     if method == "ctc":
         if vocab is None:
             print("CTC method without data.vocab_file: skipping the CER metric.", flush=True)
@@ -147,18 +237,16 @@ def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Tra
             print("endtoend method without a tokenizer: skipping the A-WER metric.", flush=True)
         else:
             metric_fns["A-WER"] = make_assisted_wer_fn(tokenizer)
-    elif method in ("stat_behaviour", "dyn_behaviour"):
-        raise not_ported(f"The {method!r} method and its metrics", "Queue 1, slice 7")
 
-    if config.model.model_class == "NDT1":
+    if model_class in ("iTransformer", "PatchTST"):
+        config = pin_context(config, dataset)
+    elif model_class == "NDT1":
         config["model"]["encoder"]["embedder"]["n_channels"] = dataset["train"][0][
             "spikes"].shape[1]
-    elif config.model.model_class == "BCI":
+    elif model_class == "BCI":
         # flax infers the input width at init; here the embedder needs it
         config["model"]["ndt1"]["encoder"]["embedder"]["n_channels"] = dataset["train"][0][
             "spikes"].shape[1]
-    elif config.model.model_class != "PhonemeLLM":     # PhonemeLLM goes as configured
-        raise not_ported(f"Model class {config.model.model_class!r}", "Queue 1, slice 7")
 
     return Trainer(
         config, dataset=dataset, metric_fns=metric_fns or None,

@@ -153,7 +153,16 @@ def test_port_main_takes_phoneme_llm_and_names_itransformer_s_slice(tmp_path):
     assert trainer.model.coupler_in.in_features == 41          # as configured, no surgery
     out = trainer.train_step(trainer.to_device(next(iter(trainer.train_dataloader))[0]))
     assert np.isfinite(float(out["loss"])) and int(out["n_examples"]) == 2 * 3
-    args = port_main.parse_args(["-k", "model.model_class=iTransformer",
-                                 "method.model_kwargs.method_name=mlm", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match=r"iTransformer.*Queue 1, slice 7"):
-        port_main.build_trainer(args, dataset={"train": [{"spikes": np.zeros((4, 8))}]})
+    # iTransformer (ROADMAP slice 7) goes through the CLI surgery: max_n_bins
+    # pinned to the longest trial, the spikes left-padded to it
+    args = port_main.parse_args([
+        "-k", "model.model_class=iTransformer", "method.model_kwargs.method_name=mlm",
+        "model.encoder.embed_region=false", "model.encoder.embedder.max_n_bins=1",
+        "model.encoder.hidden_size=8",
+        "model.encoder.n_layers=1", "model.encoder.n_heads=2", "model.encoder.max_n_channels=8",
+        f"dirs.checkpoint_dir={tmp_path}", "dirs.log_dir=null", "--device", "cpu"])
+    rows = [{"spikes": np.zeros((t, 8), np.float32)} for t in (4, 6)]
+    trainer = port_main.build_trainer(args, dataset={"train": rows, "test": rows})
+    assert type(trainer.model).__name__ == "iTransformer"
+    assert trainer.model.config["encoder"]["embedder"]["max_n_bins"] == 6
+    assert trainer.config.method.dataloader_kwargs.pad_dict.spikes.side == "left"
