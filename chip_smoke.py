@@ -144,10 +144,33 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    (B=64, context 520, 52 patches: 16,384 sequences a batch; the
    shared-memory plan, feasible and infeasible rows counted), each with
    BatchNorm's running averages finite, moved by training and left by an
-   eval, and the CTC checks of phase 13.
+   eval, and the CTC checks of phase 13;
+15. the trainer contract (``trainer-state``): the flagship of phase 5 on 128
+   train trials (2 steps an epoch), cuDNN asked for deterministic algorithms:
+   leg A trains 6 steps through ``llm_bci_tpu_torch.main`` with
+   ``profile.start_step=2, num_steps=2``, leg B the same run preempted
+   (``request_preemption()``) after step 3, leg C a fresh ``python -m
+   llm_bci_tpu_torch.main -k training.resume=true`` process to step 6; C
+   must read A's batch indices at steps 4-6 (recorded by a wrapper of the
+   train dataset) and end with A's losses and parameters bit for bit, one
+   ``ctc_alpha_beta_kernel`` a step in every leg; the save and restore of a
+   full flagship train state timed; the trace of steps 2-3 names
+   ``ctc_alpha_beta_kernel`` twice; ``optimizer.grad_clip_norm=1.0``: the
+   global norm before each update at most 1 + 1e-6, finite losses; remat
+   off and on, one forward + backward from the same weights and generator
+   state, for NDT1-mlm at phase 6's shape (10 flash forward launches
+   against 5, every one on bf16 q, k, v; delta, dQ and dK/dV 5 each) and for
+   the BCI of phase 9 with ``llm_remat`` (449 int8 launches against 225):
+   the loss equal, the gradients bit-equal or within atol 3e-2 + rtol 3e-2,
+   step times and peak memory of both; the BCI fine-tune's train state
+   (``component_blobs: false``) saved after 2 steps and restored into a
+   fresh trainer: the frozen int8 leaves bit-equal to the live ones, the
+   trainable leaves and AdamW moments equal to the saved ones, its size on
+   disk and seconds; ``entry()`` on the card within 1e-4 of
+   ``entry(device="cpu")``, through ``ctc_alpha_kernel``.
 
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train|cosmooth|
-phoneme-llm|eval-phonemes|itransformer|patchtst`` runs one phase (for
+phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state`` runs one phase (for
 development); ``--profile PATH`` writes ``torch.profiler`` tables of the
 NDT1-CTC and mlm train steps, the replayed BCI greedy token steps, the
 fine-tune step, one folded co-smoothing pass at each shape and the
@@ -2661,6 +2684,495 @@ def patchtst_phase(power_line: str, profile=None) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# The trainer contract: resume, gradient clipping, remat, profiling, entry()
+# ---------------------------------------------------------------------------
+
+RESUME_STEPS = 6       # the flagship legs: 2 steps an epoch, saved at step 3
+
+
+class IndexSpy:
+    """A train dataset that records the indices each batch reads."""
+
+    def __init__(self, dataset):
+        self.dataset, self.batch = dataset, []
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        self.batch.append(int(i))
+        return self.dataset[i]
+
+    def __getattr__(self, name):
+        return getattr(self.dataset, name)
+
+    def take(self) -> list:
+        batch, self.batch = self.batch, []
+        return batch
+
+
+class spied_trainer:
+    """Within the block every ``Trainer`` records, a training step each, its
+    global step, the indices of its batch and its loss in ``log``; ``stop_at``
+    asks for preemption after that step."""
+
+    def __init__(self, log: list, stop_at=None):
+        self.log, self.stop_at = log, stop_at
+
+    def __enter__(self):
+        from llm_bci_tpu_torch.training.trainer import Trainer
+
+        self.saved = Trainer.build_dataloaders, Trainer.train_step
+        build, step = self.saved
+        log, stop_at = self.log, self.stop_at
+
+        def spy_build(trainer):
+            build(trainer)
+            trainer.train_dataloader.dataset = IndexSpy(trainer.train_dataloader.dataset)
+
+        def spy_step(trainer, batch):
+            out = step(trainer, batch)
+            log.append({"step": trainer.n_micro, "indices": trainer.train_dataloader.dataset.take(),
+                        "loss": float(out["loss"])})
+            if trainer.n_micro == stop_at:
+                trainer.request_preemption()
+            return out
+
+        Trainer.build_dataloaders, Trainer.train_step = spy_build, spy_step
+        return self
+
+    def __exit__(self, *exc):
+        from llm_bci_tpu_torch.training.trainer import Trainer
+
+        Trainer.build_dataloaders, Trainer.train_step = self.saved
+        return False
+
+
+def spied_cli(argv: list) -> None:
+    """``python -m llm_bci_tpu_torch.main <argv[1:]>`` in this process, its
+    training steps recorded (``spied_trainer``) into the JSON file
+    ``argv[0]`` with the CTC kernels' launches; cuDNN picks deterministic
+    algorithms, as in the legs it is compared with."""
+    import runpy
+
+    import torch
+    from llm_bci_tpu_torch.ops import ctc_cuda
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    out, sys.argv = argv[0], ["llm_bci_tpu_torch.main", *argv[1:]]
+    log: list = []
+    ctc_cuda.reset_counters()
+    with spied_trainer(log):
+        runpy.run_module("llm_bci_tpu_torch.main", run_name="__main__", alter_sys=True)
+    torch.cuda.synchronize()
+    with open(out, "w") as f:
+        json.dump({"steps": log, "launches": {"ctc_alpha_kernel": ctc_cuda.FWD_LAUNCHES,
+                                              "ctc_alpha_beta_kernel": ctc_cuda.FUSED_LAUNCHES}}, f)
+
+
+def flagship_args(mat: str, ckpt: str, *extra) -> list:
+    return ["-c", os.path.join(REPO, "configs", "trainer_ctc_ndt1.yaml"),
+            "-k", f"data.data_dir={mat}", f"dirs.checkpoint_dir={ckpt}", "dirs.log_dir=null",
+            "verbosity=1", f"training.max_steps={RESUME_STEPS}", "training.eval_every=null",
+            "training.save_every=null", *extra]
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, name))
+               for root, _, names in os.walk(path) for name in names)
+
+
+def max_abs_diff(a: dict, b: dict) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def flagship_resume(tmp: str, power_line: str) -> tuple:
+    """Legs A (6 steps, steps 2-3 profiled), B (the same run preempted after
+    step 3) and C (a fresh ``python -m llm_bci_tpu_torch.main -k
+    training.resume=true`` to step 6), then the save and restore of the full
+    train state timed. Returns (fused CTC launches of the three legs, the
+    trace's fused launches)."""
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+    from llm_bci_tpu_torch.ops import ctc_cuda
+    from llm_bci_tpu_torch.training import checkpoint
+
+    mat = write_mat_dataset(os.path.join(tmp, "mat128"), n_train=128, n_test=4)
+    prof_dir = os.path.join(tmp, "profile")
+    legs = {}
+    launches = {}
+    for leg, stop_at, extra in (
+            ("A", None, [f"profile.start_step=2", "profile.num_steps=2",
+                         f"profile.dir={prof_dir}"]),
+            ("B", 3, [])):
+        log: list = []
+        ctc_cuda.reset_counters()
+        with spied_trainer(log, stop_at):
+            trainer = port_main.main(port_main.parse_args(
+                flagship_args(mat, os.path.join(tmp, leg), *extra)))
+        torch.cuda.synchronize()
+        launches[leg] = ctc_cuda.FUSED_LAUNCHES
+        legs[leg] = (trainer, log)
+    (ta, log_a), (tb, log_b) = legs["A"], legs["B"]
+    tr = ta.config.model.encoder.transformer
+    if (tr.n_layers, tr.hidden_size, ta.train_dataloader.batch_size,
+            len(ta.train_dataloader)) != (5, 1024, 64, 2):
+        raise AssertionError("not the flagship at full width with 2 steps an epoch")
+    if [e["step"] for e in log_a] != list(range(1, 7)) or [e["step"] for e in log_b] != [1, 2, 3]:
+        raise AssertionError(f"legs A / B ran steps {[e['step'] for e in log_a]} / "
+                             f"{[e['step'] for e in log_b]}")
+    if not os.path.isdir(os.path.join(tb.checkpoint_dir, "train_state", "3")):
+        raise AssertionError("leg B saved no train state at step 3")
+    del tb
+    # leg C: a fresh process of the CLI
+    spy_out = os.path.join(tmp, "leg_c.json")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import sys, chip_smoke; chip_smoke.spied_cli("
+                    "sys.argv[1:])", spy_out,
+                    *flagship_args(mat, os.path.join(tmp, "B"), "training.resume=true",
+                                   f"training.save_every={RESUME_STEPS}")],
+                   cwd=REPO, check=True, timeout=600)
+    wall_c = time.perf_counter() - t0
+    with open(spy_out) as f:
+        leg_c = json.load(f)
+    log_c = leg_c["steps"]
+    launches["C"] = leg_c["launches"]["ctc_alpha_beta_kernel"]
+    if [e["step"] for e in log_c] != [4, 5, 6]:
+        raise AssertionError(f"leg C ran steps {[e['step'] for e in log_c]}, want 4-6")
+    if [e["indices"] for e in log_c] != [e["indices"] for e in log_a[3:]]:
+        raise AssertionError("leg C consumed other batches than leg A at steps 4-6")
+    want = {"A": RESUME_STEPS, "B": 3, "C": 3}
+    if launches != want:
+        raise AssertionError(f"ctc_alpha_beta_kernel launches {launches}, want one a step {want}")
+    _, parts = checkpoint.load_train_state(os.path.join(tmp, "B", "ndt1_ctc", "train_state"))
+    final_a = {k: v.cpu() for k, v in ta.model.state_dict().items()}
+    final_c = parts["model"]
+    loss_a = [e["loss"] for e in log_a[3:]]
+    loss_c = [e["loss"] for e in log_c]
+    bits = loss_a == loss_c and all(torch.equal(final_a[k], final_c[k]) for k in final_a)
+    if not bits:
+        # cuDNN was asked for deterministic algorithms: the run must repeat
+        raise AssertionError(
+            f"leg C is not bit-equal to leg A: losses {loss_c} vs {loss_a}, parameters "
+            f"max|diff| {max_abs_diff(final_a, final_c):.3e}")
+    say("state", f"flagship resume (5 x 1024, B=64, 2 steps an epoch, cuDNN deterministic): leg "
+        f"C (a fresh CLI process, {wall_c:.1f} s with its start-up) replayed steps 4-6 of leg A "
+        f"on the same batches {[e['indices'][:3] for e in log_c]}...; losses {loss_c} and all "
+        f"{len(final_a)} parameter tensors bit-equal to leg A's; ctc_alpha_beta_kernel "
+        f"launches {launches}")
+
+    # the save and restore of a full flagship train state, timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = ta.save_train_state()
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = ta.resume_from()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if step != RESUME_STEPS:
+        raise AssertionError(f"restored step {step}")
+    say("state", f"flagship train state (model, AdamW, counters, generators): "
+        f"{dir_bytes(path) / 2**20:.1f} MiB on disk, save {save_s:.2f} s, restore "
+        f"{restore_s:.2f} s; card {power_line}")
+
+    # the profiler's Chrome trace of steps 2-3
+    (name,) = os.listdir(prof_dir)
+    with open(os.path.join(prof_dir, name)) as f:
+        events = json.load(f)["traceEvents"]
+    fused = [e for e in events if e.get("cat") == "kernel"
+             and "ctc_alpha_beta_kernel" in e.get("name", "")]
+    if name != "ndt1_ctc_steps2-3.trace.json" or len(fused) != 2:
+        raise AssertionError(f"trace {name}: {len(fused)} ctc_alpha_beta_kernel events, want 2")
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    say("state", f"profile.start_step=2, num_steps=2: {name} names ctc_alpha_beta_kernel twice "
+        f"({fused[0]['name'][:60]}, {fused[0].get('dur')} us), among {kernels} kernel events")
+    del ta
+    return launches, len(fused)
+
+
+def flagship_clip(tmp: str) -> int:
+    """``optimizer.grad_clip_norm=1.0`` on the flagship: the global norm of the
+    gradients that reach AdamW, read by a hook just before each update."""
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+    from llm_bci_tpu_torch.ops import ctc_cuda
+
+    log: list = []
+    ctc_cuda.reset_counters()
+    with spied_trainer(log):
+        trainer = port_main.build_trainer(port_main.parse_args(flagship_args(
+            os.path.join(tmp, "mat128"), os.path.join(tmp, "clip"), "training.max_steps=3",
+            "optimizer.grad_clip_norm=1.0")))
+        norms = []
+        trainer.optimizer.register_step_pre_hook(lambda opt, args, kwargs: norms.append((
+            float(torch.stack([p.grad.float().square().sum() for p in trainer.trainable])
+                  .sum().sqrt()), float(trainer.grad_norm))))
+        trainer.train()
+    losses = [e["loss"] for e in log]
+    if len(norms) != 3 or not all(post <= 1.0 + 1e-6 for post, _ in norms):
+        raise AssertionError(f"post-clip global norms {norms}")
+    if not all(np.isfinite(losses)) or not all(pre > 1.0 for _, pre in norms):
+        raise AssertionError(f"losses {losses}, pre-clip norms {norms}")
+    say("state", f"grad_clip_norm=1.0: global norm before / after the clip "
+        f"{[(round(pre, 2), round(post, 7)) for post, pre in norms]}; losses {losses}")
+    del trainer
+    return ctc_cuda.FUSED_LAUNCHES
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+
+
+def remat_pair(label: str, trainer, batch, set_remat, counters, want: dict,
+               power_line: str) -> dict:
+    """One forward / backward from the same weights and generator state with
+    remat off and on: the loss equal, the gradients bit-equal or within the
+    flash gates' bf16 tolerance (atol 3e-2 + rtol 3e-2), the launches as
+    ``want``; then train steps timed with their peak memory. Returns the
+    launches of the remat run."""
+    import torch
+
+    model, gen = trainer.model.train(), trainer.generator
+    state = gen.get_state()
+    runs = {}
+    for remat in (False, True):
+        set_remat(remat)
+        gen.set_state(state)
+        model.zero_grad(set_to_none=True)
+        counters.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with trainer.autocast():
+            out = model(**batch, generator=gen)
+        out.loss.backward()
+        torch.cuda.synchronize()
+        runs[remat] = (out.loss.detach().clone(), grads_of(model), counters.read(),
+                       torch.cuda.max_memory_allocated(), gen.get_state())
+    (l0, g0, c0, m0, s0), (l1, g1, c1, m1, s1) = runs[False], runs[True]
+    if c0 != want[False] or c1 != want[True]:
+        raise AssertionError(f"{label}: launches off {c0} / on {c1}, want {want}")
+    if not torch.equal(l0, l1) or not torch.equal(s0, s1) or g0.keys() != g1.keys():
+        raise AssertionError(f"{label}: loss {l0.item()} vs {l1.item()} or the generator "
+                             "or the gradient set differs with remat")
+    bit_equal = all(torch.equal(g0[k], g1[k]) for k in g0)
+    for k in g0:
+        torch.testing.assert_close(g1[k], g0[k], atol=3e-2, rtol=3e-2, msg=lambda m: f"{k}: {m}")
+    worst = max_abs_diff(g0, g1)
+    model.zero_grad(set_to_none=True)
+    timing = {}
+    for remat in (False, True):
+        set_remat(remat)
+        for _ in range(2):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            trainer.train_step(batch)
+        torch.cuda.synchronize()
+        timing[remat] = ((time.perf_counter() - t0) / 5 * 1e3,
+                         torch.cuda.max_memory_allocated() / 2**30)
+    say("state", f"{label} remat off / on, one forward + backward from the same state: loss "
+        f"{l0.item():.6f} equal, {len(g0)} gradients "
+        f"{'bit-equal' if bit_equal else f'max|diff| {worst:.3e} (within 3e-2 + 3e-2)'}, "
+        f"launches {c0} / {c1}, peak memory of the pass {m0 / 2**30:.2f} / {m1 / 2**30:.2f} "
+        f"GiB; train step {timing[False][0]:.2f} / {timing[True][0]:.2f} ms "
+        f"(+{timing[True][0] / timing[False][0] - 1:.1%}), peak memory of the steps "
+        f"{timing[False][1]:.2f} / {timing[True][1]:.2f} GiB; card {power_line}")
+    return c1
+
+
+class FlashCounters:
+    """The flash kernels' launches, and the dtype of q each forward saw."""
+
+    def __init__(self):
+        from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+        self.fc, self.dtypes = fc, []
+        real = fc.flash_fwd
+
+        def spy(q, *args):
+            self.dtypes.append(q.dtype)
+            return real(q, *args)
+
+        fc.flash_fwd = spy
+        self.restore = lambda: setattr(fc, "flash_fwd", real)
+
+    def reset(self):
+        self.fc.reset_counters()
+        self.dtypes = []
+
+    def read(self) -> dict:
+        import torch
+
+        if any(d != torch.bfloat16 for d in self.dtypes):
+            raise AssertionError(f"a flash forward saw {self.dtypes}: not the bf16 fwd_wg kernel")
+        fc = self.fc
+        return {FWD_WG: fc.FWD_LAUNCHES, DQ_WG: fc.BWD_DQ_LAUNCHES, DKV_WG: fc.BWD_DKV_LAUNCHES,
+                "flash_delta_kernel": fc.BWD_DELTA_LAUNCHES}
+
+
+class Int8Counters:
+    def reset(self):
+        from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+        ic.reset_counters()
+
+    def read(self) -> dict:
+        return int8_launches()
+
+
+def mlm_remat(tmp: str, power_line: str) -> dict:
+    from llm_bci_tpu_torch import main as port_main
+
+    write_spike_pickle(os.path.join(tmp, "spikes.pkl"))
+    trainer = port_main.build_trainer(port_main.parse_args([
+        "-c", os.path.join(REPO, "configs", "trainer_ssl_ndt1.yaml"),
+        "-k", *MLM_OVERRIDES, f"data.data_dir={tmp}", "data.data_file=spikes.pkl",
+        f"dirs.checkpoint_dir={os.path.join(tmp, 'mlm')}", "dirs.log_dir=null", "verbosity=1",
+        "model.encoder.remat=true"]))
+    encoder = trainer.model.encoder
+    if not encoder.remat or encoder.layers[0].attn.dropout <= 0:
+        raise AssertionError("remat off or no dropout in the mlm config")
+    batch = trainer.to_device(next(iter(trainer.train_dataloader))[0])
+    if tuple(batch["spikes"].shape) != (32, 1024, 256):
+        raise AssertionError(f"unexpected batch {tuple(batch['spikes'].shape)}")
+    n = len(encoder.layers)
+    counters = FlashCounters()
+    try:
+        want = {r: {FWD_WG: n * (2 if r else 1), DQ_WG: n, DKV_WG: n, "flash_delta_kernel": n}
+                for r in (False, True)}
+        tr = trainer.config.model.encoder.transformer
+        label = (f"NDT1-mlm (B=32, T=1024, {n} x {tr.hidden_size}, bf16, dropout "
+                 f"{encoder.layers[0].attn.dropout})")
+        launches = remat_pair(label, trainer, batch, lambda r: setattr(encoder, "remat", r), counters, want,
+                              power_line)
+    finally:
+        counters.restore()
+    del trainer
+    return launches
+
+
+def bci_state_and_remat(tmp: str, power_line: str) -> dict:
+    """The BCI fine-tune (32 layers x 7B width, int8 base, LoRA, component
+    blobs off): 2 steps saved, a fresh trainer restored from them; then remat
+    (``llm_remat``) off and on at that state."""
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+
+    dataset = {"train": bci_rows(16, seed=1), "test": bci_rows(BCI_B, seed=2)}
+    llm_path = write_llama_config(tmp, 32)
+
+    def build(max_steps, *extra):
+        return port_main.build_trainer(port_main.parse_args([
+            "-c", os.path.join(REPO, "configs", "trainer_bci.yaml"),
+            "-k", f"method.model_kwargs.llm_path={llm_path}", "method.model_kwargs.quantize=int8",
+            f"training.train_batch_size={BCI_B}", f"training.test_batch_size={BCI_B}",
+            f"training.max_steps={max_steps}", "training.eval_every=null",
+            "training.save_every=2", "training.component_blobs=false",
+            f"dirs.checkpoint_dir={os.path.join(tmp, 'bci')}", "dirs.log_dir=null",
+            "verbosity=1", *extra]), dataset=dataset)
+
+    first = build(2)
+    first.train()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = first.save_train_state()
+    save_s = time.perf_counter() - t0
+    trains = set(first.trainable_names)
+    saved = {k: v.detach().cpu() for k, v in first.model.state_dict().items() if k in trains}
+    moments = [{k: v.detach().cpu() for k, v in s.items()}
+               for s in first.optimizer.state_dict()["state"].values()]
+    del first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    second = build(3, "model.llm_remat=true")
+    model = second.model
+    if not model.llm.remat or model.quant != "int8" or len(model.llm.model.layers) != 32:
+        raise AssertionError("not the 32-layer int8 BCI with llm_remat")
+    frozen = {k: v.clone() for k, v in model.state_dict().items() if k in second.frozen_state_keys()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step = second.resume_from()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    now = model.state_dict()
+    if step != 2 or any(not torch.equal(now[k], v) for k, v in frozen.items()):
+        raise AssertionError(f"restored step {step}, or a frozen leaf changed in the restore")
+    if any(not torch.equal(now[k].cpu(), v) for k, v in saved.items()):
+        raise AssertionError("a trainable leaf differs from the saved one")
+    restored = list(second.optimizer.state_dict()["state"].values())
+    if len(restored) != len(moments) or any(
+            not torch.equal(r[k].cpu(), m[k]) for r, m in zip(restored, moments)
+            for k in ("exp_avg", "exp_avg_sq", "step")):
+        raise AssertionError("AdamW moments differ from the saved ones")
+    int8_leaves = sum(v.dtype == torch.int8 for v in frozen.values())
+    say("state", f"BCI train state (32 layers x 7B width, int8 base, component_blobs false): "
+        f"{len(saved)} trainable leaves + AdamW, {dir_bytes(path) / 2**20:.1f} MiB on disk, "
+        f"save {save_s:.2f} s, restore {restore_s:.2f} s; {len(frozen)} frozen leaves "
+        f"({int8_leaves} int8) bit-equal to the live ones after the restore, the trainable "
+        f"leaves and AdamW moments equal to the saved ones; card {power_line}")
+
+    batch = second.to_device(next(iter(second.train_dataloader))[0])
+    want = {r: {INT8_CLUSTER: 0, INT8_TILED: INT8_PER_FORWARD + (INT8_PER_FORWARD - 1) * r}
+            for r in (False, True)}
+    launches = remat_pair("BCI fine-tune (B=8 x 185 tokens, 32 layers, int8 base, LoRA dropout "
+                          "0.2)", second, batch, lambda r: setattr(model.llm, "remat", r),
+                          Int8Counters(), want, power_line)
+    del second, model
+    return launches
+
+
+def entry_check() -> int:
+    """``entry()`` on the card against ``entry(device="cpu")``: loss within
+    1e-4, through ``ctc_alpha_kernel``."""
+    from llm_bci_tpu_torch.entry import entry
+    from llm_bci_tpu_torch.ops import ctc_cuda
+
+    fn, args = entry()
+    ctc_cuda.reset_counters()
+    loss = float(fn(*args))
+    launches = ctc_cuda.FWD_LAUNCHES
+    cpu_fn, cpu_args = entry(device="cpu")
+    cpu_loss = float(cpu_fn(*cpu_args))
+    if launches != 1 or ctc_cuda.FUSED_LAUNCHES or not abs(loss - cpu_loss) <= 1e-4:
+        raise AssertionError(f"entry(): loss {loss} on the card, {cpu_loss} on the CPU, "
+                             f"ctc_alpha_kernel launches {launches}")
+    say("state", f"entry(): NDT1-CTC loss {loss:.6f} on the card (ctc_alpha_kernel x{launches}), "
+        f"{cpu_loss:.6f} on the CPU, |diff| {abs(loss - cpu_loss):.2e}")
+    return launches
+
+
+def trainer_state_phase(power_line: str, profile=None) -> dict:
+    """The trainer contract at full width: flagship resume across processes,
+    the save and restore of full train states, gradient clipping, remat on the
+    flash and int8 paths, the profiler's trace and ``entry()``."""
+    import torch
+
+    total: dict = {}
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            resume_launches, _ = flagship_resume(tmp, power_line)
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        add_launches(total, {"ctc_alpha_beta_kernel": sum(resume_launches.values())
+                             + flagship_clip(tmp)})
+        gc.collect()
+        torch.cuda.empty_cache()
+        add_launches(total, mlm_remat(tmp, power_line))
+        gc.collect()
+        torch.cuda.empty_cache()
+        add_launches(total, bci_state_and_remat(tmp, power_line))
+    add_launches(total, {"ctc_alpha_kernel": entry_check()})
+    return total
+
+
 def profile_step(trainer, batch, power_line: str, path: str, phase: str, label: str,
                  own: dict) -> None:
     """``torch.profiler`` over 3 steady train steps: device time by kernel,
@@ -2784,7 +3296,8 @@ def main(only=None, profile=None) -> int:
                        ("cosmooth", cosmooth_phase),
                        ("phoneme-llm", lambda p, _: phoneme_llm_phase(p)),
                        ("eval-phonemes", lambda p, _: eval_phonemes_phase(p)),
-                       ("itransformer", itransformer_phase), ("patchtst", patchtst_phase)):
+                       ("itransformer", itransformer_phase), ("patchtst", patchtst_phase),
+                       ("trainer-state", trainer_state_phase)):
         if only in (None, phase):
             add_launches(launches, run(power_line, profile))
             # a trainer holds reference cycles: free what the phase left, so
@@ -2811,7 +3324,7 @@ if __name__ == "__main__":
     parser.add_argument("--only", default=None,
                         choices=["ctc", "flash", "int8", "ctc-main", "mlm-main", "bci-serve",
                                  "bci-train", "cosmooth", "phoneme-llm", "eval-phonemes",
-                                 "itransformer", "patchtst"])
+                                 "itransformer", "patchtst", "trainer-state"])
     parser.add_argument("--profile", metavar="PATH", default=None,
                         help="write the torch.profiler tables of the CTC and mlm train steps, "
                              "the BCI greedy decode, the BCI fine-tune step, a folded "

@@ -17,7 +17,12 @@ banded flash-attention kernels (``csrc/flash_attention.cu``). Slice 3 serves
 and fine-tunes BCI with an int8 base (``csrc/int8_matmul.cu``). ROADMAP slice
 6 adds co-smoothing, the IBL loader, PhonemeLLM and ``eval_phonemes``; slice 7
 iTransformer, PatchTST and behaviour decoding, their ``ctc`` heads on the CTC
-kernels.
+kernels. The trainer contract is complete on one device: full-state
+checkpoint and resume (``training/checkpoint.py``), ``grad_clip_norm``, remat
+(``models/remat.py``) and profiling; ``entry.py`` is the counterpart of
+``__graft_entry__.entry()``. Multi-device parallelism, reference-format
+checkpoints and ``from_pt`` warm start raise ``NotImplementedError`` naming
+their ROADMAP item.
 """
 
 

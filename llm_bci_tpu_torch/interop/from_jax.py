@@ -8,8 +8,9 @@ It imports no JAX. The key names are the reference torch layout that
 are transposed to Linear weights ``(out, in)``; the ``StackProjection``
 kernel ``(size*D, H)`` becomes the Linear-layout weight ``(H, size*D)``
 that the port's strided conv reads. Load the result with
-``model.load_state_dict(sd, strict=True)``. An active factors projection,
-which the port's NDT1 does not build yet, raises.
+``model.load_state_dict(sd, strict=True)``. An active factors projection's
+``out_proj/proj`` becomes ``encoder.out_proj.proj.0``, the reference
+layout's name.
 
 :func:`llama_state_dict_from_jax`, :func:`bci_state_dict_from_jax` and
 :func:`phoneme_llm_state_dict_from_jax` do the same for the Llama stack, the
@@ -93,7 +94,7 @@ def _put_encoder(out: _StateDict, enc: Mapping, prefix: str) -> None:
         i += 1
     out.norm(enc["out_norm"], f"{prefix}.out_norm")
     if "proj" in (enc.get("out_proj") or {}):
-        raise ValueError("NDT1 params: an active factors projection is not ported yet")
+        out.linear(enc["out_proj"]["proj"], f"{prefix}.out_proj.proj.0")
 
 
 def _put_lora_dense(out: _StateDict, src: Mapping, prefix: str) -> None:

@@ -26,6 +26,8 @@ left-padded to that context. PhonemeLLM goes to the trainer unchanged, as in
 the JAX CLI. ``transformers`` (the tokenizer) is imported only when
 ``data.tokenizer_path`` is set, ``datasets`` only by the ``ibl`` loader.
 ``--device`` defaults to CUDA; the trainer raises when there is no card.
+``-k training.resume=true`` continues from the newest full train state of
+the run when there is one, and starts fresh otherwise.
 """
 from __future__ import annotations
 
@@ -51,7 +53,6 @@ from llm_bci_tpu_torch.data.speechbci import (
     load_competition_data,
 )
 from llm_bci_tpu_torch.eval.eval_bci import format_ctc, word_error_count
-from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.models.itransformer import region_names_to_idx
 from llm_bci_tpu_torch.training.trainer import Trainer, default_trainer_config
 
@@ -191,11 +192,15 @@ def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Tra
         pass
     elif config.data.data_load == "file":
         path = os.path.join(config.data.data_dir, config.data.data_file)
-        if not path.endswith((".pkl", ".pickle")):
-            raise not_ported(f"data_load 'file' for {path!r} (pickles only)",
-                             "Queue 1, slice 1, item 6")
-        with open(path, "rb") as f:
-            dataset = pickle.load(f)
+        if path.endswith((".pkl", ".pickle")):
+            with open(path, "rb") as f:
+                dataset = pickle.load(f)
+        else:
+            import torch
+
+            # weights_only=False: the file is the user's own dataset, dicts of
+            # numpy arrays, which torch >= 2.6's default weights_only=True refuses
+            dataset = torch.load(path, weights_only=False)
     elif config.data.data_load == "speechbci":
         dataset = load_competition_data(**config.data)
         if config["data"].get("vocab_file"):
@@ -255,8 +260,15 @@ def build_trainer(args: argparse.Namespace, dataset=None, tokenizer=None) -> Tra
 
 
 def main(args: argparse.Namespace, dataset=None, tokenizer=None) -> Trainer:
-    """Build the trainer (:func:`build_trainer`) and train."""
+    """Build the trainer (:func:`build_trainer`), resume it under
+    ``training.resume`` when a train state exists, and train."""
     trainer = build_trainer(args, dataset, tokenizer)
+    if bool(trainer.config.training.get("resume", False)):
+        try:
+            step = trainer.resume_from()
+            trainer.print_v(f"Resumed training from step {step}", verbosity=0)
+        except FileNotFoundError:
+            trainer.print_v("No checkpoint to resume from; starting fresh", verbosity=0)
     trainer.train()
     return trainer
 

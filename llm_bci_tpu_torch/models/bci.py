@@ -139,7 +139,7 @@ class BCI(nn.Module):
         proj = config["projector"]
         self.stacking = int(proj["stacking"])
         self._proj_act = proj["act"]
-        n_in = enc_cfg["transformer"]["hidden_size"] * self.stacking
+        n_in = self.ndt1_encoder.out_size * self.stacking
         if proj["inter_size"] is not None:
             self.projector_in = nn.Linear(n_in, proj["inter_size"], bias=proj["bias"],
                                           device=device)

@@ -27,7 +27,9 @@
   whatever position the tensor holds (``models/decode_graph.py``).
 * Every leaf is created directly on ``device`` in its storage dtype, drawn
   from ``generator``: a 7B base never exists in float32 or on the host.
-  ``remat`` is not ported.
+* ``remat=True`` recomputes each decoder layer in the backward
+  (``models/remat.py``), LoRA dropout drawn again from the same generator
+  state; a forward without autograd (eval, decoding) runs the layers plainly.
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from llm_bci_tpu_torch import not_ported
+from llm_bci_tpu_torch.models.remat import remat_call
 from llm_bci_tpu_torch.ops.attention import dot_product_attention, dropout
 from llm_bci_tpu_torch.ops.quant import (
     QUANT_MODES,
@@ -337,8 +339,7 @@ class LlamaForCausalLM(nn.Module):
                  remat: bool = False, quant: Optional[str] = None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if remat:
-            raise not_ported("remat", "Queue 1, slice 1, item 5")
+        self.remat = remat
         if quant is not None and quant not in QUANT_MODES:
             raise ValueError(f"unknown quant mode {quant!r}")
         self.config, self.dtype, self.freeze_base = config, dtype, freeze_base
@@ -383,8 +384,12 @@ class LlamaForCausalLM(nn.Module):
             positions = (torch.arange(T, device=x.device) + q_offset)[None, :].expand(B, T)
         rope = (self.rope_cos, self.rope_sin)
         for i, layer in enumerate(self.model.layers):
-            x = layer(x, mask, positions, rope, cache[i] if cache is not None else None,
-                      q_offset, generator)
+            layer_cache = cache[i] if cache is not None else None
+            if self.remat and layer_cache is None:
+                x = remat_call(layer, x, mask, positions, rope, None, q_offset,
+                               generator=generator)
+            else:
+                x = layer(x, mask, positions, rope, layer_cache, q_offset, generator)
         x = self.model.norm(x)
         if self.config.tie_word_embeddings:
             logits = F.linear(x, self.model.embed_tokens.weight.to(self.dtype))

@@ -10,9 +10,11 @@ Attention takes one of two paths, chosen per call by
 ``NeuralEncoder._use_flash_now``: the dense path (explicit probabilities,
 the band + padding mask OR the diagonal) or the banded flash-attention
 kernels (``ops/flash_attention.py``: the mask evaluated in the kernel, no
-diagonal, attention-probability dropout inside the kernel). Options not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item: the
-``endtoend`` method, active factors, ``from_pt`` warm start and remat.
+diagonal, attention-probability dropout inside the kernel). ``remat``
+recomputes each encoder layer in the backward (``models/remat.py``), and an
+active ``factors`` projection maps the trunk to ``factors.size`` before the
+head. Options not ported yet raise ``NotImplementedError`` naming their
+ROADMAP item: the ``endtoend`` method and ``from_pt`` warm start.
 
 Stochastic parts (white / offset noise, maskers, dropout, Poisson sampling
 in ``generate``) draw from an explicit ``torch.Generator`` passed in; with
@@ -34,6 +36,7 @@ from llm_bci_tpu_torch.model_output import ModelOutput
 from llm_bci_tpu_torch.ops.attention import dot_product_attention, dropout, make_attention_mask
 from llm_bci_tpu_torch.ops.context import create_context_mask
 from llm_bci_tpu_torch.models.masker import MaskerConfig, apply_maskers
+from llm_bci_tpu_torch.models.remat import remat_call
 from llm_bci_tpu_torch.ops.ctc import ctc_loss
 from llm_bci_tpu_torch.ops.flash_attention import (
     FLASH_AUTO_MIN_T,
@@ -311,9 +314,37 @@ class NeuralEncoderLayer(nn.Module):
         return x + self.mlp(self.ln2(x), generator)
 
 
+class NeuralFactorsProjection(nn.Module):
+    """Dropout, then with ``active`` ``Linear(hidden, size)`` and the
+    activation (``llm_bci_tpu/models/ndt1.py:502``). Under ``fixup_init`` the
+    weight is uniform in +-``init_range`` and the bias zero, else torch's
+    Linear init. ``proj.0`` is the reference layout's name of the Linear."""
+
+    def __init__(self, hidden_size: int, active: bool, size: int, act: str, use_bias: bool,
+                 dropout: float, fixup_init: bool, init_range: float):
+        super().__init__()
+        self.active, self.dropout = active, dropout
+        self.out_size = size if active else hidden_size
+        if active:
+            layer = _linear(hidden_size, size, use_bias)
+            if fixup_init:
+                with torch.no_grad():
+                    layer.weight.uniform_(-init_range, init_range)
+                    if layer.bias is not None:
+                        layer.bias.zero_()
+            self.proj = nn.Sequential(layer)
+            self.act = ACT2FN[act]
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        x = dropout(x, self.dropout, self.training, generator)
+        if not self.active:
+            return x
+        return self.act(self.proj(x))
+
+
 class NeuralEncoder(nn.Module):
     """NDT1 trunk: smooth + noise -> maskers -> embed / stack -> transformer
-    -> out-norm (``llm_bci_tpu/models/ndt1.py:546``)."""
+    -> out-norm -> factors projection (``llm_bci_tpu/models/ndt1.py:546``)."""
 
     def __init__(self, config: Dict[str, Any]):
         super().__init__()
@@ -322,10 +353,7 @@ class NeuralEncoder(nn.Module):
         self.masker_cfgs = tuple(
             MaskerConfig.from_config(m) for m in (config.get("masker") or {}).values()
         )
-        if config["factors"]["active"]:
-            raise not_ported("An active factors projection", "Queue 1, slice 1, item 4")
-        if config.get("remat"):
-            raise not_ported("remat", "Queue 1, slice 1, item 5")
+        self.remat = bool(config.get("remat", False))
         self.context_mask_np = create_context_mask(ctx["forward"], ctx["backward"], emb["max_F"])
         mode = tr.get("flash_attention", "auto")
         self.flash_mode = {True: "on", False: "off"}.get(mode, str(mode))
@@ -354,7 +382,16 @@ class NeuralEncoder(nn.Module):
             NeuralEncoderLayer(tr, emb["max_F"], fwd_w, bwd_w) for _ in range(tr["n_layers"])
         )
         self.out_norm = nn.LayerNorm(tr["hidden_size"], eps=LN_EPS)
-        self.factors_dropout = config["factors"]["dropout"]
+        fac = config["factors"]
+        self.out_proj = NeuralFactorsProjection(
+            tr["hidden_size"], fac["active"], fac["size"], fac["act"], fac["bias"],
+            fac["dropout"], fac["fixup_init"], fac["init_range"],
+        )
+
+    @property
+    def out_size(self) -> int:
+        """Width of what :meth:`forward` returns."""
+        return self.out_proj.out_size
 
     def _use_flash_now(self, T: int) -> bool:
         """Per-call flash decision (``_use_flash_now`` of the JAX package,
@@ -393,13 +430,16 @@ class NeuralEncoder(nn.Module):
             attn_mask = make_attention_mask(
                 spikes_mask, torch.from_numpy(context_np).to(x.device))
         for layer in self.layers:
-            x = layer(x, attn_mask, spikes_mask, spikes_timestamp, generator)
+            if self.remat:
+                x = remat_call(layer, x, attn_mask, spikes_mask, spikes_timestamp,
+                               generator=generator)
+            else:
+                x = layer(x, attn_mask, spikes_mask, spikes_timestamp, generator)
         x = self.out_norm(x)
         # Drop the day / block prefix tokens, and their mask entries.
         n_prefix = int(self.embedder.day_token) + int(self.embedder.block_token)
         x, spikes_mask = x[:, n_prefix:], spikes_mask[:, n_prefix:]
-        x = dropout(x, self.factors_dropout, self.training, generator)
-        return x.float(), spikes_mask, targets_mask
+        return self.out_proj(x, generator).float(), spikes_mask, targets_mask
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +483,7 @@ class NDT1(nn.Module):
         if enc.get("from_pt") or (config.get("decoder") or {}).get("from_pt"):
             raise not_ported("Warm start from_pt", "Queue 1, slice 3, left")
         self.encoder = NeuralEncoder(enc)
-        self.decoder = _linear(enc["transformer"]["hidden_size"], n_outputs)
+        self.decoder = _linear(self.encoder.out_size, n_outputs)
 
     @classmethod
     def from_config(cls, model_config, **method_kwargs) -> "NDT1":

@@ -98,13 +98,17 @@ class Int8MatmulFunction(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, q, scale, out_dtype):
-        ctx.save_for_backward(q, scale)
-        ctx.x_dtype = x.dtype
         if x.device.type == "cuda":
             from llm_bci_tpu_torch.ops.int8_matmul_cuda import int8_matmul_cuda
 
-            return int8_matmul_cuda(x, q, scale, out_dtype)
-        return int8_matmul_plain(x, q, scale, out_dtype)
+            y = int8_matmul_cuda(x, q, scale, out_dtype)
+        else:
+            y = int8_matmul_plain(x, q, scale, out_dtype)
+        # saved after the product: a checkpointed layer's recompute stops at
+        # its last save, and must still have run this product
+        ctx.save_for_backward(q, scale)
+        ctx.x_dtype = x.dtype
+        return y
 
     @staticmethod
     def backward(ctx, g):

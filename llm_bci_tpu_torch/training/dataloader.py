@@ -10,7 +10,9 @@ trainer. The semantics are the same, and the parity tests rely on them:
   has one shape;
 * :class:`HostDataLoader` visits epoch ``e`` in the order
   ``default_rng((seed, e)).permutation(n)`` (identity when not shuffled) —
-  the same batches in the same order as the JAX package's loader.
+  the same batches in the same order as the JAX package's loader;
+  ``set_epoch(e, skip_batches=k)`` makes the next iteration start at batch
+  ``k`` of that order, which a run resumed in mid-epoch uses.
 """
 from __future__ import annotations
 
@@ -89,13 +91,17 @@ class HostDataLoader:
         self.drop_last = drop_last
         self.seed = int(seed)
         self._next_epoch = 0
+        self._skip_batches = 0
 
     def __len__(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def set_epoch(self, epoch: int) -> None:
+    def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
+        """Pin the epoch whose order the next ``iter()`` uses, and skip its
+        first ``skip_batches`` batches (once: that iteration consumes it)."""
         self._next_epoch = int(epoch)
+        self._skip_batches = int(skip_batches)
 
     def epoch_order(self, epoch: int) -> np.ndarray:
         n = len(self.dataset)
@@ -106,10 +112,11 @@ class HostDataLoader:
     def __iter__(self) -> Iterator[Tuple[Dict, Dict]]:
         epoch = self._next_epoch
         self._next_epoch = epoch + 1
+        skip, self._skip_batches = self._skip_batches, 0
         if hasattr(self.dataset, "set_epoch"):
             self.dataset.set_epoch(epoch)
         order = self.epoch_order(epoch)
-        for start in range(0, len(order), self.batch_size):
+        for start in range(skip * self.batch_size, len(order), self.batch_size):
             idx = order[start:start + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return

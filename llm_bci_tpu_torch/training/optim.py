@@ -18,11 +18,14 @@ decoupled decay ``-lr * wd * p`` and the bias-corrected moments with
 ``eps`` outside the square root). Gradient accumulation follows
 ``optax.MultiSteps``: ``gradient_accumulation_steps`` micro-batches are
 averaged into one update, and the schedule counts updates.
+``optimizer.grad_clip_norm`` clips that averaged gradient by its global
+norm before AdamW (:func:`clip_by_global_norm`), in the order of
+``optax.MultiSteps(optax.chain(clip_by_global_norm, adamw))``.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, Tuple
+from typing import Callable, Iterable, List, Tuple
 
 import torch
 
@@ -96,3 +99,21 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], opt_cfg, steps_per_epo
         eps=float(opt_cfg.get("eps", 1e-8)),
     )
     return opt, schedule
+
+
+@torch.no_grad()
+def clip_by_global_norm(params: List[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
+    """``optax.clip_by_global_norm``: when the global norm of the gradients
+    reaches ``max_norm``, every gradient becomes ``g / norm * max_norm``.
+    Pass only the parameters that train: a frozen leaf never enters the norm.
+    Returns the norm before clipping, a 0-dim float32 tensor on the device
+    (nothing is read back to the host)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return torch.zeros(())
+    # optax's order: the sum of squares of each leaf, their sum, its root
+    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+    return norm

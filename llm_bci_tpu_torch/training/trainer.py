@@ -11,9 +11,17 @@ itself — the sum over the batch, not a mean.
 
 Changed for PyTorch: the jitted step is an eager step under
 ``torch.autocast`` with ``precision.compute_dtype`` (float32 master
-weights); dropout, noise and maskers draw from one ``torch.Generator`` on
-the device, seeded from ``config.seed`` and advanced by every step; a checkpoint is the model's and the optimizer's
-``state_dict`` plus ``trainer_config.yaml`` under ``STEP{n}/``. The frozen / trainable split is
+weights); dropout, noise and maskers of a training step draw from one
+``torch.Generator`` on the device, seeded from ``config.seed`` and advanced
+by every step, and those of an eval from a second one, seeded apart, so that
+evaluating never moves the training stream (the JAX trainer keeps its
+training key in the ``TrainState`` and splits eval keys from another). A
+checkpoint is the model's and the optimizer's ``state_dict`` plus
+``trainer_config.yaml`` under ``STEP{n}/``, and the full train state under
+``train_state/<step>/`` (``training/checkpoint.py``: model, optimizer, the
+update and step counts, both generators' states and, inside an accumulation
+window, the partial gradients), from which :meth:`Trainer.resume_from`
+continues bit for bit on the CPU. The frozen / trainable split is
 ``requires_grad`` (the JAX trainer's ``trainable_mask``): the optimizer
 takes only the parameters that train. A model with ``save_checkpoint`` /
 ``save_config`` (BCI) writes its own component blobs instead of
@@ -36,14 +44,25 @@ save ``STEP{n}`` and return; ``dirs.log_dir`` writes TensorBoard scalars and
 ``log_to_wandb`` logs each eval to Weights & Biases, each skipped when its
 package is not installed.
 
-Not ported yet (see ROADMAP.md): resume (``training.resume``), multi-device
-parallelism, ``optimizer.grad_clip_norm``, datasets named by the config and
-profiling. The TPU-only performance knobs ``chain_steps`` and
-``cache_device_batches`` change no result and are ignored.
+``optimizer.grad_clip_norm`` clips the averaged gradient of an update by
+its global norm over the trainable parameters (``training/optim.py``).
+``profile: {start_step, num_steps, dir}`` records ``num_steps`` steps from
+``start_step`` with ``torch.profiler`` (CPU and, on the card, CUDA
+activities) and writes a Chrome trace to ``dir``. A dataset not handed in
+comes from ``data.hf_dataset_name`` (``datasets.load_dataset``) or
+``data.json_dataset_name`` (a JSON file), and a ``str`` dataset is a JSON
+path. ``precision.remat`` (``configs/trainer.yaml``) is read by nothing, as
+in the JAX package: remat is the model's ``encoder.remat`` (NDT1) or
+``llm_remat`` (BCI).
+
+Not ported yet (see ROADMAP.md): multi-device parallelism. The TPU-only
+performance knobs ``chain_steps`` and ``cache_device_batches`` change no
+result and are ignored.
 """
 from __future__ import annotations
 
 import inspect
+import json
 import os
 import signal
 import time
@@ -66,8 +85,9 @@ from llm_bci_tpu_torch import not_ported
 import llm_bci_tpu_torch.data  # noqa: F401  (fills NAME2DATASET)
 from llm_bci_tpu_torch.registry import NAME2DATASET, NAME2MODEL
 import llm_bci_tpu_torch.models  # noqa: F401  (fills NAME2MODEL)
+from llm_bci_tpu_torch.training import checkpoint
 from llm_bci_tpu_torch.training.dataloader import HostDataLoader, freeze_pad_lengths
-from llm_bci_tpu_torch.training.optim import build_optimizer
+from llm_bci_tpu_torch.training.optim import build_optimizer, clip_by_global_norm
 
 DEFAULT_TRAINER_CONFIG = "configs/trainer.yaml"
 DTYPES = {None: torch.float32, "float32": torch.float32, "fp32": torch.float32,
@@ -77,6 +97,12 @@ DTYPES = {None: torch.float32, "float32": torch.float32, "fp32": torch.float32,
 
 def default_trainer_config() -> DictConfig:
     return update_config(resolve_path(DEFAULT_TRAINER_CONFIG), None)
+
+
+def eval_seed(seed: int) -> int:
+    """Seed of the eval generator: a function of ``config.seed`` that is not
+    the training generator's seed."""
+    return int(np.random.SeedSequence((int(seed), 1)).generate_state(1)[0])
 
 
 def resolve_device(device) -> torch.device:
@@ -158,13 +184,9 @@ class Trainer:
         self.device = resolve_device(device)
         self.config = update_config(default_trainer_config(), config)
         cfg = self.config
-        if cfg.training.get("resume"):
-            raise not_ported("training.resume (checkpoint resume)", "Queue 1, slice 1, item 5")
         par = cfg.get("parallelism") or {}
         if any(int(par.get(k, 1)) > 1 for k in ("data", "fsdp", "tp", "sp")):
             raise not_ported("Multi-device parallelism", "Queue 1, slice 8, item 12")
-        if cfg.optimizer.get("grad_clip_norm"):
-            raise not_ported("optimizer.grad_clip_norm", "Queue 1, slice 1, item 5")
         prec = cfg.get("precision") or {}
         if DTYPES[prec.get("param_dtype")] != torch.float32:
             raise ValueError("precision.param_dtype must be float32 (master weights)")
@@ -173,24 +195,27 @@ class Trainer:
         self.seed = int(cfg.seed)
         torch.manual_seed(self.seed)
         self.generator = torch.Generator(self.device).manual_seed(self.seed)
+        self.eval_generator = torch.Generator(self.device).manual_seed(eval_seed(self.seed))
 
         self.print_v(yaml.safe_dump(to_plain_dict(cfg), default_flow_style=False), verbosity=0)
         self.checkpoint_dir = os.path.join(cfg.dirs.checkpoint_dir, cfg.savestring)
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         self.init_logging()
         self._preempt_flag = False
+        self._resume_step = 0
 
-        if dataset is None:
-            raise not_ported("Datasets named by the config (data.hf_dataset_name, "
-                             "data.json_dataset_name)", "Queue 1, slice 1, item 5")
-        self.dataset = dataset
+        self.set_dataset(dataset)
         self.set_model(model)
         self.get_model_inputs()
         self.build_dataloaders()
         self.print_v("Building optimizers", verbosity=0)
         grad_accum = int(cfg.optimizer.get("gradient_accumulation_steps", 1) or 1)
         self.grad_accum = grad_accum
-        trainable = [p for p in self.model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        self.trainable_names = [n for n, _ in named]
+        self.trainable = trainable = [p for _, p in named]
+        self.grad_clip_norm = float(cfg.optimizer.get("grad_clip_norm") or 0.0)
+        self.grad_norm: Optional[torch.Tensor] = None   # before the last update's clip
         self.optimizer, self.schedule = build_optimizer(
             trainable, cfg.optimizer,
             steps_per_epoch=len(self.train_dataloader),
@@ -243,6 +268,25 @@ class Trainer:
         (``training.save_on_preemption``, default true)."""
         self._preempt_flag = True
 
+    def set_dataset(self, dataset) -> None:
+        """The dataset handed in; a ``str`` is a JSON file. ``None`` takes
+        ``data.hf_dataset_name`` (``datasets`` imported here) or
+        ``data.json_dataset_name``."""
+        if dataset is None:
+            data_cfg = self.config.data
+            if data_cfg.get("hf_dataset_name"):
+                from datasets import load_dataset
+
+                dataset = load_dataset(data_cfg.hf_dataset_name)
+            elif data_cfg.get("json_dataset_name"):
+                dataset = data_cfg.json_dataset_name
+            else:
+                raise ValueError("No dataset provided")
+        if isinstance(dataset, str):
+            with open(dataset) as f:
+                dataset = json.load(f)
+        self.dataset = dataset
+
     def set_model(self, model) -> None:
         if model is None:
             model_class = NAME2MODEL[self.config.model.model_class]
@@ -288,9 +332,12 @@ class Trainer:
         )
 
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """Numpy columns -> tensors on the device (other columns stay out)."""
+        """Numpy columns -> tensors on the device (other columns stay out).
+        float64 columns (a JSON dataset's lists) arrive as float32, as JAX
+        without 64-bit mode places them."""
         return {
-            k: torch.from_numpy(v).to(self.device, non_blocking=True)
+            k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v).to(
+                self.device, non_blocking=True)
             for k, v in batch.items()
             if isinstance(v, np.ndarray)
         }
@@ -327,6 +374,8 @@ class Trainer:
         (out.loss / self.grad_accum).backward()
         self.n_micro += 1
         if self.n_micro % self.grad_accum == 0:
+            if self.grad_clip_norm:
+                self.grad_norm = clip_by_global_norm(self.trainable, self.grad_clip_norm)
             for group in self.optimizer.param_groups:
                 group["lr"] = self.schedule(self.n_updates)
             self.optimizer.step()
@@ -355,7 +404,7 @@ class Trainer:
         loader = self.train_dataloader if eval_train_set else self.test_dataloader
         for model_inputs, unused_inputs in loader:
             with self.autocast():
-                out = self.model(**self.to_device(model_inputs), generator=self.generator)
+                out = self.model(**self.to_device(model_inputs), generator=self.eval_generator)
             readback.add((model_inputs, unused_inputs), out.to_dict())
         readback.flush()
         total_examples = float(sum(examples))
@@ -366,6 +415,10 @@ class Trainer:
     # ----------------------------------------------------------------- train
 
     def train(self) -> None:
+        """Train to ``max_steps`` (or ``num_epochs``' worth of steps). After
+        :meth:`resume_from` the step count continues from the restored step,
+        which counts against the same budget; the interrupted epoch's order is
+        derived again from ``(seed, epoch)`` and its consumed batches skipped."""
         cfg = self.config
         self.print_v(f"Starting run {cfg.savestring}", verbosity=0)
         max_steps = cfg.training.get("max_steps")
@@ -375,6 +428,15 @@ class Trainer:
         steps_per_epoch = max(len(self.train_dataloader), 1)
         n_epochs = int(cfg.training.num_epochs)
         budget = int(max_steps) if max_steps else steps_per_epoch * n_epochs
+        step = self._resume_step + 1
+        self._resume_step = 0
+        if step > budget:
+            self.print_v(f"Nothing to do: resumed at step {step - 1} with a budget of "
+                         f"{budget} steps", verbosity=1)
+            return
+        start_epoch = (step - 1) // steps_per_epoch + 1
+        profile_cfg = cfg.get("profile") or {}
+        profiler = None
 
         train_loss, train_examples = [], []
         train_metrics: Dict[str, List[float]] = {name: [] for name in self.metric_fns}
@@ -403,13 +465,19 @@ class Trainer:
             except ValueError:     # not the main thread: request_preemption() remains
                 previous_handler = None
         try:
-            step = 1
-            for epoch in range(1, n_epochs + 1):
+            for epoch in range(min(start_epoch, n_epochs), n_epochs + 1):
                 self.print_v(f"Epoch {epoch}", verbosity=1)
-                self.train_dataloader.set_epoch(epoch)
+                self.train_dataloader.set_epoch(
+                    epoch, skip_batches=(step - 1) % steps_per_epoch)
                 for model_inputs, unused_inputs in self.train_dataloader:
+                    if profile_cfg and step == profile_cfg.get("start_step"):
+                        profiler = self.start_profiler()
                     outputs = self.train_step(self.to_device(model_inputs))
                     readback.add((step, model_inputs, unused_inputs), outputs)
+                    if profiler is not None and step == (
+                            profile_cfg.get("start_step") + profile_cfg.get("num_steps", 5) - 1):
+                        self.stop_profiler(profiler, profile_cfg)
+                        profiler = None
 
                     if self._preempt_flag:
                         self.print_v(f"Preemption: saving at step {step} and stopping",
@@ -467,10 +535,39 @@ class Trainer:
             readback.flush()
             self.print_v("Training done", verbosity=1)
         finally:
+            if profiler is not None:
+                self.stop_profiler(profiler, profile_cfg)
             if self.writer is not None:
                 self.writer.flush()
             if previous_handler is not None:
                 signal.signal(signal.SIGTERM, previous_handler)
+
+    def start_profiler(self):
+        """A started ``torch.profiler.profile``: CPU activities, and CUDA ones
+        on the card."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def stop_profiler(self, profiler, profile_cfg) -> str:
+        """Synchronise, stop, and write the Chrome trace to ``profile.dir``;
+        returns its path."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        out_dir = profile_cfg.get("dir") or "profiles"
+        os.makedirs(out_dir, exist_ok=True)
+        start = int(profile_cfg.get("start_step"))
+        path = os.path.join(out_dir, f"{self.config.savestring}_steps{start}-{self.n_micro}"
+                                     ".trace.json")
+        profiler.export_chrome_trace(path)
+        self.print_v(f"Profiler trace written to {path}", verbosity=1)
+        return path
 
     def log_eval(self, step, train_avg, train_avg_metrics, test_loss, test_metrics,
                  throughput) -> None:
@@ -491,7 +588,9 @@ class Trainer:
 
     def save_checkpoint(self, tag: str) -> None:
         """``STEP{n}/``: the model's ``state_dict`` (or its own component
-        blobs and configs), the optimizer's ``state_dict`` and the config."""
+        blobs and configs), the optimizer's ``state_dict`` and the config;
+        and the full train state of the current step
+        (:meth:`save_train_state`)."""
         path = os.path.join(self.checkpoint_dir, tag)
         os.makedirs(path, exist_ok=True)
         self.print_v(f"Saving checkpoint to {path}", verbosity=1)
@@ -504,3 +603,93 @@ class Trainer:
         torch.save(self.optimizer.state_dict(), os.path.join(path, "optimizer.pt"))
         with open(os.path.join(path, "trainer_config.yaml"), "w") as f:
             yaml.safe_dump(to_plain_dict(self.config), f)
+        self.save_train_state()
+
+    def train_state_dir(self) -> str:
+        return os.path.join(self.checkpoint_dir, "train_state")
+
+    def frozen_state_keys(self) -> set:
+        """The model's leaves that do not train: parameters without a
+        gradient, and the int8 base's ``kernel`` / ``kernel_scale`` buffers."""
+        frozen = {n for n, p in self.model.named_parameters() if not p.requires_grad}
+        frozen |= {n for n, _ in self.model.named_buffers()
+                   if n.endswith((".kernel", ".kernel_scale"))}
+        return frozen
+
+    def save_train_state(self) -> str:
+        """``train_state/<step>/`` (``training/checkpoint.py``): the model's
+        ``state_dict`` (without its frozen leaves under
+        ``training.component_blobs: false``), the optimizer's, the update and
+        step counts, both generators' states and the partial gradients of an
+        open accumulation window; and ``resume_meta.json``, the dataloader
+        geometry that a mid-epoch resume assumes."""
+        model_state = self.model.state_dict()
+        if not bool(self.config.training.get("component_blobs", True)):
+            frozen = self.frozen_state_keys()
+            model_state = {k: v for k, v in model_state.items() if k not in frozen}
+        grads = {}
+        if self.n_micro % self.grad_accum:
+            grads = {n: p.grad for n, p in zip(self.trainable_names, self.trainable)
+                     if p.grad is not None}
+        trainer_state = {
+            "n_updates": self.n_updates, "n_micro": self.n_micro,
+            "generator": self.generator.get_state(),
+            "eval_generator": self.eval_generator.get_state(), "grads": grads,
+        }
+        path = checkpoint.save_train_state(self.train_state_dir(), self.n_micro, {
+            "model": model_state,
+            "optimizer": checkpoint.optimizer_state(self.optimizer, self.trainable_names),
+            "trainer": trainer_state,
+        })
+        meta = {
+            "steps_per_epoch": len(self.train_dataloader),
+            "train_batch_size": int(self.config.training.train_batch_size),
+            "train_dataset_len": len(self.train_dataloader.dataset),
+        }
+        with open(os.path.join(self.checkpoint_dir, "resume_meta.json"), "w") as f:
+            json.dump(meta, f)
+        return path
+
+    def resume_from(self, directory: Optional[str] = None) -> int:
+        """Restore the newest full train state under ``directory`` (default
+        ``train_state/`` of this run) and return its step; the next
+        :meth:`train` continues from it. Raises ``FileNotFoundError`` when
+        there is none; warns when the dataloader geometry differs from the
+        saved run's, since the mid-epoch skip is derived from it."""
+        directory = directory or self.train_state_dir()
+        meta_path = os.path.join(os.path.dirname(os.path.abspath(directory)),
+                                 "resume_meta.json")
+        if os.path.exists(meta_path):
+            try:
+                with open(meta_path) as f:
+                    meta = json.load(f)
+            except (OSError, ValueError):
+                meta = {}
+            saved_spe = meta.get("steps_per_epoch")
+            live_spe = len(self.train_dataloader)
+            if saved_spe is not None and int(saved_spe) != live_spe:
+                self.print_v(
+                    "WARNING: resuming with a different dataloader geometry than the "
+                    f"checkpointed run: steps_per_epoch {saved_spe} (saved: batch_size="
+                    f"{meta.get('train_batch_size')}, dataset_len="
+                    f"{meta.get('train_dataset_len')}) vs {live_spe} now. The mid-epoch "
+                    "fast-forward derives skip_batches from steps_per_epoch, so the resumed "
+                    "run will NOT replay the interrupted epoch's exact batches — restore the "
+                    "original batch size/dataset for a deterministic resume.",
+                    verbosity=3,
+                )
+        step, parts = checkpoint.load_train_state(directory)
+        checkpoint.overlay_model_state(self.model, parts["model"])
+        checkpoint.overlay_optimizer_state(self.optimizer, self.trainable_names,
+                                           self.trainable, parts["optimizer"])
+        state = parts["trainer"]
+        self.n_updates, self.n_micro = int(state["n_updates"]), int(state["n_micro"])
+        checkpoint.restore_generator(self.generator, state.get("generator"), "generator")
+        checkpoint.restore_generator(self.eval_generator, state.get("eval_generator"),
+                                     "eval generator")
+        grads = state.get("grads") or {}
+        for name, p in zip(self.trainable_names, self.trainable):
+            g = grads.get(name)
+            p.grad = None if g is None else g.to(device=p.device, dtype=p.dtype)
+        self._resume_step = int(step)
+        return int(step)

@@ -192,17 +192,19 @@ def test_bridge_matches_reference_export(variant):
 
 def test_unported_options_raise():
     # what is still an open ROADMAP item raises and names it
-    for path, value in ((("factors", "active"), True), (("remat",), True),
-                        (("from_pt",), "some/dir")):
-        cfg = model_config()
-        node = cfg["encoder"]
-        if len(path) == 2:
-            node = node.setdefault(path[0], {})
-        node[path[-1]] = value
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tndt1.NDT1.from_config(cfg, method_name="ctc", vocab_size=V)
+    cfg = model_config()
+    cfg["encoder"]["from_pt"] = "some/dir"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tndt1.NDT1.from_config(cfg, method_name="ctc", vocab_size=V)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tndt1.NDT1.from_config(model_config(), method_name="endtoend")
+    # active factors and remat are ported (tests/test_torch_port_factors.py and
+    # tests/test_torch_port_remat.py hold them to the JAX package)
+    cfg = model_config()
+    cfg["encoder"]["factors"] = {"active": True, "size": 16}
+    cfg["encoder"]["remat"] = True
+    model = tndt1.NDT1.from_config(cfg, method_name="ctc", vocab_size=V)
+    assert model.encoder.remat and model.decoder.in_features == 16
 
 
 def test_ndt1_ctc_bf16_autocast_close_to_jax_bf16():
