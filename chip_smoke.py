@@ -167,10 +167,33 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    fresh trainer: the frozen int8 leaves bit-equal to the live ones, the
    trainable leaves and AdamW moments equal to the saved ones, its size on
    disk and seconds; ``entry()`` on the card within 1e-4 of
-   ``entry(device="cpu")``, through ``ctc_alpha_kernel``.
+   ``entry(device="cpu")``, through ``ctc_alpha_kernel``;
+16. checkpoint interop (``warm-start``), the card's name and power limit
+   first: A. NDT1-mlm at phase 6's widths pretrained 2 steps through
+   ``llm_bci_tpu_torch.main`` (``STEP2``: ``encoder.pt``, ``decoder.pt``,
+   ``encoder_config.yaml``), then a ``ctc`` fine-tune of 2 steps from it by
+   ``-k model.encoder.from_pt`` in a fresh CLI process (``warm_start_cli``)
+   on speechbci files of 896-1024 bins: the encoder bit-equal to the saved one
+   before the first update, the head the fresh init of the seed, unstacked by
+   the re-merged config (T' up to 1024): 10 flash forward, delta, dQ and dK/dV
+   launches and 2 of ``ctc_alpha_beta_kernel`` on the global-scratch plan; the
+   first step's loss against the plain CTC on its log-probs (rtol 1e-4, atol
+   1e-4 a row), and the kernels held to the plain version at those log-probs
+   with phase 3's gates and timed; B. the flagship after 2 steps exported with
+   ``ndt1_save_reference_checkpoint`` and built again by ``from_pt`` as
+   ``ctc`` and as ``endtoend``: the eval loss bit-equal (cuDNN
+   deterministic), the files' sizes and seconds; C. the BCI of phase 8 (int8
+   base) trained one step, exported without its base (``encoder.bin``,
+   ``projector.bin``, the PEFT adapter) and imported into a fresh int8 BCI
+   whose base comes from the same seed: greedy ids equal, the imported
+   model's ``cluster`` and ``tiled`` launches counted, neither
+   ``transformers`` nor ``safetensors`` imported; D. iTransformer ssl ->
+   choice and PatchTST mlm -> ``ctc`` (B=16) at their configs' widths, 2 + 2
+   steps: the encoder (and the running averages) carried bit-equal, the
+   PatchTST fine-tune on the CTC pair.
 
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train|cosmooth|
-phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state`` runs one phase (for
+phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state|warm-start`` runs one phase (for
 development); ``--profile PATH`` writes ``torch.profiler`` tables of the
 NDT1-CTC and mlm train steps, the replayed BCI greedy token steps, the
 fine-tune step, one folded co-smoothing pass at each shape and the
@@ -3223,6 +3246,415 @@ def profile_step(trainer, batch, power_line: str, path: str, phase: str, label: 
         say(phase, f"  {us / 1e3 / 3:9.3f} ms/step {us / total:7.3%} {name}")
 
 
+# ---------------------------------------------------------------------------
+# Warm start and checkpoint interop: the pretrain -> fine-tune chains and the
+# reference format
+# ---------------------------------------------------------------------------
+
+
+def warm_start_cli(argv: list) -> None:
+    """``python -m llm_bci_tpu_torch.main <argv[1:]>`` in this process, a
+    fine-tune with ``model.encoder.from_pt``; writes to the JSON file
+    ``argv[0]``, and its log-probs and CTC inputs to ``argv[0] + ".pt"``:
+    whether the encoder was carried bit-equal from the ``from_pt``
+    directory's ``encoder.pt`` and the head is a fresh init (the model built
+    again from the same seed on the CPU) before the first update, the first
+    step's loss and CTC inputs, T' and the CTC plan, the flash and CTC
+    kernels' launches of the run."""
+    import runpy
+
+    import torch
+    from llm_bci_tpu_torch.config import DictConfig
+    from llm_bci_tpu_torch.models.ndt1 import NDT1, stacked_lengths
+    from llm_bci_tpu_torch.ops import ctc_cuda
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+    from llm_bci_tpu_torch.training.trainer import Trainer
+
+    out, sys.argv = argv[0], ["llm_bci_tpu_torch.main", *argv[1:]]
+    record: dict = {}
+    real_step = Trainer.train_step
+
+    def first_step(trainer, batch):
+        if trainer.n_micro:
+            return real_step(trainer, batch)
+        enc_pt = trainer.config.model.encoder.from_pt
+        saved = torch.load(os.path.join(enc_pt, "encoder.pt"), map_location="cpu",
+                           weights_only=True)
+        live = trainer.model.encoder.state_dict()
+        record.update(
+            encoder_tensors=len(saved),
+            encoder_carried=set(live) == set(saved) and all(
+                torch.equal(live[k].cpu(), v) for k, v in saved.items()))
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(int(trainer.config.seed))
+            fresh = NDT1.from_config(DictConfig(trainer.config.model),
+                                     **dict(trainer.config.method.model_kwargs))
+        res = real_step(trainer, batch)
+        lp = res["preds"]
+        stack = trainer.model.config["encoder"]["embedder"]["stack"]
+        il = stacked_lengths(batch["spikes_lengths"], stack["size"], stack["stride"],
+                             stack["active"])
+        torch.save({"log_probs": lp.cpu(), "targets": batch["targets"].cpu(),
+                    "input_lengths": il.cpu(), "target_lengths": batch["targets_lengths"].cpu()},
+                   out + ".pt")
+        record.update(
+            decoder_fresh=all(torch.equal(v, trainer_head[k]) for k, v in
+                              fresh.decoder.state_dict().items()),
+            loss=float(res["loss"]), frames=int(lp.shape[1]), batch=int(lp.shape[0]),
+            layers=len(trainer.model.encoder.layers),
+            plan=ctc_cuda.ctc_plan(int(lp.shape[1]), int(batch["targets"].shape[1]),
+                                   int(lp.shape[2]), want_grad=True).lattice)
+        return res
+
+    real_warm = NDT1.warm_start
+    trainer_head: dict = {}
+
+    def warm_start(model):
+        real_warm(model)
+        trainer_head.update({k: v.clone() for k, v in model.decoder.state_dict().items()})
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    ctc_cuda.reset_counters()
+    fc.reset_counters()
+    Trainer.train_step, NDT1.warm_start = first_step, warm_start
+    try:
+        runpy.run_module("llm_bci_tpu_torch.main", run_name="__main__", alter_sys=True)
+    finally:
+        Trainer.train_step, NDT1.warm_start = real_step, real_warm
+    torch.cuda.synchronize()
+    record["launches"] = {
+        FWD_WG: fc.FWD_LAUNCHES, DQ_WG: fc.BWD_DQ_LAUNCHES, DKV_WG: fc.BWD_DKV_LAUNCHES,
+        "flash_delta_kernel": fc.BWD_DELTA_LAUNCHES, "ctc_alpha_kernel": ctc_cuda.FWD_LAUNCHES,
+        "ctc_alpha_beta_kernel": ctc_cuda.FUSED_LAUNCHES}
+    with open(out, "w") as f:
+        json.dump(record, f)
+
+
+def cli_kwargs(data: list, ckpt: str, steps: int, *extra) -> list:
+    """``-k`` pairs of a run of ``steps`` steps on ``data``, saved under ``ckpt``."""
+    return ["-k", *data, f"dirs.checkpoint_dir={ckpt}", "dirs.log_dir=null", "verbosity=1",
+            f"training.max_steps={steps}", *extra]
+
+
+def carried(model, step_dir: str, prefix: str = "encoder.") -> int:
+    """The model's tensors under ``prefix`` equal ``step_dir/encoder.pt``'s
+    bit for bit; returns their count."""
+    import torch
+
+    saved = torch.load(os.path.join(step_dir, "encoder.pt"), map_location="cpu",
+                       weights_only=True)
+    live = {k[len(prefix):]: v.cpu() for k, v in model.state_dict().items()
+            if k.startswith(prefix)}
+    if set(live) != set(saved) or any(not torch.equal(live[k], v) for k, v in saved.items()):
+        raise AssertionError(f"the encoder was not carried bit-equal from {step_dir}")
+    return len(saved)
+
+
+def ndt1_mlm_to_ctc(tmp: str, power_line: str, device: str = "cuda") -> dict:
+    """Leg A: NDT1-mlm pretrained 2 steps at the mlm phase's widths, then a
+    ``ctc`` fine-tune of 2 steps in a fresh CLI process from its ``STEP2``
+    (unstacked by the re-merged config: T' up to 1024, the flash kernels and
+    the CTC kernels' global-scratch plan); ``ctc_alpha_beta_kernel`` timed
+    at the fine-tune's first log-probs. Returns the fine-tune's launches."""
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+
+    write_spike_pickle(os.path.join(tmp, "spikes.pkl"))
+    t0 = time.perf_counter()
+    pre = port_main.main(port_main.parse_args([
+        "-c", os.path.join(REPO, "configs", "trainer_ssl_ndt1.yaml"),
+        *cli_kwargs([*MLM_OVERRIDES, f"data.data_dir={tmp}", "data.data_file=spikes.pkl"],
+                  os.path.join(tmp, "pre"), 2, "training.eval_every=null",
+                  "training.save_every=2")]))
+    pre_s = time.perf_counter() - t0
+    step = os.path.join(pre.checkpoint_dir, "STEP2")
+    files = sorted(os.listdir(step))
+    if files != ["decoder.pt", "encoder.pt", "encoder_config.yaml", "optimizer.pt",
+                 "trainer_config.yaml"]:
+        raise AssertionError(f"mlm STEP2 holds {files}")
+    del pre
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mat = write_mat_dataset(os.path.join(tmp, "mat_long"), n_train=64, n_test=4,
+                            bins=(896, 1024), channels=128)
+    out = os.path.join(tmp, "ft.json")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import sys, chip_smoke; chip_smoke.warm_start_cli("
+                    "sys.argv[1:])", out, "-c",
+                    os.path.join(REPO, "configs", "trainer_ctc_ndt1.yaml"),
+                    *cli_kwargs([f"data.data_dir={mat}"], os.path.join(tmp, "ft"), 2,
+                              f"model.encoder.from_pt={step}", "training.eval_every=null",
+                              "training.save_every=null")],
+                   cwd=REPO, check=True, timeout=600)
+    ft_s = time.perf_counter() - t0
+    with open(out) as f:
+        rec = json.load(f)
+    launches = rec["launches"]
+    flash = rec["layers"] * 2          # a launch a layer a step
+    want = {FWD_WG: flash, DQ_WG: flash, DKV_WG: flash, "flash_delta_kernel": flash,
+            "ctc_alpha_kernel": 0, "ctc_alpha_beta_kernel": 2}
+    if not (rec["encoder_carried"] and rec["decoder_fresh"]):
+        raise AssertionError(f"fine-tune: encoder carried {rec['encoder_carried']}, decoder "
+                             f"fresh {rec['decoder_fresh']}")
+    if launches != want or rec["plan"] != "global" or rec["frames"] < 512:
+        raise AssertionError(f"fine-tune: launches {launches} (want {want}), T'={rec['frames']}, "
+                             f"plan {rec['plan']}")
+    # the first step's loss against the plain CTC on its own log-probs (the
+    # kernels' launches of this check are not the main path's)
+    from llm_bci_tpu_torch.ops.ctc import ctc_loss_plain
+
+    inputs = torch.load(out + ".pt", weights_only=True)
+    lp = inputs["log_probs"].to(device)
+    targets, il, tl = (inputs[k].to(device).int() for k in
+                       ("targets", "input_lengths", "target_lengths"))
+    plain = ctc_loss_plain(lp.double(), targets, il, tl).sum().item()
+    if not abs(rec["loss"] - plain) <= 1e-4 * abs(plain) + 1e-4 * lp.shape[0]:
+        raise AssertionError(f"fine-tune step 1 loss {rec['loss']} vs the plain CTC {plain}")
+    ctc_check("warm-start ctc fine-tune", lp, targets, il, tl, True, "global")
+    t = {**ctc_times(lp, targets, il, tl), **ctc_eager_times(lp, targets, il, tl, False)}
+    fwd_bound, fused_bound = ctc_bounds(lp, targets, il, tl)
+    say("warm", f"A. NDT1 mlm -> ctc ({rec['layers']} layers): mlm pretrain 2 steps + save in {pre_s:.1f} s "
+        f"(STEP2: {files[:3]}); ctc fine-tune from it in a fresh CLI process, 2 steps in "
+        f"{ft_s:.1f} s with its start-up: {rec['encoder_tensors']} encoder tensors bit-equal to "
+        f"encoder.pt before the first update, the head the fresh init; B={rec['batch']} "
+        f"T'={rec['frames']} unstacked, CTC plan {rec['plan']}; step 1 loss {rec['loss']:.4f} "
+        f"vs plain {plain:.4f}; launches {launches}; at these log-probs (CUDA graphs of 20) "
+        f"ctc_alpha_kernel {t['fwd_ms']:.4f} ms (bound {fwd_bound['bound_ms']:.5f} ms, "
+        f"{fwd_bound['bound_by']}), ctc_alpha_beta_kernel {t['fused_ms']:.4f} ms, the pair "
+        f"{t['pair_ms']:.4f} ms (bound {fused_bound['bound_ms']:.5f} ms, "
+        f"{fused_bound['bound_by']}); F.ctc_loss (eager) forward {t['lib_fwd_ms']:.4f} ms, "
+        f"forward + backward {t['lib_pair_ms']:.4f} ms; card {power_line}")
+    return launches
+
+
+def flagship_round_trip(tmp: str, power_line: str) -> dict:
+    """Leg B: the NDT1-CTC flagship after 2 steps exported to the reference
+    format, and built again from it by ``from_pt``, as ``ctc`` and as
+    ``endtoend``: the eval loss bit-equal to the exporting model's."""
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+    from llm_bci_tpu_torch.config import DictConfig
+    from llm_bci_tpu_torch.interop.torch_export import ndt1_save_reference_checkpoint
+    from llm_bci_tpu_torch.models.ndt1 import NDT1
+    from llm_bci_tpu_torch.ops import ctc_cuda
+
+    mat = write_mat_dataset(os.path.join(tmp, "mat"), n_train=64, n_test=8)
+    trainer = port_main.main(port_main.parse_args(flagship_args(mat, os.path.join(tmp, "flag"))
+                                                  + ["training.max_steps=2"]))
+    ref = os.path.join(tmp, "flagship_ref")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ndt1_save_reference_checkpoint(trainer.model, ref)
+    export_s = time.perf_counter() - t0
+    sizes = {name: os.path.getsize(os.path.join(ref, name)) for name in sorted(os.listdir(ref))}
+    batch = trainer.to_device(next(iter(trainer.test_dataloader))[0])
+    kwargs = dict(trainer.config.method.model_kwargs)
+
+    def eval_loss(model) -> "torch.Tensor":
+        model.eval()
+        with torch.no_grad(), trainer.autocast():
+            return model(**batch).loss
+
+    ctc_cuda.reset_counters()
+    losses = {"exporting": eval_loss(trainer.model)}
+    import_s = {}
+    for method in ("ctc", "endtoend"):
+        cfg = DictConfig(trainer.config.model)
+        cfg["encoder"]["from_pt"] = ref
+        t0 = time.perf_counter()
+        model = NDT1.from_config(cfg, **{**kwargs, "method_name": method})
+        model.warm_start()
+        model = model.to(trainer.device)
+        torch.cuda.synchronize()
+        import_s[method] = time.perf_counter() - t0
+        losses[method] = eval_loss(model)
+        del model
+    launches = {"ctc_alpha_kernel": ctc_cuda.FWD_LAUNCHES}
+    if launches["ctc_alpha_kernel"] != 3 or ctc_cuda.FUSED_LAUNCHES:
+        raise AssertionError(f"round trip: CTC launches {launches}")
+    if not all(torch.equal(losses["exporting"], v) for v in losses.values()):
+        raise AssertionError(f"round trip: eval losses {[float(v) for v in losses.values()]}")
+    say("warm", f"B. NDT1-CTC flagship (5 x 1024, stack 32/4) after 2 steps, exported to the "
+        f"reference format in {export_s:.2f} s ({', '.join(f'{k} {v / 2**20:.1f} MiB' for k, v in sizes.items())}); "
+        f"built again by from_pt as ctc in {import_s['ctc']:.2f} s and as endtoend in "
+        f"{import_s['endtoend']:.2f} s: eval loss {float(losses['exporting']):.6f} bit-equal in "
+        f"all three (B={batch['spikes'].shape[0]}, cuDNN deterministic); card {power_line}")
+    del trainer
+    return launches
+
+
+def bci_reference_round_trip(tmp: str, power_line: str, device: str = "cuda") -> dict:
+    """Leg C: the BCI at Llama-2-7B width (32 layers, int8 base) trained one
+    step (LoRA B non-zero), exported without its base (the inner NDT1's
+    ``encoder.bin``, ``projector.bin`` and the PEFT adapter), imported into a
+    fresh int8 BCI whose base comes from the same seed: the same greedy
+    tokens, the int8 launches of the imported model's decode counted."""
+    import torch
+    from llm_bci_tpu_torch.config import DictConfig
+    from llm_bci_tpu_torch.interop.torch_export import bci_save_reference_checkpoint
+    from llm_bci_tpu_torch.models.bci import BCI
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+    llm_path = write_llama_config(tmp, 32)
+    model, _ = build_bci(llm_path, "int8", device)
+    batch = bci_serving_batch(device)
+    rows = bci_rows(BCI_B, seed=0)
+    targets = torch.from_numpy(np.stack([r["labels"] for r in rows])).to(device)
+    model.train()
+    opt = torch.optim.AdamW([p for p in model.parameters() if p.requires_grad], lr=1e-3)
+    with torch.autocast(device, dtype=torch.bfloat16):
+        model(**batch, targets=targets).loss.backward()
+    opt.step()
+    del opt
+    model.zero_grad(set_to_none=True)
+    model.eval()
+    if any(float(p.detach().abs().max()) == 0.0 for n, p in model.named_parameters()
+           if n.endswith("lora_B")):
+        raise AssertionError("a LoRA B stayed zero after the training step")
+    with torch.autocast(device, dtype=torch.bfloat16):
+        want = model.generate(**batch, max_new_tokens=32, eos_token_id=-1)
+    ref = os.path.join(tmp, "bci_ref")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bci_save_reference_checkpoint(model, ref, include_base=False)
+    export_s = time.perf_counter() - t0
+    sizes = {name: os.path.getsize(os.path.join(ref, name)) for name in sorted(os.listdir(ref))}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.manual_seed(0)              # build_bci's seed: the same int8 base
+    t0 = time.perf_counter()
+    fresh = BCI.from_config(
+        DictConfig({"from_pt": ref, "ndt1": {"encoder": {"embedder": {
+            "n_channels": BCI_CHANNELS}}}}),
+        method_name="endtoend", llm_path=llm_path, lora=dict(LORA), freeze_llm=False,
+        quantize="int8", compute_dtype="bfloat16", device=device)
+    fresh.warm_start()
+    fresh = fresh.to(device).eval()
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    ic.reset_counters()
+    with torch.autocast(device, dtype=torch.bfloat16):
+        got = fresh.generate(**batch, max_new_tokens=32, eos_token_id=-1)
+    torch.cuda.synchronize()
+    launches = int8_launches()
+    if not torch.equal(got, want):
+        raise AssertionError(f"greedy tokens after the reference-format import differ: "
+                             f"{(got != want).sum().item()} of {got.numel()}")
+    if not (launches[INT8_TILED] and launches[INT8_CLUSTER]):
+        raise AssertionError(f"int8 launches of the imported model's decode: {launches}")
+    present = [m for m in ("transformers", "safetensors") if m in sys.modules]
+    if present:
+        raise AssertionError(f"the reference-format round trip imported {present}")
+    say("warm", f"C. BCI (32 layers x 7B width, int8 base, LoRA r=8 trained 1 step) exported "
+        f"without its base in {export_s:.2f} s ({', '.join(f'{k} {v / 2**20:.1f} MiB' for k, v in sizes.items())}); "
+        f"a fresh int8 BCI from the same seed built and imported in {import_s:.2f} s: greedy "
+        f"{tuple(got.shape)} tokens equal to the exporting model's; int8 launches of its decode "
+        f"{launches}; neither transformers nor safetensors imported; card {power_line}")
+    del fresh
+    return launches
+
+
+def itransformer_patchtst_chains(tmp: str, power_line: str) -> dict:
+    """Leg D: iTransformer ssl -> ``stat_behaviour`` (choice) and PatchTST mlm
+    -> ``ctc`` at their phases' widths, 2 steps each side: the encoder carried
+    bit-equal (PatchTST's BatchNorm running averages with it), the PatchTST
+    ``ctc`` fine-tune on the CTC pair."""
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+    from llm_bci_tpu_torch.config import update_config
+    from llm_bci_tpu_torch.ops import ctc_cuda
+
+    ibl = COSMOOTH_IBL
+    total = dict.fromkeys(CTC_KERNELS, 0)
+    steps = {}
+    for model, pre_cfg, pre_data, ft_cfg, ft_data in (
+            ("itransformer", "trainer_ssl_itransformer.yaml", "ibl",
+             "trainer_choice_itransformer.yaml", "ibl"),
+            ("patchtst", "trainer_ssl_itransformer.yaml", "ibl", "trainer_ctc_ndt1.yaml", "mat")):
+        root = os.path.join(tmp, model)
+        os.makedirs(root)
+        cfg_of = lambda base: (os.path.join(REPO, "configs", base) if model == "itransformer"
+                               else trainer_yaml(root, base, "patchtst.yaml"))
+        data = {"ibl": ["data.data_load=file", f"data.data_dir={root}", "data.data_file=ibl.pkl"],
+                "mat": [f"data.data_dir={os.path.join(root, 'mat')}",
+                        "training.train_batch_size=16", "training.test_batch_size=16"]}
+        if ft_data == "mat":
+            write_mat_dataset(os.path.join(root, "mat"), n_train=32, n_test=16)
+        write_spike_pickle(os.path.join(root, "ibl.pkl"), *IBL_SPLIT,
+                           bins=(ibl["bins"], ibl["bins"]), channels=ibl["channels"],
+                           n_regions=ibl["regions"],
+                           data_config=update_config(
+                               os.path.join(REPO, "configs", "trainer_choice_itransformer.yaml"),
+                               None).data)
+        pre = port_main.main(port_main.parse_args([
+            "-c", cfg_of(pre_cfg), *cli_kwargs(data[pre_data], os.path.join(root, "pre"), 2,
+                                             "training.eval_every=null", "training.save_every=2")]))
+        step = os.path.join(pre.checkpoint_dir, "STEP2")
+        del pre
+        ctc_cuda.reset_counters()
+        ft = port_main.build_trainer(port_main.parse_args([
+            "-c", cfg_of(ft_cfg), *cli_kwargs(data[ft_data], os.path.join(root, "ft"), 2,
+                                            f"model.encoder.from_pt={step}",
+                                            "training.eval_every=2", "training.save_every=null")]))
+        n = carried(ft.model, step)
+        stats = sum(k.endswith(("running_mean", "running_var")) for k in ft.model.state_dict())
+        ft.train()
+        torch.cuda.synchronize()
+        launches = {"ctc_alpha_kernel": ctc_cuda.FWD_LAUNCHES,
+                    "ctc_alpha_beta_kernel": ctc_cuda.FUSED_LAUNCHES}
+        h = ft.eval_history[0]
+        if not (np.isfinite(h["train_avg_loss"]) and np.isfinite(h["test_avg_loss"])):
+            raise AssertionError(f"{model} fine-tune: losses {h}")
+        if model == "patchtst":
+            want = {"ctc_alpha_kernel": len(ft.test_dataloader), "ctc_alpha_beta_kernel": 2}
+            if launches != want or stats != 4 * ft.config.model.encoder.num_hidden_layers:
+                raise AssertionError(f"PatchTST ctc fine-tune: CTC launches {launches} (want "
+                                     f"{want}), {stats} running statistics")
+        elif any(launches.values()):
+            raise AssertionError(f"iTransformer choice: CTC launches {launches}")
+        add_launches(total, launches)
+        steps[model] = (n, stats, ft.config.model.model_class, h["test_avg_loss"], launches)
+        del ft
+        gc.collect()
+        torch.cuda.empty_cache()
+    for model, (n, stats, cls, loss, launches) in steps.items():
+        say("warm", f"D. {cls}: {'ssl -> choice' if model == 'itransformer' else 'mlm -> ctc'} "
+            f"at the config's widths, 2 + 2 steps: {n} encoder tensors carried bit-equal "
+            f"({stats} BatchNorm running statistics among them), fine-tune eval loss "
+            f"{loss:.4f}, CTC launches {launches}; card {power_line}")
+    return total
+
+
+def warm_start_phase(power_line: str, profile=None) -> dict:
+    """Checkpoint interop at full width: legs A-D (``ndt1_mlm_to_ctc``,
+    ``flagship_round_trip``, ``bci_reference_round_trip``,
+    ``itransformer_patchtst_chains``)."""
+    import torch
+
+    say("warm", f"card: {nvidia_smi_line()}")
+    total: dict = {}
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        add_launches(total, ndt1_mlm_to_ctc(tmp, power_line))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            add_launches(total, flagship_round_trip(tmp, power_line))
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+        gc.collect()
+        torch.cuda.empty_cache()
+        add_launches(total, bci_reference_round_trip(tmp, power_line))
+        gc.collect()
+        torch.cuda.empty_cache()
+        add_launches(total, itransformer_patchtst_chains(tmp, power_line))
+    return total
+
 KERNELS = {
     # name of the kernel that runs at the timed shape: (source, the TPU kernel
     # it replaces). Float32 and head sizes without a wgmma plan take other
@@ -3297,7 +3729,8 @@ def main(only=None, profile=None) -> int:
                        ("phoneme-llm", lambda p, _: phoneme_llm_phase(p)),
                        ("eval-phonemes", lambda p, _: eval_phonemes_phase(p)),
                        ("itransformer", itransformer_phase), ("patchtst", patchtst_phase),
-                       ("trainer-state", trainer_state_phase)):
+                       ("trainer-state", trainer_state_phase),
+                       ("warm-start", warm_start_phase)):
         if only in (None, phase):
             add_launches(launches, run(power_line, profile))
             # a trainer holds reference cycles: free what the phase left, so
@@ -3324,7 +3757,7 @@ if __name__ == "__main__":
     parser.add_argument("--only", default=None,
                         choices=["ctc", "flash", "int8", "ctc-main", "mlm-main", "bci-serve",
                                  "bci-train", "cosmooth", "phoneme-llm", "eval-phonemes",
-                                 "itransformer", "patchtst", "trainer-state"])
+                                 "itransformer", "patchtst", "trainer-state", "warm-start"])
     parser.add_argument("--profile", metavar="PATH", default=None,
                         help="write the torch.profiler tables of the CTC and mlm train steps, "
                              "the BCI greedy decode, the BCI fine-tune step, a folded "

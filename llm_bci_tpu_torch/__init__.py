@@ -20,9 +20,12 @@ iTransformer, PatchTST and behaviour decoding, their ``ctc`` heads on the CTC
 kernels. The trainer contract is complete on one device: full-state
 checkpoint and resume (``training/checkpoint.py``), ``grad_clip_norm``, remat
 (``models/remat.py``) and profiling; ``entry.py`` is the counterpart of
-``__graft_entry__.entry()``. Multi-device parallelism, reference-format
-checkpoints and ``from_pt`` warm start raise ``NotImplementedError`` naming
-their ROADMAP item.
+``__graft_entry__.entry()``. Slice 10 adds checkpoint interop: component
+checkpoints and ``from_pt`` warm start of NDT1, iTransformer and PatchTST
+(``models/components.py``), NDT1's ``endtoend``, and import and export of the
+reference's PyTorch checkpoint format (``interop/torch_import.py``,
+``interop/torch_export.py``, ``interop/safetensors.py``). Multi-device
+parallelism raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 

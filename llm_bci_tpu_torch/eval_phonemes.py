@@ -2,7 +2,9 @@
 and decoding (counterpart of the repo's ``eval_phonemes.py``).
 
 Reloads the ``trainer_config.yaml`` saved with a checkpoint of the port's
-``Trainer``, rebuilds the trainer with ``test_batch_size=1``, and drives
+``Trainer`` (or a reference checkpoint's torch-pickled ``trainer_config.pth``,
+whose ``encoder.bin`` / ``projector.bin`` / LLM files then import on load),
+rebuilds the trainer with ``test_batch_size=1``, and drives
 ``trainer.evaluate`` with a WER metric fn that strips the target sentence and
 the pad (unk) tokens from the prompt, generates with diverse beam search (one
 group a beam, ``diversity_penalty`` 1.2, every beam returned) or greedily,
@@ -25,8 +27,7 @@ Usage::
 
 The JAX script's persistent compilation cache (``setup_compilation_cache``,
 ``-k compilation_cache=``) has no counterpart: nothing here is compiled ahead
-of a run, and each decode captures its own token step. A reference-format
-checkpoint (``trainer_config.pth``, ``encoder.bin``) is not read yet.
+of a run, and each decode captures its own token step.
 ``transformers`` is imported only to load a tokenizer that was not handed in,
 ``matplotlib`` only by :func:`analyze`.
 """
@@ -40,10 +41,9 @@ import time
 
 import numpy as np
 import torch
-import yaml
 
-from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.config import DictConfig, ParseKwargs, config_from_kwargs
+from llm_bci_tpu_torch.interop.torch_import import load_saved_component_config
 from llm_bci_tpu_torch.data.speechbci import create_llm_labels, load_competition_data
 from llm_bci_tpu_torch.eval.eval_bci import word_error_count
 from llm_bci_tpu_torch.training.trainer import Trainer
@@ -111,15 +111,12 @@ def main(args: argparse.Namespace, dataset=None, tokenizer=None):
     if not from_pt:
         raise SystemExit("pass -k from_pt=<checkpoint dir containing trainer_config.yaml>")
     savestring = kwargs.get("savestring", "test_decoding")
-    path = os.path.join(from_pt, "trainer_config.yaml")
-    if not os.path.isfile(path):
-        if any(os.path.isfile(os.path.join(from_pt, f))
-               for f in ("trainer_config.pth", "encoder.bin")):
-            raise not_ported("Import of a reference-format torch checkpoint "
-                             "(interop/torch_import.py)", "Queue 1, slice 3, left")
-        raise SystemExit(f"{from_pt}: no trainer_config.yaml found")
-    with open(path) as f:
-        config = DictConfig(yaml.safe_load(f))
+    # the port's trainer_config.yaml, or a reference checkpoint's
+    # torch-pickled trainer_config.pth (its weights import on load)
+    saved = load_saved_component_config(from_pt, "trainer")
+    if saved is None:
+        raise SystemExit(f"{from_pt}: no trainer_config.yaml/.pth found")
+    config = DictConfig(saved)
     config["model"]["from_pt"] = from_pt
     config["training"]["test_batch_size"] = 1
     config["data"]["test_len"] = kwargs.get("test_len")

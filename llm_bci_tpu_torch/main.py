@@ -27,7 +27,11 @@ the JAX CLI. ``transformers`` (the tokenizer) is imported only when
 ``data.tokenizer_path`` is set, ``datasets`` only by the ``ibl`` loader.
 ``--device`` defaults to CUDA; the trainer raises when there is no card.
 ``-k training.resume=true`` continues from the newest full train state of
-the run when there is one, and starts fresh otherwise.
+the run when there is one, and starts fresh otherwise. ``-k
+model.encoder.from_pt=<STEP dir>`` (and ``model.decoder.from_pt``) warm-start
+a fine-tune from a pretraining's checkpoint, the port's own or the
+reference's format, its saved component config merged over the live one;
+BCI takes ``method.model_kwargs.load_ndt1_from_pt``.
 """
 from __future__ import annotations
 

@@ -17,14 +17,18 @@ goes through the hand-written int8 kernel (``ops/quant.py``).
   occupy prompt positions and shift every later token.
 * Checkpoints are the port's own: ``llm.pt``, ``encoder.pt`` and
   ``projector.pt`` (``state_dict``s) beside ``projector_config.yaml``,
-  ``encoder_config.yaml`` and ``llama_config.yaml``. A reference-format torch
-  checkpoint (``encoder.bin`` ...) raises ``NotImplementedError``.
+  ``encoder_config.yaml`` and ``llama_config.yaml``; ``from_pt`` re-merges
+  the saved projector and encoder configs, and refuses a directory that holds
+  a component's weights without its config. A reference-format directory
+  (the inner NDT1's ``encoder.bin``, ``projector.bin``, the LLM as Hugging
+  Face weights and / or a PEFT adapter, the configs as ``.pth``) is imported
+  by ``interop/torch_import.py``, the base weights put into this model's
+  quantization layout first; ``interop/torch_export.py`` writes one.
 * Every leaf of the LLM is created on ``device`` in its storage dtype.
 """
 from __future__ import annotations
 
 import dataclasses
-import glob
 import json
 import os
 from typing import Any, Dict, Optional, Sequence
@@ -33,8 +37,14 @@ import torch
 import torch.nn as nn
 import yaml
 
-from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.config import resolve_path, to_plain_dict, update_config
+from llm_bci_tpu_torch.interop.torch_import import (
+    bci_state_dict_from_reference,
+    hf_weight_files,
+    is_torch_checkpoint,
+    load_saved_component_config,
+    ndt1_encoder_state_dict_from_reference,
+)
 from llm_bci_tpu_torch.model_output import ModelOutput
 from llm_bci_tpu_torch.models.generation import (
     BeamResult,
@@ -83,27 +93,6 @@ def splice_embeds(
     t = torch.gather(text, 1, widen(text_idx))
     s = torch.gather(spikes, 1, widen(spike_idx))
     return torch.where(in_spike.reshape(in_spike.shape + (1,) * len(tail)), s, t)
-
-
-def _is_reference_checkpoint(load_dir: str, component: str = "encoder") -> bool:
-    return os.path.isfile(os.path.join(load_dir, f"{component}.bin"))
-
-
-def _saved_component_config(load_dir: str, component: str) -> Optional[Dict]:
-    path = os.path.join(load_dir, f"{component}_config.yaml")
-    if not os.path.isfile(path):
-        return None
-    with open(path) as f:
-        return yaml.safe_load(f)
-
-
-def _has_hf_weights(llm_path: Optional[str]) -> bool:
-    """True when ``llm_path`` holds a Hugging Face checkpoint's weight files
-    (a directory with only ``config.json`` gives the widths and no weights)."""
-    if not llm_path or not os.path.isfile(os.path.join(llm_path, "config.json")):
-        return False
-    return any(glob.glob(os.path.join(llm_path, pat))
-               for pat in ("*.safetensors", "pytorch_model*.bin"))
 
 
 @register_model("BCI")
@@ -158,15 +147,13 @@ class BCI(nn.Module):
         if ndt1_pt:
             cfg["ndt1"]["encoder"]["from_pt"] = ndt1_pt
         if pt_path:
-            if _is_reference_checkpoint(pt_path):
-                raise not_ported("Import of a reference-format torch checkpoint "
-                                 "(interop/torch_import.py)", "Queue 1, slice 3, left")
-            # Re-merge the component configs saved with the checkpoint, so
-            # the reloaded model has the structure of the trained one.
-            saved = _saved_component_config(pt_path, "projector")
+            # Re-merge the component configs saved with the checkpoint (the
+            # port's yaml or the reference's .pth), so the reloaded model has
+            # the structure of the trained one.
+            saved = load_saved_component_config(pt_path, "projector")
             if saved is not None:
                 cfg["projector"] = update_config(cfg["projector"], saved)
-            saved = _saved_component_config(pt_path, "encoder")
+            saved = load_saved_component_config(pt_path, "encoder")
             if saved is not None:
                 cfg["ndt1"]["encoder"] = update_config(cfg["ndt1"]["encoder"], saved)
                 cfg["ndt1"]["encoder"]["from_pt"] = ndt1_pt
@@ -354,10 +341,12 @@ class BCI(nn.Module):
         Every saved key must exist here; the LLM blob may lack frozen leaves
         only, and is put into this model's quantization layout first: a
         checkpoint trained on a bf16 base serves with ``quantize: int8``, and
-        the other way round (:func:`~llm_bci_tpu_torch.models.llama.load_llm_state`)."""
-        if _is_reference_checkpoint(load_dir):
-            raise not_ported("Import of a reference-format torch checkpoint "
-                             "(interop/torch_import.py)", "Queue 1, slice 3, left")
+        the other way round (:func:`~llm_bci_tpu_torch.models.llama.load_llm_state`).
+        A reference-format directory is imported instead
+        (:func:`~llm_bci_tpu_torch.interop.torch_import.bci_state_dict_from_reference`)."""
+        if is_torch_checkpoint(load_dir):
+            self.load_state_dict(bci_state_dict_from_reference(load_dir, self), strict=False)
+            return
         load = lambda name: torch.load(os.path.join(load_dir, name), map_location="cpu",
                                        weights_only=True)
         if os.path.exists(os.path.join(load_dir, "llm.pt")):
@@ -372,19 +361,19 @@ class BCI(nn.Module):
 
     def warm_start(self) -> None:
         """``from_pt``: the whole checkpoint. Else the NDT1 encoder from
-        ``load_ndt1_from_pt`` (a BCI checkpoint's ``encoder.pt`` or an NDT1
-        trainer checkpoint's ``model.pt``) and the Llama base from a Hugging
-        Face checkpoint under ``llm_path``, quantized when ``quant`` is set."""
+        ``load_ndt1_from_pt`` (an NDT1 or BCI checkpoint's ``encoder.pt``, a
+        reference-format ``encoder.bin``, or an older NDT1 trainer
+        checkpoint's ``model.pt``) and the Llama base from a Hugging Face
+        checkpoint under ``llm_path``, quantized when ``quant`` is set."""
         pt_path = self.config.get("from_pt")
         if pt_path:
             self.load_checkpoint_params(pt_path)
             return
         enc_pt = self.config["ndt1"]["encoder"].get("from_pt")
         if enc_pt:
-            if _is_reference_checkpoint(enc_pt):
-                raise not_ported("Import of a reference-format torch checkpoint "
-                                 "(interop/torch_import.py)", "Queue 1, slice 3, left")
-            if os.path.exists(os.path.join(enc_pt, "encoder.pt")):
+            if is_torch_checkpoint(enc_pt):
+                sd = ndt1_encoder_state_dict_from_reference(enc_pt, self.ndt1_encoder, "")
+            elif os.path.exists(os.path.join(enc_pt, "encoder.pt")):
                 sd = torch.load(os.path.join(enc_pt, "encoder.pt"), map_location="cpu",
                                 weights_only=True)
             else:
@@ -394,6 +383,6 @@ class BCI(nn.Module):
                       if k.startswith("encoder.")}
             self.ndt1_encoder.load_state_dict(sd, strict=True)
         llm_path = self.config.get("llm_path")
-        if _has_hf_weights(llm_path):
+        if hf_weight_files(llm_path):
             load_base_state_dict(
                 self.llm, load_hf_llama_params(llm_path, self.llama_config, self.quant))

@@ -12,8 +12,16 @@ the host, and the CLI's region vocabulary also feeds the maskers.
 
 The encoder returns float32; the heads run in float32 outside autocast, so
 the ``ctc`` head hands the CTC kernels float32 log-probs of its own. Maskers,
-dropout and noise draw from the ``generator`` passed in. ``from_pt`` warm
-start raises ``NotImplementedError`` naming its ROADMAP item.
+dropout and noise draw from the ``generator`` passed in.
+
+Checkpoints (``models/components.py``): ``encoder.pt``, ``decoder.pt`` (the
+tensors not under ``encoder``: ``decoder_hidden``, ``decoder_out``) and both
+components' configs; ``encoder.from_pt`` and ``decoder.from_pt`` each
+warm-start their component. A reference-format directory (``encoder.bin``:
+``embed.0.{i}`` + ``embed.1`` or ``embed.embed_spikes.{0,2}``,
+``transformer.layers.{i}.self_attn.in_proj_weight`` for the port's fused
+``qkv`` ...; ``decoder.bin``: the head's Linears in a ``Sequential``) is
+imported by ``interop/torch_import.py``.
 """
 from __future__ import annotations
 
@@ -24,9 +32,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.config import resolve_path, to_plain_dict, update_config
+from llm_bci_tpu_torch.interop.torch_import import itransformer_state_dict_from_reference
 from llm_bci_tpu_torch.model_output import ModelOutput
+from llm_bci_tpu_torch.models.components import ComponentCheckpoints, remerge_saved_configs
 from llm_bci_tpu_torch.models.layers import LN_EPS, MLPStack, TorchEncoderStack
 from llm_bci_tpu_torch.models.masker import MaskerConfig, apply_maskers
 from llm_bci_tpu_torch.models.ndt1 import ACT2FN
@@ -166,7 +175,7 @@ class iTransformerEncoder(nn.Module):
 
 
 @register_model("iTransformer")
-class iTransformer(nn.Module):
+class iTransformer(ComponentCheckpoints, nn.Module):
     """iTransformer with a method head: ``mlm`` (reconstruct each channel's
     bins), ``ctc`` (one Linear to ``vocab * max_n_bins`` outputs, reshaped,
     log-softmax), ``dyn_behaviour`` (a trace of ``max_n_bins``) or
@@ -179,8 +188,6 @@ class iTransformer(nn.Module):
                  zero_infinity: bool = True, n_labels: int = 2):
         super().__init__()
         enc, dec = config["encoder"], config["decoder"]
-        if enc.get("from_pt") or dec.get("from_pt"):
-            raise not_ported("Warm start from_pt", "Queue 1, slice 3, left")
         self.config = config
         self.method_name = method_name
         self.loss_name, self.log_input = loss, log_input
@@ -212,10 +219,15 @@ class iTransformer(nn.Module):
 
     @classmethod
     def from_config(cls, model_config, **method_kwargs) -> "iTransformer":
-        """Merge a trainer-style model config over ``configs/itransformer.yaml``."""
+        """Merge a trainer-style model config over ``configs/itransformer.yaml``,
+        and the config saved beside each component's ``from_pt`` over that."""
         cfg = update_config(resolve_path(DEFAULT_CONFIG), model_config)
+        remerge_saved_configs(cfg, ("encoder", "decoder"))
         kwargs = {k: v for k, v in method_kwargs.items() if k in METHOD_KWARGS}
         return cls(config=to_plain_dict(cfg), **kwargs)
+
+    def reference_state(self, load_dir, components):
+        return itransformer_state_dict_from_reference(load_dir, self, components)
 
     def _decode(self, x: torch.Tensor) -> torch.Tensor:
         """The head, in float32 outside autocast."""

@@ -13,8 +13,17 @@ kernels (``ops/flash_attention.py``: the mask evaluated in the kernel, no
 diagonal, attention-probability dropout inside the kernel). ``remat``
 recomputes each encoder layer in the backward (``models/remat.py``), and an
 active ``factors`` projection maps the trunk to ``factors.size`` before the
-head. Options not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item: the ``endtoend`` method and ``from_pt`` warm start.
+head. ``endtoend`` is the ``ctc`` head and loss under another name.
+
+Checkpoints (``models/components.py``): ``encoder.pt`` (the trunk's tensors,
+``encoder.`` dropped), ``decoder.pt`` (``decoder.weight`` / ``.bias``) and
+``encoder_config.yaml``. ``encoder.from_pt`` warm-starts the trunk, and the
+head too when the directory's head has this model's shape (another method's
+head, as an mlm pretrain's for a ``ctc`` fine-tune, leaves the fresh init);
+``decoder.from_pt`` loads the head from its directory. A reference-format
+directory (``encoder.bin``, ``decoder.bin``: the head as ``0`` of a
+``Sequential``, ``encoder_config.pth``) is imported by
+``interop/torch_import.py``.
 
 Stochastic parts (white / offset noise, maskers, dropout, Poisson sampling
 in ``generate``) draw from an explicit ``torch.Generator`` passed in; with
@@ -24,6 +33,8 @@ in ``generate``) draw from an explicit ``torch.Generator`` passed in; with
 from __future__ import annotations
 
 import math
+import os
+import warnings
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -31,8 +42,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from llm_bci_tpu_torch.config import resolve_path, to_plain_dict, update_config
-from llm_bci_tpu_torch import not_ported
+from llm_bci_tpu_torch.interop.torch_import import (
+    is_torch_checkpoint,
+    load_state_dict_file,
+    ndt1_state_dict_from_reference,
+)
 from llm_bci_tpu_torch.model_output import ModelOutput
+from llm_bci_tpu_torch.models.components import ComponentCheckpoints, remerge_saved_configs
 from llm_bci_tpu_torch.ops.attention import dot_product_attention, dropout, make_attention_mask
 from llm_bci_tpu_torch.ops.context import create_context_mask
 from llm_bci_tpu_torch.models.masker import MaskerConfig, apply_maskers
@@ -448,10 +464,12 @@ class NeuralEncoder(nn.Module):
 
 
 @register_model("NDT1")
-class NDT1(nn.Module):
+class NDT1(ComponentCheckpoints, nn.Module):
     """NDT1 with a method-specific decoder head and loss
     (``llm_bci_tpu/models/ndt1.py:761``). ``method_name`` is ``"mlm"``,
-    ``"autoregressive"`` or ``"ctc"``."""
+    ``"autoregressive"``, ``"ctc"`` or ``"endtoend"``."""
+
+    CONFIG_COMPONENTS = ("encoder",)
 
     def __init__(self, config: Dict[str, Any], method_name: str, loss: str = "poisson_nll",
                  log_input: bool = True, vocab_size: int = 41, blank_id: int = 0,
@@ -470,29 +488,55 @@ class NDT1(nn.Module):
             if enc["embedder"]["stack"]["active"]:
                 raise ValueError("Can't train autoregressive with stacked inputs")
             n_outputs = enc["embedder"]["n_channels"]
-        elif method_name == "ctc":
+        elif method_name in ("ctc", "endtoend"):
             n_outputs = vocab_size
-        elif method_name == "endtoend":
-            raise not_ported("NDT1 method 'endtoend'", "Queue 1, slice 3, left")
         else:
             raise ValueError(f"Method {method_name} not implemented yet for NDT1")
         self.config = config
         self.method_name = method_name
         self.loss_name, self.log_input = loss, log_input
         self.blank_id, self.zero_infinity = blank_id, zero_infinity
-        if enc.get("from_pt") or (config.get("decoder") or {}).get("from_pt"):
-            raise not_ported("Warm start from_pt", "Queue 1, slice 3, left")
         self.encoder = NeuralEncoder(enc)
         self.decoder = _linear(self.encoder.out_size, n_outputs)
 
     @classmethod
     def from_config(cls, model_config, **method_kwargs) -> "NDT1":
-        """Merge a trainer-style model config over ``configs/ndt1.yaml``."""
+        """Merge a trainer-style model config over ``configs/ndt1.yaml``, and
+        the encoder config saved beside ``encoder.from_pt`` over that."""
         cfg = update_config(resolve_path(DEFAULT_CONFIG), model_config)
+        remerge_saved_configs(cfg, ("encoder",))
         kwargs = {k: v for k, v in method_kwargs.items() if k in (
             "method_name", "loss", "log_input", "vocab_size", "blank_id", "zero_infinity"
         )}
         return cls(config=to_plain_dict(cfg), **kwargs)
+
+    def reference_state(self, load_dir, components):
+        return ndt1_state_dict_from_reference(load_dir, self, components)
+
+    def _saved_head_shape(self, load_dir: str) -> Optional[Tuple[int, ...]]:
+        """The shape of the head's weight in ``load_dir``, or None."""
+        if is_torch_checkpoint(load_dir, "decoder"):
+            w = load_state_dict_file(os.path.join(load_dir, "decoder.bin")).get("0.weight")
+        elif os.path.isfile(os.path.join(load_dir, "decoder.pt")):
+            w = load_state_dict_file(os.path.join(load_dir, "decoder.pt")).get("decoder.weight")
+        else:
+            return None
+        return () if w is None else tuple(w.shape)
+
+    def warm_start(self) -> None:
+        """Each component's ``from_pt``; the head also from ``encoder.from_pt``
+        when the head saved there has this model's shape."""
+        super().warm_start()
+        enc_pt = self.config["encoder"].get("from_pt")
+        if not enc_pt or (self.config.get("decoder") or {}).get("from_pt"):
+            return
+        shape = self._saved_head_shape(enc_pt)
+        if shape == tuple(self.decoder.weight.shape):
+            self.load_checkpoint_params(enc_pt, ("decoder",))
+        elif shape is not None:
+            warnings.warn(f"{enc_pt}: the saved head {shape} is not this model's "
+                          f"{tuple(self.decoder.weight.shape)} (another method's); the decoder "
+                          "keeps its fresh init", stacklevel=2)
 
     def _decode(self, x: torch.Tensor) -> torch.Tensor:
         """The head, in float32 outside autocast."""

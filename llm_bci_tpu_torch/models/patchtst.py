@@ -19,8 +19,18 @@ masked patches) and ``ctc`` heads (counterpart of
 * the heads run in float32 outside autocast, with shared projections or one
   per channel (a stacked parameter and an einsum).
 
-Dropout and masking draw from the ``generator`` passed in; ``from_pt`` warm
-start raises ``NotImplementedError`` naming its ROADMAP item.
+Dropout and masking draw from the ``generator`` passed in.
+
+Checkpoints (``models/components.py``): ``encoder.pt`` (with BatchNorm's
+running averages), ``decoder.pt`` and both components' configs;
+``encoder.from_pt`` and ``decoder.from_pt`` each warm-start their component.
+A reference-format directory (``encoder.bin``: a Hugging Face
+``PatchTSTModel`` state dict, q / k / v split where the port fuses ``qkv``,
+``norm_sublayer{1,3}.batchnorm`` with its running statistics, the sincos
+table as ``position_enc``; ``decoder.bin``: ``projection`` or
+``projections.{c}``; the configs torch-pickled under ``.yaml`` names) is
+imported by ``interop/torch_import.py``. The running averages are carried as
+they are: the reference's BatchNorm moves them by 0.1 and the port's by 0.01.
 """
 from __future__ import annotations
 
@@ -33,9 +43,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.config import resolve_path, to_plain_dict, update_config
+from llm_bci_tpu_torch.interop.torch_import import patchtst_state_dict_from_reference
 from llm_bci_tpu_torch.model_output import ModelOutput
+from llm_bci_tpu_torch.models.components import ComponentCheckpoints, remerge_saved_configs
 from llm_bci_tpu_torch.models.ndt1 import ACT2FN
 from llm_bci_tpu_torch.ops.attention import dot_product_attention, dropout
 from llm_bci_tpu_torch.ops.ctc import ctc_loss
@@ -320,7 +331,7 @@ class PredictHead(nn.Module):
 
 
 @register_model("PatchTST")
-class PatchTSTForSpikingActivity(nn.Module):
+class PatchTSTForSpikingActivity(ComponentCheckpoints, nn.Module):
     """PatchTST with the ``mlm`` or ``ctc`` head. ``mlm`` scores masked
     patches whose bins are all valid; ``ctc`` runs over ``1 + (len -
     patch_length) // patch_stride`` patches an example."""
@@ -330,8 +341,6 @@ class PatchTSTForSpikingActivity(nn.Module):
                  zero_infinity: bool = True):
         super().__init__()
         enc, dec = config["encoder"], config["decoder"]
-        if enc.get("from_pt") or dec.get("from_pt"):
-            raise not_ported("Warm start from_pt", "Queue 1, slice 3, left")
         if method_name == "mlm" and not enc.get("do_mask_input"):
             raise ValueError("Can't pretrain with inactive masking")
         self.config = config
@@ -349,10 +358,15 @@ class PatchTSTForSpikingActivity(nn.Module):
 
     @classmethod
     def from_config(cls, model_config, **method_kwargs) -> "PatchTSTForSpikingActivity":
-        """Merge a trainer-style model config over ``configs/patchtst.yaml``."""
+        """Merge a trainer-style model config over ``configs/patchtst.yaml``,
+        and the config saved beside each component's ``from_pt`` over that."""
         cfg = update_config(resolve_path(DEFAULT_CONFIG), model_config)
+        remerge_saved_configs(cfg, ("encoder", "decoder"))
         kwargs = {k: v for k, v in method_kwargs.items() if k in METHOD_KWARGS}
         return cls(config=to_plain_dict(cfg), **kwargs)
+
+    def reference_state(self, load_dir, components):
+        return patchtst_state_dict_from_reference(load_dir, self, components)
 
     def forward(
         self,

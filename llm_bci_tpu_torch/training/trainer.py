@@ -24,11 +24,14 @@ window, the partial gradients), from which :meth:`Trainer.resume_from`
 continues bit for bit on the CPU. The frozen / trainable split is
 ``requires_grad`` (the JAX trainer's ``trainable_mask``): the optimizer
 takes only the parameters that train. A model with ``save_checkpoint`` /
-``save_config`` (BCI) writes its own component blobs instead of
-``model.pt``; ``training.component_blobs: false`` leaves its frozen leaves
-out. ``precision.compute_dtype`` and the device reach ``from_config`` (BCI
-stores its frozen Llama base on the device in that dtype), and a model
-with ``warm_start`` loads its ``from_pt`` / ``llm_path`` weights.
+``save_config`` (NDT1, iTransformer, PatchTST, BCI) writes its own component
+blobs and configs instead of ``model.pt``; ``training.component_blobs:
+false`` leaves its frozen leaves out. ``precision.compute_dtype`` and the
+device reach ``from_config`` (BCI stores its frozen Llama base on the device
+in that dtype), and a model with ``warm_start`` loads its ``from_pt`` /
+``llm_path`` weights when it is built; a later :meth:`Trainer.resume_from`
+overlays its restored state on them, as the JAX trainer restores over its
+warm start.
 
 As in the JAX trainer: the step's ``loss``, ``n_examples`` and every metric
 fn's ``fn.prepare(outputs)`` stay on the device and are read back in one

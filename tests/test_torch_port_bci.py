@@ -11,7 +11,8 @@ float32 with dropout and noise off, the debug Llama and LoRA ``B`` non-zero.
 * a 4-step ``Trainer`` loss curve against the JAX ``Trainer``, rtol 1e-4 (the
   tolerance of ``tests/test_torch_port_trainer.py``), bf16-stored and int8
   bases; frozen leaves bit-identical afterwards;
-* checkpoint save -> load round trip, ``from_pt`` reload, NDT1 warm start;
+* checkpoint save -> load round trip, ``from_pt`` reload (also of the
+  reference format), NDT1 warm start;
 * ``llm_bci_tpu_torch.main`` on a pre-tokenized dataset with the A-WER fn.
 """
 import gc
@@ -365,12 +366,21 @@ def test_checkpoint_round_trip_and_from_pt_reload(tmp_path):
     torch.save({"nope.weight": torch.zeros(1)}, slim / "llm.pt")
     with pytest.raises(RuntimeError, match="does not fit"):
         fresh.load_checkpoint_params(str(slim))
-    # a reference-format torch checkpoint names its ROADMAP item
-    ref_dir = tmp_path / "ref"
-    ref_dir.mkdir()
-    (ref_dir / "encoder.bin").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbci.BCI.from_config(PortDictConfig({"from_pt": str(ref_dir)}), debug=True)
+    # a reference-format checkpoint (the int8 base stays out: the inner
+    # NDT1's encoder.bin, projector.bin and the PEFT adapter) builds and
+    # loads: the trained leaves come back, the base is the fresh model's
+    from llm_bci_tpu_torch.interop.torch_export import bci_save_reference_checkpoint
+
+    ref_dir = str(tmp_path / "ref")
+    bci_save_reference_checkpoint(pt.model, ref_dir, include_base=False)
+    ref = tbci.BCI.from_config(PortDictConfig({"from_pt": ref_dir}), lora=dict(LORA),
+                               quantize="int8", compute_dtype="float32", debug=True)
+    assert ref.config["projector"]["inter_size"] == 24
+    ref.warm_start()
+    got = ref.state_dict()
+    for key, value in want.items():
+        if key.startswith(("ndt1_encoder.", "projector")) or ".lora_" in key:
+            assert torch.equal(got[key], value), key
 
 
 def test_ndt1_warm_start_from_a_trainer_checkpoint(tmp_path):

@@ -137,12 +137,13 @@ def test_main_patchtst_pins_context_and_saves_running_statistics(tmp_path):
         assert spec == {"dim": 0, "side": "left", "value": 0, "truncate": 20, "min_length": 20}
     batch, _ = next(iter(trainer.train_dataloader))
     assert batch["spikes"].shape[1:] == (20, 6)
-    # the running statistics moved in training and are in the checkpoint
-    saved = torch.load(os.path.join(trainer.checkpoint_dir, "STEP2", "model.pt"))
+    # the running statistics moved in training and are in the checkpoint's
+    # encoder blob
+    saved = torch.load(os.path.join(trainer.checkpoint_dir, "STEP2", "encoder.pt"))
     stats = {k: v for k, v in saved.items() if k.endswith(("running_mean", "running_var"))}
     assert len(stats) == 4
     for k, v in stats.items():
-        assert torch.equal(v, trainer.model.state_dict()[k])
+        assert torch.equal(v, trainer.model.state_dict()["encoder." + k])
         assert not torch.equal(v, torch.zeros_like(v) if k.endswith("mean") else torch.ones_like(v))
 
 

@@ -11,7 +11,9 @@ and the quantization-layout repair of ``BCI.load_checkpoint_params`` that its
   into a float base as the JAX ``dequantize_int8`` of its codes, with the int8
   model's logits (float32 sums in another order: rtol 1e-5).
 * ``main`` on a debug-size BCI checkpoint with a stub tokenizer and
-  ``beams=1,3``: pickles named as ``analyze_cli`` groups them, finite WER.
+  ``beams=1,3``: pickles named as ``analyze_cli`` groups them, finite WER;
+  the same checkpoint exported to the reference format with a torch-pickled
+  ``trainer_config.pth`` gives the same greedy tokens.
 * The WER fn's prompt (target and pad tokens stripped) and its ``generate``
   call equal the JAX script's on the same batch; ``bootstrap_wer_ci``,
   ``best_of_k_wer`` and ``analyze`` equal the script's on the same pickles.
@@ -176,12 +178,26 @@ def test_main_sweeps_beams_on_an_int8_base(tmp_path):
             preds = pickle.load(f)
         assert len(preds) == 2 and all(t.shape == (k, 20) for t, _ in preds)
         assert all(s == "a b c" for _, s in preds)
-    with pytest.raises(NotImplementedError, match="slice 3, left"):
-        ref_ckpt = tmp_path / "reference"
-        ref_ckpt.mkdir()
-        (ref_ckpt / "trainer_config.pth").write_bytes(b"")
-        tep.main(tep.parse_args(["-k", f"from_pt={ref_ckpt}"]), dataset=dataset,
-                 tokenizer=WordTokenizer())
+    # the same checkpoint in the reference's format, its trainer config
+    # torch-pickled: the same greedy tokens
+    import yaml
+
+    from llm_bci_tpu_torch.interop.torch_export import bci_save_reference_checkpoint
+
+    with open(os.path.join(ckpt, "trainer_config.yaml")) as f:
+        trainer_cfg = yaml.safe_load(f)
+    model = tbci.BCI.from_config(PortDictConfig({"from_pt": ckpt}), compute_dtype="float32",
+                                 **trainer_cfg["method"]["model_kwargs"])
+    model.warm_start()
+    ref_ckpt = str(tmp_path / "reference")
+    bci_save_reference_checkpoint(model, ref_ckpt)
+    torch.save(trainer_cfg, os.path.join(ref_ckpt, "trainer_config.pth"))
+    tep.main(tep.parse_args(["-k", f"from_pt={ref_ckpt}", "beams=1", f"savestring={save}_ref",
+                             "test_len=2", "quantize=int8", "--device", "cpu"]),
+             dataset=dataset, tokenizer=WordTokenizer())
+    with open(f"{save}_ref.pkl", "rb") as f, open(paths[0], "rb") as g:
+        for (ref_tokens, _), (tokens, _) in zip(pickle.load(f), pickle.load(g)):
+            np.testing.assert_array_equal(ref_tokens, tokens)
 
 
 class RecordingModel(torch.nn.Module):

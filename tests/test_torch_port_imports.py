@@ -2,13 +2,15 @@
 
 The check runs in a subprocess: this test process has JAX loaded already
 (``tests/conftest.py`` imports it). The subprocess forbids ``jax``, ``flax``,
-``optax``, ``orbax``, ``triton``, ``transformers``, ``datasets``,
-``matplotlib`` and the exact top-level name ``llm_bci_tpu`` outright, imports
+``optax``, ``orbax``, ``triton``, ``transformers``, ``safetensors``,
+``datasets``, ``matplotlib`` and the exact top-level name ``llm_bci_tpu``
+outright, imports
 every module of ``llm_bci_tpu_torch`` (``eval_phonemes`` and
 ``eval.co_smoothing`` among them),
 runs a tiny NDT1-CTC and a tiny NDT1-mlm forward and backward on the CPU (the
 latter through the flash branch) and a tiny int8 BCI forward, backward and
-greedy decode, and then checks that none of those was loaded and that no
+greedy decode, the BCI's reference-format export (HF base, PEFT adapter)
+read back by ``from_pt``, and then checks that none of those was loaded and that no
 kernel was built. On a CPU tensor ``int8_matmul`` takes the plain version,
 and the CUDA wrapper handed a CPU tensor raises instead of falling back."""
 import os
@@ -25,8 +27,8 @@ PKG = os.path.join(REPO, "llm_bci_tpu_torch")
 SCRIPT = r'''
 import importlib, importlib.util, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "transformers", "datasets",
-           "matplotlib", "llm_bci_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "triton", "transformers", "safetensors",
+           "datasets", "matplotlib", "llm_bci_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -129,6 +131,37 @@ assert bci.llm.lm_head.kernel.dtype == torch.int8
 assert all((p.grad is not None) == p.requires_grad for p in bci.parameters())
 tokens = bci.generate(**inputs, max_new_tokens=3)
 assert tuple(tokens.shape) == (B, 3)
+
+# the reference format both ways: the int8 BCI's encoder, projector and LoRA
+# factors (a PEFT adapter; an int8 base has no HF export), and a float BCI
+# whole (the HF base in model.safetensors)
+import tempfile
+from llm_bci_tpu_torch.interop.torch_export import bci_save_reference_checkpoint
+
+with torch.no_grad():
+    for name, p in bci.named_parameters():
+        if name.endswith("lora_B"):
+            p.normal_()
+float_bci = BCI.from_config(
+    {"ndt1": bci.config["ndt1"], "projector": bci.config["projector"]}, debug=True,
+    compute_dtype="float32", lora={"r": 2, "alpha": 4, "dropout": 0.0,
+                                   "target_modules": ["q_proj", "down_proj"]})
+with tempfile.TemporaryDirectory() as ref:
+    bci_save_reference_checkpoint(bci, ref, include_base=False)
+    bci_save_reference_checkpoint(float_bci, ref + "/float")
+    back = BCI.from_config({"from_pt": ref}, debug=True, quantize="int8",
+                           compute_dtype="float32",
+                           lora={"r": 2, "alpha": 4, "dropout": 0.0,
+                                 "target_modules": ["q_proj", "down_proj"]})
+    back.warm_start()
+    want, got = bci.state_dict(), back.state_dict()
+    assert all(torch.equal(got[k], v) for k, v in want.items()
+               if ".lora_" in k or k.startswith(("ndt1_encoder.", "projector")))
+    again = BCI.from_config({"from_pt": ref + "/float"}, debug=True, compute_dtype="float32",
+                            lora={"r": 2, "alpha": 4, "dropout": 0.0,
+                                  "target_modules": ["q_proj", "down_proj"]})
+    again.warm_start()
+    assert all(torch.equal(again.state_dict()[k], v) for k, v in float_bci.state_dict().items())
 
 # importing the CUDA wrappers built and loaded nothing
 from llm_bci_tpu_torch.ops import _build, ctc_cuda, flash_attention_cuda, int8_matmul_cuda

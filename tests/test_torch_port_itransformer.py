@@ -283,9 +283,20 @@ def test_training_mode_follows_the_generator():
     assert loss(0) != loss(1)
 
 
-def test_from_pt_raises_naming_its_roadmap_item():
+def test_from_pt_raises_naming_its_roadmap_item(tmp_path):
+    # from_pt builds, and loads the encoder or the decoder from its directory
+    trained = tit.iTransformer.from_config(model_config("ctc"), method_name="ctc", vocab_size=V)
+    with torch.no_grad():      # every tensor apart from a fresh init's
+        for v in trained.state_dict().values():
+            v.add_(torch.rand_like(v) + 0.1)
+    trained.save_checkpoint(str(tmp_path))
+    trained.save_config(str(tmp_path))
     for comp in ("encoder", "decoder"):
         cfg = model_config("ctc")
-        cfg[comp]["from_pt"] = "some/dir"
-        with pytest.raises(NotImplementedError, match="slice 3, left"):
-            tit.iTransformer.from_config(cfg, method_name="ctc", vocab_size=V)
+        cfg[comp]["from_pt"] = str(tmp_path)
+        model = tit.iTransformer.from_config(cfg, method_name="ctc", vocab_size=V)
+        assert model.config[comp]["from_pt"] == str(tmp_path)
+        model.warm_start()
+        for key, value in trained.state_dict().items():
+            carried = key.startswith("encoder.") == (comp == "encoder")
+            assert torch.equal(model.state_dict()[key], value) == carried, key

@@ -190,14 +190,34 @@ def test_bridge_matches_reference_export(variant):
     np.testing.assert_array_equal(sd["decoder.weight"].numpy(), np.asarray(params["decoder"]["kernel"]).T)
 
 
-def test_unported_options_raise():
-    # what is still an open ROADMAP item raises and names it
+def test_unported_options_raise(tmp_path):
+    # encoder.from_pt and decoder.from_pt build and load (the encoder and a
+    # head of this shape from the encoder's directory, the head alone from
+    # the decoder's), and endtoend is the ctc head under another name
+    trained = tndt1.NDT1.from_config(model_config(), method_name="ctc", vocab_size=V)
+    with torch.no_grad():      # every tensor apart from a fresh init's
+        for v in trained.state_dict().values():
+            v.add_(torch.rand_like(v) + 0.1)
+    trained.save_checkpoint(str(tmp_path))
+    trained.save_config(str(tmp_path))
+    for comp, carried in (("encoder", ("encoder.", "decoder.")), ("decoder", ("decoder.",))):
+        cfg = model_config()
+        cfg.setdefault(comp, {})["from_pt"] = str(tmp_path)
+        model = tndt1.NDT1.from_config(cfg, method_name="endtoend", vocab_size=V)
+        model.warm_start()
+        for key, value in trained.state_dict().items():
+            assert torch.equal(model.state_dict()[key], value) == key.startswith(carried), key
+    # a head of another shape (another vocabulary) by decoder.from_pt does not load
     cfg = model_config()
-    cfg["encoder"]["from_pt"] = "some/dir"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tndt1.NDT1.from_config(cfg, method_name="ctc", vocab_size=V)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tndt1.NDT1.from_config(model_config(), method_name="endtoend")
+    cfg["decoder"] = {"from_pt": str(tmp_path)}
+    with pytest.raises(RuntimeError, match="size mismatch for decoder.weight"):
+        tndt1.NDT1.from_config(cfg, method_name="ctc", vocab_size=V + 3).warm_start()
+    batch = tt(make_batch())
+    trained.eval()
+    model.load_state_dict(trained.state_dict())
+    model.eval()
+    with torch.no_grad():
+        assert torch.equal(model(**batch).loss, trained(**batch).loss)
     # active factors and remat are ported (tests/test_torch_port_factors.py and
     # tests/test_torch_port_remat.py hold them to the JAX package)
     cfg = model_config()

@@ -198,10 +198,21 @@ def test_flax_batchnorm_is_not_torch_batchnorm():
     assert not torch.allclose(ref.running_var, bn.running_var)
 
 
-def test_from_pt_and_inactive_masking_raise():
-    cfg = model_config()
-    cfg["encoder"]["from_pt"] = "some/dir"
-    with pytest.raises(NotImplementedError, match="slice 3, left"):
-        tpt.PatchTSTForSpikingActivity.from_config(cfg, method_name="ctc")
+def test_from_pt_and_inactive_masking_raise(tmp_path):
+    # from_pt builds and loads each component from its directory, BatchNorm's
+    # running averages with the encoder
+    trained = tpt.PatchTSTForSpikingActivity.from_config(model_config(), method_name="ctc")
+    with torch.no_grad():      # every tensor apart from a fresh init's
+        for v in trained.state_dict().values():
+            v.add_(torch.rand_like(v) + 0.1)
+    trained.save_checkpoint(str(tmp_path))
+    trained.save_config(str(tmp_path))
+    for comp in ("encoder", "decoder"):
+        cfg = model_config()
+        cfg[comp]["from_pt"] = str(tmp_path)
+        model = tpt.PatchTSTForSpikingActivity.from_config(cfg, method_name="ctc")
+        model.warm_start()
+        for key, value in trained.state_dict().items():
+            assert torch.equal(model.state_dict()[key], value) == key.startswith(comp), key
     with pytest.raises(ValueError, match="inactive masking"):
         tpt.PatchTSTForSpikingActivity.from_config(model_config(mask=False), method_name="mlm")

@@ -312,4 +312,5 @@ def test_port_main_on_speechbci_files(tmp_path):
     # 2 train steps with the prepared argmax, 1 eval batch without
     assert calls == [True, True, False]
     step_dir = tmp_path / "ck" / "ndt1_ctc" / "STEP2"
-    assert sorted(os.listdir(step_dir)) == ["model.pt", "optimizer.pt", "trainer_config.yaml"]
+    assert sorted(os.listdir(step_dir)) == ["decoder.pt", "encoder.pt", "encoder_config.yaml", "optimizer.pt",
+                                        "trainer_config.yaml"]

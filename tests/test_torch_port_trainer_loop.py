@@ -110,7 +110,8 @@ def test_preemption_saves_the_step_and_returns(tmp_path, how):
     assert caught == []
     assert trainer.n_micro == 3 and trainer.eval_history == [] and not trainer._preempt_flag
     step_dir = os.path.join(trainer.checkpoint_dir, "STEP3")
-    assert sorted(os.listdir(step_dir)) == ["model.pt", "optimizer.pt", "trainer_config.yaml"]
+    assert sorted(os.listdir(step_dir)) == ["decoder.pt", "encoder.pt", "encoder_config.yaml", "optimizer.pt",
+                                        "trainer_config.yaml"]
 
 
 def test_wandb_and_tensorboard_absent(tmp_path, monkeypatch, capsys):
