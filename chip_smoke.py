@@ -71,7 +71,7 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    plain version in float32 of the same bf16 inputs (rtol 2^-8: one bf16
    rounding of the output; atol 1e-4 x max|out|: the order of the float32
    sums), each call once more for the same bits; codes of +-127 with zero
-   scale columns; ``dx`` through the autograd Function; the cluster
+   scale columns; ``dx`` through the custom op's backward; the cluster
    launcher's refusal of a plan that differs from the kernel's in any field;
    then device times from CUDA graphs of 20 calls at M = 8, 40 and 1480 beside
    the bound, ``torch.matmul`` on a bf16 copy of the weight timed the same
@@ -190,11 +190,41 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    ``transformers`` nor ``safetensors`` imported; D. iTransformer ssl ->
    choice and PatchTST mlm -> ``ctc`` (B=16) at their configs' widths, 2 + 2
    steps: the encoder (and the running averages) carried bit-equal, the
-   PatchTST fine-tune on the CTC pair.
+   PatchTST fine-tune on the CTC pair;
+17. serving export (``serve-export``, ``llm_bci_tpu_torch.serving``), the
+   card's name and power limit first: A. the BCI of phase 8 (32 layers, int8
+   base, B=8, prompt 185, 32 new tokens) exported by ``export_decode`` under
+   bf16 autocast, greedy and diverse beam 5: each archive under 1% of the
+   weights' bytes, loaded by ``load_decode`` in a fresh process (a
+   ``multiprocessing`` spawn child given the paths, ``params_of``'s tensors,
+   shared with it on the card, and the batch; the model class made
+   unbuildable there): greedy ids equal in-process ``generate``'s, diverse
+   sequences equal and scores within atol 1e-4, the int8 launches of each
+   decode {tiled 225 (the prefill), cluster 450 (an eager step and a
+   capture)} with 30 replays; export, load and decode seconds, tokens/s and
+   sequences/s of the loaded archives beside in-process ``generate`` in this
+   process (loaded, in-process, in-process, loaded), the device time of 16
+   replayed token steps of the loaded archive; B. a 2-layer copy exported on
+   the CPU, moved to the card by ``move_to_device_pass``: its greedy ids
+   equal the card's in-process decode and the int8 kernels run; C. the
+   NDT1-CTC flagship at phase 5's shape (B=64, T'=121, bf16 autocast)
+   exported by ``export_forward`` with ``outputs=("preds",)`` (no
+   ``llm_bci.ctc_*`` node, no CTC launch) and ``("loss", "preds")`` (one
+   ``ctc_alpha_kernel`` launch a call), log-probs within atol 2e-2 of the
+   in-process eval forward, the loss against the plain CTC on the archive's
+   own log-probs (rtol 1e-5, atol 1e-3) and phase 3's gates there; D. the
+   real-time loop: the ``preds`` forward at B=1 over a window of 128 bins,
+   8 windows of a synthetic utterance streamed into ``CTCPrefixDecoder``
+   (beam 16): the live transcript's labels equal ``ctc_prefix_beam_search``
+   over all the frames; device ms a window and host ms a frame; E. NDT1-mlm
+   at phase 6's shape (B=32, T=1024, flash): 5 flash forward launches a call,
+   preds within atol 2e-2 of the in-process eval forward; F.
+   ``torch.library.opcheck`` of every ``llm_bci`` op on the card at small
+   shapes (the launches of F are not counted).
 
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train|cosmooth|
-phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state|warm-start`` runs one phase (for
-development); ``--profile PATH`` writes ``torch.profiler`` tables of the
+phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state|warm-start|serve-export`` runs
+one phase (for development); ``--profile PATH`` writes ``torch.profiler`` tables of the
 NDT1-CTC and mlm train steps, the replayed BCI greedy token steps, the
 fine-tune step, one folded co-smoothing pass at each shape and the
 iTransformer and PatchTST ``ctc`` steps to ``PATH``.
@@ -383,7 +413,7 @@ def min_frames(targets, tl) -> "torch.Tensor":
 
 def ctc_check(label: str, lp, targets, il, tl, zero_infinity: bool, lattice: str) -> dict:
     """One CTC path at log-probs ``lp`` against the plain version in float64:
-    the loss and the gradient through ``ctc_loss_cuda`` with a gradient
+    the loss and the gradient through ``ctc_loss`` with a gradient
     (``ctc_alpha_beta_kernel``, its lattice where ``lattice`` says) and the
     loss without one (``ctc_alpha_kernel``, the same bits). Gates on the rows
     with a feasible alignment: loss rtol 1e-4 / atol 1e-4, gradient atol 1e-4;
@@ -395,7 +425,7 @@ def ctc_check(label: str, lp, targets, il, tl, zero_infinity: bool, lattice: str
     plain version). Returns the errors and the count of feasible rows."""
     import torch
     from llm_bci_tpu_torch.ops import ctc_cuda
-    from llm_bci_tpu_torch.ops.ctc import NEG_INF, ctc_loss_plain
+    from llm_bci_tpu_torch.ops.ctc import NEG_INF, ctc_loss, ctc_loss_plain
 
     lp = lp.detach().float().contiguous()
     Bx, Tx, Vx = lp.shape
@@ -405,11 +435,11 @@ def ctc_check(label: str, lp, targets, il, tl, zero_infinity: bool, lattice: str
         raise AssertionError(f"CTC {label}: plan {plan}, expected the lattice in {lattice}")
     x = lp.clone().requires_grad_(True)
     fused0 = ctc_cuda.FUSED_LAUNCHES
-    loss = ctc_cuda.ctc_loss_cuda(x, targets, il, tl, zero_infinity=zero_infinity)
+    loss = ctc_loss(x, targets, il, tl, zero_infinity=zero_infinity)
     (grad,) = torch.autograd.grad(loss.sum(), x)
     fwd0 = ctc_cuda.FWD_LAUNCHES
     with torch.no_grad():
-        loss_fwd = ctc_cuda.ctc_loss_cuda(lp, targets, il, tl, zero_infinity=zero_infinity)
+        loss_fwd = ctc_loss(lp, targets, il, tl, zero_infinity=zero_infinity)
     if (ctc_cuda.FUSED_LAUNCHES - fused0, ctc_cuda.FWD_LAUNCHES - fwd0) != (1, 1):
         raise AssertionError(f"CTC {label}: expected one fused and one forward-only launch")
     xr = lp.double().requires_grad_(True)
@@ -445,7 +475,7 @@ def kernel_phase(results: dict) -> None:
     import torch
     import torch.nn.functional as F
     from llm_bci_tpu_torch.ops import ctc_cuda
-    from llm_bci_tpu_torch.ops.ctc import ctc_loss_plain
+    from llm_bci_tpu_torch.ops.ctc import ctc_loss, ctc_loss_plain
 
     dev = torch.device("cuda")
 
@@ -481,7 +511,7 @@ def kernel_phase(results: dict) -> None:
     for use_kernel in (True, False):
         x = logits.clone().requires_grad_(True)
         if use_kernel:
-            loss = ctc_cuda.ctc_loss_cuda(torch.log_softmax(x, -1), targets, il, tl)
+            loss = ctc_loss(torch.log_softmax(x, -1), targets, il, tl)
         else:
             loss = F.ctc_loss(torch.log_softmax(x.double(), -1).transpose(0, 1), targets, il,
                               tl, reduction="none", zero_infinity=True)
@@ -578,14 +608,14 @@ def ctc_times(lp, targets, il, tl) -> dict:
 
 def ctc_eager_times(lp, targets, il, tl, with_plain: bool) -> dict:
     """Through autograd, one call at a time (CUDA events; the host's enqueue
-    included): ``ctc_loss_cuda``'s forward and its forward + backward, the
+    included): ``ctc_loss``'s forward and its forward + backward, the
     float32 plain version's (``with_plain``) and ``F.ctc_loss``'s on the same
     log-probs, time-major (eager: its CUDA-tensor lengths go to the host, so it
     cannot be captured; timed only, the port never calls it)."""
     import torch
     import torch.nn.functional as F
     from llm_bci_tpu_torch.ops import ctc_cuda
-    from llm_bci_tpu_torch.ops.ctc import ctc_loss_plain
+    from llm_bci_tpu_torch.ops.ctc import ctc_loss, ctc_loss_plain
 
     ones = torch.ones(lp.shape[0], device=lp.device)
 
@@ -595,7 +625,7 @@ def ctc_eager_times(lp, targets, il, tl, with_plain: bool) -> dict:
 
     t64, il64, tl64 = targets.long(), il.long(), tl.long()
     lib = lambda v: F.ctc_loss(v, t64, il64, tl64, reduction="none", zero_infinity=True)
-    kernel = lambda v: ctc_cuda.ctc_loss_cuda(v, targets, il, tl)
+    kernel = lambda v: ctc_loss(v, targets, il, tl)
     plain = lambda v: ctc_loss_plain(v, targets, il, tl)
     xt = lp.transpose(0, 1).contiguous()
     out = {}
@@ -841,12 +871,12 @@ def flash_kernel_phase(results: dict) -> None:
              "bound_dkv": bound(4 * 2 * D * pairs, 6 * qkv + 2 * small + B * T * 4, "bfloat16"),
              "bound_delta": bound(2 * B * T * H * D, 2 * qkv + small, "float32")}
         with torch.no_grad():
-            t["fwd"] = cuda_ms(lambda: fc.FlashAttentionFunction.apply(*args), 20)
+            t["fwd"] = cuda_ms(lambda: fa.flash_core(*args), 20)
             t["sdpa_fwd"] = cuda_ms(sdpa, 20)
             if T <= 256:     # the host's enqueue time exceeds the kernel's
-                t["fwd_device"] = graph_ms(lambda: fc.FlashAttentionFunction.apply(*args), 20)
+                t["fwd_device"] = graph_ms(lambda: fa.flash_core(*args), 20)
                 t["sdpa_fwd_device"] = graph_ms(sdpa, 20)
-        out = fc.FlashAttentionFunction.apply(*args)
+        out = fa.flash_core(*args)
         # the whole backward call: delta and both kernels on a contiguous dout
         # of the kernels' dtype, which the cast passes on as it is, ...
         t["bwd"] = cuda_ms(lambda: torch.autograd.grad(out, (q, k, v), w, retain_graph=True), 20)
@@ -935,7 +965,7 @@ def flash_kernel_phase(results: dict) -> None:
     backward_line(f"B={B} H={H} T={T} D={D} bf16 dropout {drop}", t)
     q0, k0, v0, _, _ = flash_inputs(B, T, H, D, "none", torch.bfloat16, dev, seed=1)
     with torch.no_grad():
-        no_drop = cuda_ms(lambda: fc.FlashAttentionFunction.apply(
+        no_drop = cuda_ms(lambda: fa.flash_core(
             q0, k0, v0, valid, None, T, T, 1.0 / math.sqrt(D), 0.0), 20)
     say("kernels", f"flash_fwd_kernel without dropout: {no_drop:.3f} ms "
         f"(the keep mask costs {t['fwd'] - no_drop:.3f} ms)")
@@ -3655,6 +3685,455 @@ def warm_start_phase(power_line: str, profile=None) -> dict:
         add_launches(total, itransformer_patchtst_chains(tmp, power_line))
     return total
 
+# ---------------------------------------------------------------------------
+# Serving export (phase 17)
+# ---------------------------------------------------------------------------
+
+SERVE_NEW, SERVE_BEAMS = 32, 5
+SERVE_WINDOW, SERVE_WINDOWS = 128, 8     # spike bins a window of the real-time loop, windows
+BIN_MS = 20                              # a bin of the competition data
+
+
+def _refuse_model(*args, **kwargs):
+    raise AssertionError("a model was built in the serving process")
+
+
+def serve_child(paths: dict, params: dict, batch: dict, out) -> None:
+    """A fresh process given only the archives' paths, the weights and the
+    batch (CUDA tensors shared with the parent, no copy): loads each archive
+    with ``load_decode``, with the model class made unbuildable, and decodes
+    once; puts the results, the load seconds and the launches on ``out``."""
+    import traceback
+
+    try:
+        import torch
+        from llm_bci_tpu_torch import serving
+        from llm_bci_tpu_torch.models import bci, decode_graph
+        from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+        bci.BCI.__init__ = _refuse_model
+        res = {}
+        for name, path in paths.items():
+            t0 = time.perf_counter()
+            fn = serving.load_decode(path)
+            load_s = time.perf_counter() - t0
+            ic.reset_counters()
+            decode_graph.reset_counters()
+            t0 = time.perf_counter()
+            got = fn(params, batch)
+            if fn.device.type == "cuda":
+                torch.cuda.synchronize()
+            res[name] = {       # numpy: nothing of the result is shared through /dev/shm
+                "load_s": load_s, "run_s": time.perf_counter() - t0,
+                "out": got.cpu().numpy() if torch.is_tensor(got) else
+                (got.sequences.cpu().numpy(), got.scores.cpu().numpy()),
+                "launches": int8_launches(),
+                "graphs": (decode_graph.EAGER_STEPS, decode_graph.CAPTURES, decode_graph.REPLAYS),
+            }
+        res["modules"] = sorted(m for m in sys.modules if m in ("jax", "llm_bci_tpu"))
+        out.put(res)
+    except BaseException:
+        out.put({"error": traceback.format_exc()})
+
+
+def archive_step(fn, params: dict, batch: dict):
+    """The prefill of a loaded decode archive and the :class:`TokenStep` over
+    its cache, not yet run (``prefill_step`` for an archive): ``(first ids,
+    step, P, embed)``."""
+    import torch
+    from llm_bci_tpu_torch.models.decode_graph import TokenStep
+
+    decode_step, embed, embeds, mask, cache = fn.parts(params, batch)
+    B, P, _ = embeds.shape
+    key_mask = mask.new_zeros((B, cache[0]["k"].shape[1]))
+    key_mask[:, :P] = mask
+    logits, cache = decode_step(embeds, key_mask, cache, 0)
+    return torch.argmax(logits[:, -1, :], -1), TokenStep(decode_step, cache, key_mask), P, embed
+
+
+def serve_bci_decode(tmp: str, power_line: str, profile, device: str = "cuda") -> dict:
+    """A: the 7B-width int8 BCI of phase 8 exported (greedy and diverse beam
+    5), loaded in a fresh process, held against in-process ``generate``.
+    ``device="cpu"`` rehearses it (the card's timings then mean nothing)."""
+    import multiprocessing
+
+    import torch
+    from llm_bci_tpu_torch import serving
+    from llm_bci_tpu_torch.models import decode_graph
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+    dev = torch.device(device)
+    batch = bci_serving_batch(dev)
+    model, build_s = build_bci(write_llama_config(tmp, 32), "int8", dev)
+    params = serving.params_of(model)
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    autocast = lambda: torch.autocast(dev.type, dtype=torch.bfloat16)
+    gens = {"greedy": dict(eos_token_id=-1),
+            "diverse": dict(num_beams=SERVE_BEAMS, num_beam_groups=SERVE_BEAMS,
+                            diversity_penalty=1.2, num_return_sequences=SERVE_BEAMS,
+                            eos_token_id=2)}
+    with autocast():
+        ref = {name: model.generate(**batch, max_new_tokens=SERVE_NEW, **gen)
+               for name, gen in gens.items()}
+    paths = {}
+    for name, gen in gens.items():
+        paths[name] = os.path.join(tmp, f"bci_{name}.pt2")
+        t0 = time.perf_counter()
+        serving.export_decode(model, params, batch, paths[name], max_new_tokens=SERVE_NEW,
+                              autocast=torch.bfloat16, **gen)
+        export_s = time.perf_counter() - t0
+        size = os.path.getsize(paths[name])
+        say("serve", f"A. {name} decode archive exported in {export_s:.1f} s: "
+            f"{size / 2 ** 20:.2f} MiB against {weight_bytes / 2 ** 30:.2f} GiB of weights "
+            f"({size / weight_bytes:.3%}), 4 programs")
+        if size >= 0.01 * weight_bytes:
+            raise AssertionError(f"the {name} archive holds {size} bytes: a weight in it?")
+
+    # a fresh process with the path, the weights and the batch
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    child = ctx.Process(target=serve_child, args=(paths, params, batch, queue))
+    t0 = time.perf_counter()
+    child.start()
+    try:
+        res = queue.get(timeout=600)
+    finally:
+        child.join(timeout=60)
+        if child.is_alive():
+            child.kill()
+    if "error" in res:
+        raise AssertionError(f"the serving process failed:\n{res['error']}")
+    say("serve", f"A. fresh serving process: {time.perf_counter() - t0:.1f} s with its start-up; "
+        f"modules of JAX loaded: {res['modules']}")
+    if res["modules"]:
+        raise AssertionError(f"the serving process imported {res['modules']}")
+    greedy = torch.from_numpy(res["greedy"]["out"])
+    if not torch.equal(greedy, ref["greedy"].cpu()):
+        raise AssertionError(f"loaded greedy ids differ from generate's at "
+                             f"{int((greedy != ref['greedy'].cpu()).sum())} places")
+    seqs, scores = (torch.from_numpy(a) for a in res["diverse"]["out"])
+    if not torch.equal(seqs, ref["diverse"].sequences.cpu()):
+        raise AssertionError("loaded diverse-beam sequences differ from generate's")
+    err = (scores - ref["diverse"].scores.cpu()).abs().max().item()
+    if err > 1e-4:
+        raise AssertionError(f"loaded diverse-beam scores differ from generate's by {err}")
+    launches = {}
+    # on the card one eager token step, one capture, the rest replays; on the
+    # CPU (a rehearsal) every step runs eagerly
+    want_graphs = (1, 1, SERVE_NEW - 2) if dev.type == "cuda" else (SERVE_NEW - 1, 0, 0)
+    for name in gens:
+        r = res[name]
+        graphs = r["graphs"]
+        want = {INT8_TILED: INT8_PER_FORWARD,
+                INT8_CLUSTER: (graphs[0] + graphs[1]) * INT8_PER_FORWARD}
+        if graphs != want_graphs or r["launches"] != want:
+            raise AssertionError(f"A. {name}: int8 launches {r['launches']} with (eager steps, "
+                                 f"captures, replays) {graphs}, want {want} with {want_graphs}")
+        add_launches(launches, r["launches"])
+        say("serve", f"A. {name} in the fresh process: loaded in {r['load_s']:.2f} s, decoded "
+            f"in {r['run_s']:.2f} s (its capture included); int8 launches {r['launches']} = "
+            f"{INT8_PER_FORWARD} a model call x (1 prefill | 1 eager step + 1 capture), "
+            f"{SERVE_NEW - 2} replays")
+    say("serve", f"A. loaded greedy ids equal generate's ({greedy.numel()} ids); diverse beam "
+        f"sequences equal, scores max|err| {err:.2e}")
+
+    # the loaded archives beside in-process generate, in turns, in this process
+    loaded = {name: serving.load_decode(path) for name, path in paths.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def in_process(name):
+        with autocast():        # the archive has it inside
+            return model.generate(**batch, max_new_tokens=SERVE_NEW, **gens[name])
+
+    runs = {"loaded": lambda name: loaded[name](params, batch), "in-process": in_process}
+    times = {(who, name): [] for who in runs for name in gens}
+    for name in gens:
+        runs["loaded"](name)                      # warm: the first call of each program
+        for who in ("loaded", "in-process", "in-process", "loaded"):
+            times[(who, name)].append(timed(lambda: runs[who](name)))
+    for who in runs:
+        g, d = times[(who, "greedy")], times[(who, "diverse")]
+        say("serve", f"A. {who}: greedy {BCI_B * SERVE_NEW / max(g):.1f}-"
+            f"{BCI_B * SERVE_NEW / min(g):.1f} tokens/s, diverse beam "
+            f"{BCI_B / max(d):.2f}-{BCI_B / min(d):.2f} sequences/s (each decode with its "
+            f"capture); card {power_line}")
+
+    with torch.no_grad():
+        token, step, P, embed = archive_step(loaded["greedy"], params, batch)
+        step.key_mask[:, P] = 1
+        step(embed(token[:, None]), P)             # the first step and the capture
+
+        def steps(n=16):
+            tok = token
+            for t in range(1, n + 1):
+                step.key_mask[:, P + t] = 1
+                tok = torch.argmax(step(embed(tok[:, None]), P + t), -1)
+            return tok
+
+        wall_ms = timed(steps) * 1e3
+        prof = device_profile(steps, "16 replayed token steps of the loaded archive",
+                              power_line, profile, wall_ms, phase="serve")
+    say("serve", f"A. a replayed token step of the loaded archive {prof['busy_ms'] / 16:.3f} ms "
+        f"of device time, {wall_ms / 16:.3f} ms of wall time (build {build_s:.1f} s)")
+    del step, loaded, model, params
+    return launches
+
+
+def serve_cpu_exported(tmp: str, power_line: str, device: str = "cuda") -> dict:
+    """B: a 2-layer copy of A's model exported on the CPU, moved to the card
+    by ``move_to_device_pass`` and run there: the op nodes pick the kernels."""
+    import copy
+
+    import torch
+    from llm_bci_tpu_torch import serving
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+    dev = torch.device(device)
+    batch = bci_serving_batch(dev)
+    model, _ = build_bci(write_llama_config(tmp, 2), "int8", dev)
+    with torch.no_grad():
+        ref = model.generate(**batch, max_new_tokens=SERVE_NEW, eos_token_id=-1)
+    on_cpu = copy.deepcopy(model).to("cpu")
+    path = os.path.join(tmp, "bci_cpu.pt2")
+    t0 = time.perf_counter()
+    serving.export_decode(on_cpu, serving.params_of(on_cpu),
+                          {k: v.cpu() for k, v in batch.items()}, path,
+                          max_new_tokens=SERVE_NEW, eos_token_id=-1, device=device)
+    export_s = time.perf_counter() - t0
+    del on_cpu
+    fn = serving.load_decode(path)
+    ic.reset_counters()
+    got = fn(serving.params_of(model), batch)
+    torch.cuda.synchronize()
+    launches = int8_launches()
+    if fn.device != dev or not torch.equal(got, ref):
+        raise AssertionError(f"B. the CPU-exported archive on {fn.device}: ids differ from the "
+                             f"card's in-process decode at {int((got != ref).sum())} places")
+    per_forward = INT8_PER_FORWARD // 32 * 2 + INT8_PER_FORWARD % 32    # 2 layers and lm_head
+    want = {INT8_TILED: per_forward, INT8_CLUSTER: 2 * per_forward}
+    if launches != want:
+        raise AssertionError(f"B. int8 launches {launches}, want {want}")
+    say("serve", f"B. a 2-layer copy exported on the CPU in {export_s:.1f} s and moved to "
+        f"{fn.device}: greedy ids equal the card's in-process decode, int8 launches {launches}")
+    return launches
+
+
+def serve_flagship(tmp: str, power_line: str) -> dict:
+    """C and D: the flagship NDT1-CTC's eval forwards, then the real-time
+    loop over one-window archives."""
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+    from llm_bci_tpu_torch import serving
+    from llm_bci_tpu_torch.eval.ctc_decode import CTCPrefixDecoder, ctc_prefix_beam_search
+    from llm_bci_tpu_torch.models.ndt1 import stacked_lengths
+    from llm_bci_tpu_torch.ops import ctc_cuda
+    from llm_bci_tpu_torch.ops.ctc import ctc_loss_plain
+
+    write_mat_dataset(os.path.join(tmp, "mat"))
+    trainer = port_main.build_trainer(port_main.parse_args([
+        "-c", os.path.join(REPO, "configs", "trainer_ctc_ndt1.yaml"),
+        "-k", f"data.data_dir={os.path.join(tmp, 'mat')}", "dirs.log_dir=null", "verbosity=1",
+        f"dirs.checkpoint_dir={os.path.join(tmp, 'ctc')}"]))
+    model = trainer.model.eval()
+    batch = trainer.to_device(next(iter(trainer.test_dataloader))[0])
+    serve = {k: v for k, v in batch.items() if not k.startswith("targets")}
+    const = {k: v for k, v in batch.items() if k.startswith("targets")}
+    params = serving.params_of(model)
+    served = None if trainer.compute_dtype == torch.float32 else trainer.compute_dtype
+    with torch.no_grad(), trainer.autocast():
+        ref = model(**batch)
+    launches = {}
+    for outputs in (("preds",), ("loss", "preds")):
+        path = os.path.join(tmp, f"ctc_{len(outputs)}.pt2")
+        t0 = time.perf_counter()
+        serving.export_forward(model, params, serve, path, outputs=outputs,
+                               const_inputs=const, autocast=served)
+        export_s = time.perf_counter() - t0
+        fn = serving.load_decode(path)
+        ctc_nodes = [t for t in fn.archive.graph_targets("forward") if t.startswith("llm_bci.")]
+        fn(params, serve)
+        ctc_cuda.reset_counters()
+        out = fn(params, serve)
+        torch.cuda.synchronize()
+        got = {"ctc_alpha_kernel": ctc_cuda.FWD_LAUNCHES,
+               "ctc_alpha_beta_kernel": ctc_cuda.FUSED_LAUNCHES}
+        want = ({"ctc_alpha_kernel": 1, "ctc_alpha_beta_kernel": 0} if "loss" in outputs
+                else {"ctc_alpha_kernel": 0, "ctc_alpha_beta_kernel": 0})
+        nodes = ["llm_bci.ctc_alpha.default"] if "loss" in outputs else []
+        if ctc_nodes != nodes or got != want:
+            raise AssertionError(f"C. outputs {outputs}: llm_bci nodes {ctc_nodes}, CTC "
+                                 f"launches {got}; want {nodes}, {want}")
+        add_launches(launches, got)
+        err = (out["preds"].float() - ref.preds.float()).abs().max().item()
+        if tuple(out["preds"].shape) != tuple(ref.preds.shape) or err > 2e-2:
+            raise AssertionError(f"C. the archive's log-probs differ from the eval forward's "
+                                 f"by {err}")
+        fwd_ms = cuda_ms(lambda: fn(params, serve), 10)
+        say("serve", f"C. NDT1-CTC eval forward, outputs {outputs} (B="
+            f"{batch['spikes'].shape[0]}, 5 x 1024, T'={out['preds'].shape[1]}, bf16 autocast): "
+            f"exported in {export_s:.1f} s, {os.path.getsize(path) / 2 ** 20:.2f} MiB, "
+            f"llm_bci nodes {ctc_nodes}, CTC launches a call {got}, {fwd_ms:.2f} ms a call; "
+            f"log-probs max|err| {err:.2e} against the in-process eval forward's (atol 2e-2)")
+    stack = trainer.config.model.encoder.embedder.stack
+    lens = stacked_lengths(batch["spikes_lengths"], stack.size, stack.stride, stack.active)
+    lp = out["preds"].float()
+    plain = ctc_loss_plain(lp.double(), batch["targets"], lens, batch["targets_lengths"]).sum()
+    torch.testing.assert_close(out["loss"].double(), plain, rtol=1e-5, atol=1e-3)
+    ctc_check("at the served log-probs", lp, batch["targets"].int(), lens.int(),
+              batch["targets_lengths"].int(), True, "shared")
+    say("serve", f"C. the archive's loss {out['loss'].item():.4f} against the plain CTC's "
+        f"{plain.item():.4f} on its own log-probs")
+
+    # D. The real-time loop: one window of B=1 a call, streamed into the
+    # prefix beam search.
+    T_full = batch["spikes"].shape[1]
+    window = {k: (v[:1, :SERVE_WINDOW].contiguous() if v.dim() >= 2 and v.shape[1] == T_full
+                  else v[:1].contiguous()) for k, v in serve.items()}
+    window["spikes_lengths"] = torch.full_like(window["spikes_lengths"], SERVE_WINDOW)
+    path = os.path.join(tmp, "ctc_window.pt2")
+    serving.export_forward(model, params, window, path, outputs=("preds",),
+                           const_inputs={k: v[:1] for k, v in const.items()},
+                           autocast=served)
+    fn = serving.load_decode(path)
+    fn(params, window)
+    rng = np.random.default_rng(7)
+    decoder = CTCPrefixDecoder(beam_width=16, blank_id=0)
+    frames, dev_ms, host_ms = [], [], 0.0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(SERVE_WINDOWS):
+        spikes = rng.poisson(1.0, size=tuple(window["spikes"].shape)).astype(np.float32)
+        window["spikes"] = torch.from_numpy(spikes).to(window["spikes"].device)
+        start.record()
+        lp_w = fn(params, window)["preds"][0]
+        end.record()
+        lp_w = lp_w.double().cpu().numpy()
+        dev_ms.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        live, _ = decoder.step(lp_w)
+        host_ms += (time.perf_counter() - t0) * 1e3
+        frames.append(lp_w)
+    final, _ = decoder.best()
+    whole = ctc_prefix_beam_search(np.concatenate(frames), beam_width=16, blank_id=0)[0][0]
+    if final != whole:
+        raise AssertionError(f"D. the live transcript {final} differs from the search over all "
+                             f"frames {whole}")
+    n_frames = sum(len(f) for f in frames)
+    frame_ms = stack.stride * BIN_MS
+    say("serve", f"D. real-time loop, {SERVE_WINDOWS} windows of {SERVE_WINDOW} bins (B=1, "
+        f"{len(frames[0])} frames each): forward {min(dev_ms):.2f}-{max(dev_ms):.2f} ms a window "
+        f"(CUDA events), host prefix search (beam 16) {host_ms / n_frames:.3f} ms a frame, "
+        f"against {frame_ms} ms of signal a stacked frame; the live transcript ({len(final)} "
+        f"labels) equals the search over all {n_frames} frames; card {power_line}")
+    del trainer, model
+    return launches
+
+
+def serve_mlm(tmp: str, power_line: str) -> dict:
+    """E: the NDT1-mlm eval forward at phase 6's shape, on the flash path."""
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+    from llm_bci_tpu_torch import serving
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+    write_spike_pickle(os.path.join(tmp, "spikes.pkl"))
+    trainer = port_main.build_trainer(port_main.parse_args([
+        "-c", os.path.join(REPO, "configs", "trainer_ssl_ndt1.yaml"),
+        "-k", *MLM_OVERRIDES, f"data.data_dir={tmp}", "data.data_file=spikes.pkl",
+        f"dirs.checkpoint_dir={os.path.join(tmp, 'mlm')}", "dirs.log_dir=null", "verbosity=1"]))
+    model = trainer.model.eval()
+    batch = trainer.to_device(next(iter(trainer.test_dataloader))[0])
+    params = serving.params_of(model)
+    with torch.no_grad(), trainer.autocast():
+        ref = model(**batch).preds
+    path = os.path.join(tmp, "mlm.pt2")
+    t0 = time.perf_counter()
+    serving.export_forward(model, params, batch, path, outputs=("preds",),
+                           autocast=None if trainer.compute_dtype == torch.float32
+                           else trainer.compute_dtype)
+    export_s = time.perf_counter() - t0
+    fn = serving.load_decode(path)
+    fn(params, batch)
+    fc.reset_counters()
+    out = fn(params, batch)["preds"]
+    torch.cuda.synchronize()
+    launches = {FWD_WG: fc.FWD_LAUNCHES, DQ_WG: fc.BWD_DQ_LAUNCHES, DKV_WG: fc.BWD_DKV_LAUNCHES,
+                "flash_delta_kernel": fc.BWD_DELTA_LAUNCHES}
+    n_layers = trainer.config.model.encoder.transformer.n_layers
+    if launches != {FWD_WG: n_layers, DQ_WG: 0, DKV_WG: 0, "flash_delta_kernel": 0}:
+        raise AssertionError(f"E. flash launches {launches}, want {n_layers} forwards")
+    err = (out.float() - ref.float()).abs().max().item()
+    if tuple(out.shape) != tuple(ref.shape) or err > 2e-2:
+        raise AssertionError(f"E. the mlm archive's preds differ from the eval forward's: {err}")
+    fwd_ms = cuda_ms(lambda: fn(params, batch), 10)
+    say("serve", f"E. NDT1-mlm eval forward (B={batch['spikes'].shape[0]}, T="
+        f"{batch['spikes'].shape[1]}, flash): exported in {export_s:.1f} s, "
+        f"{os.path.getsize(path) / 2 ** 20:.2f} MiB, {launches[FWD_WG]} flash forward launches "
+        f"a call, preds max|err| {err:.2e} against the eval forward (atol 2e-2), {fwd_ms:.2f} ms "
+        f"a call; card {power_line}")
+    del trainer, model
+    return launches
+
+
+def serve_opcheck() -> None:
+    """F: ``torch.library.opcheck`` on each ``llm_bci`` op on the card, at
+    small shapes (the CUDA bodies: the kernels)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(0)
+    lp = torch.log_softmax(torch.randn(4, 20, 8, device=dev, generator=g), -1)
+    targets = torch.randint(1, 8, (4, 5), device=dev, dtype=torch.int32, generator=g)
+    il = torch.tensor([20, 18, 15, 20], device=dev, dtype=torch.int32)
+    tl = torch.tensor([5, 3, 0, 4], device=dev, dtype=torch.int32)
+    cases = [("ctc_alpha", (lp, targets, il, tl, 0, True)),
+             ("ctc_alpha_beta", (lp.clone().requires_grad_(True), targets, il, tl, 0, True))]
+    for dtype, D in ((torch.bfloat16, 64), (torch.float32, 32)):
+        q, k, v = (torch.randn(2, 80, 2, D, device=dev, dtype=dtype, generator=g)
+                   .requires_grad_(True) for _ in range(3))
+        valid = torch.ones(2, 80, device=dev, dtype=torch.int32)
+        valid[1, 60:] = 0
+        seed = torch.tensor([5], device=dev, dtype=torch.int32)
+        args = (q, k, v, valid, seed, 80, 16, D ** -0.5, 0.2)
+        cases.append(("flash_fwd", args))
+        with torch.no_grad():
+            out, lse = torch.ops.llm_bci.flash_fwd(*args)
+        dout = torch.randn_like(out)
+        cases.append(("flash_bwd", (q.detach(), k.detach(), v.detach(), valid, seed, out, lse,
+                                    dout, 80, 16, D ** -0.5, 0.2)))
+    for M, dtype in ((8, torch.bfloat16), (96, torch.bfloat16), (8, torch.float32)):
+        x = torch.randn(M, 256, device=dev, dtype=dtype, generator=g).requires_grad_(True)
+        qw = torch.randint(-127, 128, (256, 128), device=dev, dtype=torch.int8, generator=g)
+        scale = torch.rand(128, device=dev, generator=g) * 0.01
+        cases.append(("int8_matmul", (x, qw, scale, dtype)))
+    for name, args in cases:
+        torch.library.opcheck(getattr(torch.ops.llm_bci, name).default, args)
+    say("serve", f"F. torch.library.opcheck passed on the card for {len(cases)} calls of "
+        f"{sorted({name for name, _ in cases})}")
+
+
+def serve_export_phase(power_line: str, profile=None) -> dict:
+    import torch
+
+    say("serve", f"card: {power_line}")
+    launches: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for part in (lambda: serve_bci_decode(tmp, power_line, profile),
+                     lambda: serve_cpu_exported(tmp, power_line),
+                     lambda: serve_flagship(tmp, power_line),
+                     lambda: serve_mlm(tmp, power_line)):
+            add_launches(launches, part())
+            gc.collect()
+            torch.cuda.empty_cache()
+    serve_opcheck()
+    return launches
+
+
 KERNELS = {
     # name of the kernel that runs at the timed shape: (source, the TPU kernel
     # it replaces). Float32 and head sizes without a wgmma plan take other
@@ -3730,7 +4209,8 @@ def main(only=None, profile=None) -> int:
                        ("eval-phonemes", lambda p, _: eval_phonemes_phase(p)),
                        ("itransformer", itransformer_phase), ("patchtst", patchtst_phase),
                        ("trainer-state", trainer_state_phase),
-                       ("warm-start", warm_start_phase)):
+                       ("warm-start", warm_start_phase),
+                       ("serve-export", serve_export_phase)):
         if only in (None, phase):
             add_launches(launches, run(power_line, profile))
             # a trainer holds reference cycles: free what the phase left, so
@@ -3757,7 +4237,8 @@ if __name__ == "__main__":
     parser.add_argument("--only", default=None,
                         choices=["ctc", "flash", "int8", "ctc-main", "mlm-main", "bci-serve",
                                  "bci-train", "cosmooth", "phoneme-llm", "eval-phonemes",
-                                 "itransformer", "patchtst", "trainer-state", "warm-start"])
+                                 "itransformer", "patchtst", "trainer-state", "warm-start",
+                                 "serve-export"])
     parser.add_argument("--profile", metavar="PATH", default=None,
                         help="write the torch.profiler tables of the CTC and mlm train steps, "
                              "the BCI greedy decode, the BCI fine-tune step, a folded "

@@ -15,8 +15,8 @@ serves the whole sweep. The JAX package ``jax.vmap``s one eval over K stacked
 override sets; the port folds the K sweep points into the batch instead: the
 test batch is repeated K times, ``(K*B, T, N)``, and every override carries
 one row for each of the K*B examples. (``torch.func.vmap`` cannot go through
-the flash path's ``autograd.Function``, which launches its kernel through
-ctypes.) Each point's prediction is sliced to its held-out channel on the
+the flash path's custom op, which launches its kernel through ctypes and has
+no batching rule.) Each point's prediction is sliced to its held-out channel on the
 device before the copy to the host. Predictions run in eval mode, under
 ``torch.no_grad()`` and the trainer's autocast; the maskers draw from a
 ``torch.Generator`` seeded 0 on the trainer's device at each model call,

@@ -46,12 +46,7 @@ from llm_bci_tpu_torch.interop.torch_import import (
     ndt1_encoder_state_dict_from_reference,
 )
 from llm_bci_tpu_torch.model_output import ModelOutput
-from llm_bci_tpu_torch.models.generation import (
-    BeamResult,
-    beam_search,
-    diverse_beam_search,
-    greedy_decode,
-)
+from llm_bci_tpu_torch.models.generation import check_generation_args, decode
 from llm_bci_tpu_torch.models.llama import (
     LlamaConfig,
     LlamaForCausalLM,
@@ -248,6 +243,25 @@ class BCI(nn.Module):
 
     # ------------------------------------------------------------ generation
 
+    def prepare_generate(self, input_ids, attention_mask, input_split, spikes, spikes_mask,
+                         spikes_timestamp, spikes_lengths=None, block_idx=None, day_idx=None):
+        """The decode's prompt: ``(inputs_embeds (B, P, H) float32,
+        attention_mask (B, P))``, the spike frames spliced into the embedded
+        text (a serving archive's ``prepare`` program)."""
+        return self.prepare_embeds(input_ids, attention_mask, input_split, spikes, spikes_mask,
+                                   spikes_timestamp, block_idx, day_idx)[:2]
+
+    def decode_step(self, embeds, mask, cache, cache_index):
+        """One model call of a decode, the cache written in place at
+        ``cache_index``: the prefill (``cache_index`` 0) and the token step
+        (a 0-dim int64 tensor). ``(logits float32, cache)``."""
+        return self.llm(inputs_embeds=embeds, attention_mask=mask, cache=cache,
+                        cache_index=cache_index)
+
+    def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
+        """Chosen token ids -> their embeddings."""
+        return self.llm.embed(ids)
+
     @torch.no_grad()
     def generate(
         self,
@@ -276,40 +290,25 @@ class BCI(nn.Module):
         1``, else a :class:`BeamResult` with the hypotheses sorted
         best-first. ``num_beam_groups == num_beams > 1`` selects diverse beam
         search. Each decode captures its token step as one CUDA graph on the
-        card and replays it (``models/decode_graph.py``)."""
-        if num_return_sequences > num_beams:
-            raise ValueError("num_return_sequences must be <= num_beams")
-        if num_beam_groups > 1 and num_beam_groups != num_beams:
-            raise ValueError("only num_beam_groups == num_beams (group size 1) is supported")
+        card and replays it (``models/decode_graph.py``). The pieces are
+        :meth:`prepare_generate`, :meth:`decode_step`, :meth:`embed_tokens`
+        and :func:`~llm_bci_tpu_torch.models.generation.decode`, which a
+        serving archive exports and runs apart (``serving.py``)."""
+        check_generation_args(num_beams, num_return_sequences, num_beam_groups)
         was_training = self.training
         self.eval()
-        inputs_embeds, attn_mask, _ = self.prepare_embeds(
+        inputs_embeds, attn_mask = self.prepare_generate(
             input_ids, attention_mask, input_split, spikes, spikes_mask, spikes_timestamp,
-            block_idx, day_idx,
+            block_idx=block_idx, day_idx=day_idx,
         )
-
-        def decode_step(embeds, mask, cache, cache_index):
-            return self.llm(inputs_embeds=embeds, attention_mask=mask, cache=cache,
-                            cache_index=cache_index)
-
         B, P, _ = inputs_embeds.shape
         cache = self.llm.init_cache(B * max(num_beams, 1), P + max_new_tokens)
-        common = (decode_step, self.llm.embed, inputs_embeds, attn_mask, cache, max_new_tokens)
-        if num_beams <= 1:
-            result = greedy_decode(*common, eos_token_id, pad_token_id)
-        elif num_beam_groups > 1:
-            result = diverse_beam_search(*common, num_beams, eos_token_id, pad_token_id,
-                                         length_penalty, diversity_penalty)
-        else:
-            result = beam_search(*common, num_beams, eos_token_id, pad_token_id,
-                                 length_penalty, early_stopping)
+        result = decode(self.decode_step, self.embed_tokens, inputs_embeds, attn_mask, cache,
+                        max_new_tokens, num_beams, pad_token_id, eos_token_id, length_penalty,
+                        early_stopping, num_return_sequences, num_beam_groups,
+                        diversity_penalty)
         self.train(was_training)
-        if num_beams <= 1:
-            return result
-        if num_return_sequences == 1:
-            return result.sequences[:, 0]
-        return BeamResult(sequences=result.sequences[:, :num_return_sequences],
-                          scores=result.scores[:, :num_return_sequences])
+        return result
 
     # ---------------------------------------------------------- checkpoints
 

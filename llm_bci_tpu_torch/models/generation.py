@@ -36,7 +36,9 @@ token step's 0-dim position tensor afterwards; the cache is updated in place.
 ``cache`` is a new cache of ``P + max_new_tokens`` slots; the decode's
 :class:`TokenStep` takes it as its static cache and lives as long as the
 decode. ``embed_tokens`` maps chosen ids back to embeddings. Token ids are
-int64.
+int64. :func:`decode` picks the loop and shapes its result; ``BCI.generate``
+calls it with the model's own step, and a serving archive's loader
+(``serving.load_decode``) with the archive's exported programs.
 """
 from __future__ import annotations
 
@@ -299,3 +301,47 @@ def diverse_beam_search(
     sequences = torch.where(use_fin[:, :, None], fin_tokens, live_tokens)
     order = torch.argsort(-scores, dim=1, stable=True)
     return BeamResult(sequences=_take(sequences, order), scores=torch.gather(scores, 1, order))
+
+
+def check_generation_args(num_beams: int, num_return_sequences: int,
+                          num_beam_groups: int) -> None:
+    if num_return_sequences > num_beams:
+        raise ValueError("num_return_sequences must be <= num_beams")
+    if num_beam_groups > 1 and num_beam_groups != num_beams:
+        raise ValueError("only num_beam_groups == num_beams (group size 1) is supported")
+
+
+def decode(
+    decode_step: Callable,
+    embed_tokens: Callable,
+    inputs_embeds: torch.Tensor,     # (B, P, H)
+    attention_mask: torch.Tensor,    # (B, P)
+    cache,                           # batch dim B * max(num_beams, 1), P + max_new_tokens slots
+    max_new_tokens: int,
+    num_beams: int = 1,
+    pad_token_id: int = 0,
+    eos_token_id: int = 2,
+    length_penalty: float = 1.0,
+    early_stopping: bool = False,
+    num_return_sequences: int = 1,
+    num_beam_groups: int = 1,
+    diversity_penalty: float = 0.0,
+):
+    """Greedy (``num_beams=1``), beam search or diverse beam search
+    (``num_beam_groups == num_beams > 1``) from a prepared prompt. ``(B,
+    max_new_tokens)`` ids when ``num_return_sequences == 1``, else a
+    :class:`BeamResult` of the best ``num_return_sequences`` hypotheses."""
+    check_generation_args(num_beams, num_return_sequences, num_beam_groups)
+    common = (decode_step, embed_tokens, inputs_embeds, attention_mask, cache, max_new_tokens)
+    if num_beams <= 1:
+        return greedy_decode(*common, eos_token_id, pad_token_id)
+    if num_beam_groups > 1:
+        result = diverse_beam_search(*common, num_beams, eos_token_id, pad_token_id,
+                                     length_penalty, diversity_penalty)
+    else:
+        result = beam_search(*common, num_beams, eos_token_id, pad_token_id, length_penalty,
+                             early_stopping)
+    if num_return_sequences == 1:
+        return result.sequences[:, 0]
+    return BeamResult(sequences=result.sequences[:, :num_return_sequences],
+                      scores=result.scores[:, :num_return_sequences])

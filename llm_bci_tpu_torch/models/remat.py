@@ -16,8 +16,9 @@ the same keys in the JAX package).
 Non-reentrant checkpointing restores the autocast state at the recompute, so
 the recomputed flash forward sees the dtype of the first pass, and it checks
 that every recomputed saved tensor has the shape and dtype of the first. The
-kernels' autograd Functions keep their tensors with ``save_for_backward``,
-which the checkpoint's hooks see, after their kernel has run: the recompute
+kernels' custom ops keep their tensors with ``save_for_backward`` in their
+registered ``setup_context``, which the checkpoint's hooks see, after their
+kernel has run: the recompute
 launches every kernel of the layer whose saved tensors the backward needs.
 Outside autograd (``torch.no_grad``, eval) the layer runs plainly.
 """

@@ -1,8 +1,8 @@
 """CTC loss through the hand-written CUDA kernels of ``csrc/ctc.cu``.
 
 Replaces the Pallas TPU kernels of ``llm_bci_tpu/ops/ctc_pallas.py``
-(``_fwd_kernel`` via ``_run_fwd``, ``_bwd_kernel`` via ``_run_bwd``, and
-the custom VJP ``ctc_loss_pallas``). A forward that needs no gradient
+(``_fwd_kernel`` via ``_run_fwd``, ``_bwd_kernel`` via ``_run_bwd``; the
+custom VJP ``ctc_loss_pallas`` is the ops' registered backward). A forward that needs no gradient
 launches ``ctc_alpha_kernel`` (one block an example runs the alpha recursion
 and writes the loss). A forward that needs one launches
 ``ctc_alpha_beta_kernel``: a cluster of two blocks an example runs alpha and
@@ -20,7 +20,10 @@ lattices live in shared memory or in a global scratch the wrapper allocates,
 blocks an example); the launcher refuses a plan that differs from its own in
 any field.
 
-The wrapper checks device, dtype, shape and contiguity and raises on
+:func:`ctc_alpha_cuda` and :func:`ctc_alpha_beta_cuda` are the CUDA bodies of
+the custom ops ``llm_bci::ctc_alpha`` and ``llm_bci::ctc_alpha_beta``
+(registered in :mod:`llm_bci_tpu_torch.ops.ctc`, whose backward is the
+multiply). They check device, dtype, shape and contiguity and raise on
 anything the kernels do not take; there is no fallback to the plain
 version. ``FWD_LAUNCHES`` counts ``ctc_alpha_kernel`` and ``FUSED_LAUNCHES``
 ``ctc_alpha_beta_kernel``.
@@ -187,71 +190,49 @@ def launch(plan: CTCPlan, log_probs, targets, input_lengths, target_lengths,
         FWD_LAUNCHES += 1
 
 
-class CTCLossFunction(torch.autograd.Function):
-    """Per-example CTC loss. The forward is one kernel; with ``want_grad`` it
-    also writes the occupancy sums, and the backward scales them.
+def _ctc_cuda(log_probs, targets, input_lengths, target_lengths, blank_id: int,
+              zero_infinity: bool, want_grad: bool):
+    """Checks the call and launches one kernel: ``ctc_alpha_kernel`` without a
+    gradient, ``ctc_alpha_beta_kernel`` with one (it also writes ``occ``).
 
     Takes ``log_probs`` (B, T, V) float32, ``targets`` (B, S) int32 and
-    ``input_lengths`` / ``target_lengths`` (B,) int32, all contiguous and
-    on one CUDA device."""
-
-    @staticmethod
-    def forward(ctx, log_probs, targets, input_lengths, target_lengths,
-                blank_id: int, zero_infinity: bool, want_grad: bool = True):
-        device = log_probs.device
-        if device.type != "cuda":
-            raise ValueError(f"ctc kernel: log_probs is on {device}, expected a CUDA device")
-        if log_probs.dim() != 3 or targets.dim() != 2:
-            raise ValueError("ctc kernel: expected log_probs (B, T, V) and targets (B, S)")
-        B, T, V = log_probs.shape
-        S = targets.shape[1]
-        _check(log_probs, "log_probs", torch.float32, (B, T, V), device)
-        _check(targets, "targets", torch.int32, (B, S), device)
-        _check(input_lengths, "input_lengths", torch.int32, (B,), device)
-        _check(target_lengths, "target_lengths", torch.int32, (B,), device)
-        if B < 1:
-            raise ValueError(f"ctc kernel: empty batch (B={B})")
-        if not 0 <= blank_id < V:
-            raise ValueError(f"ctc kernel: blank_id {blank_id} outside [0, {V})")
-        # ``needs_input_grad`` is True under no_grad too; the caller says.
-        want_grad = bool(want_grad) and ctx.needs_input_grad[0]
-        plan = ctc_plan(T, S, V, want_grad)
-        loss = torch.empty(B, device=device, dtype=torch.float32)
-        occ = torch.empty_like(log_probs) if want_grad else None
-        scratch = (torch.empty(scratch_shape(B, T, S), device=device, dtype=torch.float64)
-                   if plan.lattice == "global" else None)
-        launch(plan, log_probs, targets, input_lengths, target_lengths, blank_id,
-               zero_infinity, loss, occ, scratch)
-        ctx.save_for_backward(occ)
-        return loss
-
-    @staticmethod
-    def backward(ctx, grad_loss):
-        (occ,) = ctx.saved_tensors
-        if occ is None:
-            raise RuntimeError("ctc kernel: the forward ran without a gradient (want_grad=False)")
-        grad = occ * (-grad_loss.to(occ.dtype))[:, None, None]
-        return grad, None, None, None, None, None, None
+    ``input_lengths`` / ``target_lengths`` (B,) int32, all contiguous and on
+    one CUDA device; raises on anything else."""
+    device = log_probs.device
+    if device.type != "cuda":
+        raise ValueError(f"ctc kernel: log_probs is on {device}, expected a CUDA device")
+    if log_probs.dim() != 3 or targets.dim() != 2:
+        raise ValueError("ctc kernel: expected log_probs (B, T, V) and targets (B, S)")
+    B, T, V = log_probs.shape
+    S = targets.shape[1]
+    _check(log_probs, "log_probs", torch.float32, (B, T, V), device)
+    _check(targets, "targets", torch.int32, (B, S), device)
+    _check(input_lengths, "input_lengths", torch.int32, (B,), device)
+    _check(target_lengths, "target_lengths", torch.int32, (B,), device)
+    if B < 1:
+        raise ValueError(f"ctc kernel: empty batch (B={B})")
+    if not 0 <= blank_id < V:
+        raise ValueError(f"ctc kernel: blank_id {blank_id} outside [0, {V})")
+    plan = ctc_plan(T, S, V, want_grad)
+    loss = torch.empty(B, device=device, dtype=torch.float32)
+    occ = torch.empty_like(log_probs) if want_grad else None
+    scratch = (torch.empty(scratch_shape(B, T, S), device=device, dtype=torch.float64)
+               if plan.lattice == "global" else None)
+    launch(plan, log_probs, targets, input_lengths, target_lengths, blank_id,
+           zero_infinity, loss, occ, scratch)
+    return loss, occ
 
 
-def ctc_loss_cuda(
-    log_probs: torch.Tensor,        # (B, T, V) log-softmax normalized, CUDA
-    targets: torch.Tensor,          # (B, S)
-    input_lengths: torch.Tensor,    # (B,)
-    target_lengths: torch.Tensor,   # (B,)
-    blank_id: int = 0,
-    zero_infinity: bool = True,
-) -> torch.Tensor:                  # (B,)
-    """Casts to the kernels' dtypes (float32 log-probs, int32 labels and
-    lengths, contiguous) and applies :class:`CTCLossFunction`; the gradient
-    is formed in the forward only when autograd will ask for it."""
-    log_probs = log_probs.float().contiguous()
-    return CTCLossFunction.apply(
-        log_probs,
-        targets.to(torch.int32).contiguous(),
-        input_lengths.to(torch.int32).contiguous(),
-        target_lengths.to(torch.int32).contiguous(),
-        blank_id,
-        zero_infinity,
-        torch.is_grad_enabled() and log_probs.requires_grad,
-    )
+def ctc_alpha_cuda(log_probs, targets, input_lengths, target_lengths, blank_id: int = 0,
+                   zero_infinity: bool = True) -> torch.Tensor:
+    """``llm_bci::ctc_alpha`` on CUDA: the loss (B,) by ``ctc_alpha_kernel``."""
+    return _ctc_cuda(log_probs, targets, input_lengths, target_lengths, blank_id,
+                     zero_infinity, False)[0]
+
+
+def ctc_alpha_beta_cuda(log_probs, targets, input_lengths, target_lengths, blank_id: int = 0,
+                        zero_infinity: bool = True):
+    """``llm_bci::ctc_alpha_beta`` on CUDA: the loss (B,) and the occupancy
+    sums (B, T, V) by ``ctc_alpha_beta_kernel``."""
+    return _ctc_cuda(log_probs, targets, input_lengths, target_lengths, blank_id,
+                     zero_infinity, True)

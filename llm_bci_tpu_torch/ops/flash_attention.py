@@ -11,12 +11,16 @@ counter-based keep mask (:func:`keep_mask`), so for one seed both packages
 drop the same entries; the softmax normaliser is not affected by dropout and
 kept probabilities are scaled by ``1 / (1 - p)``.
 
-A CUDA tensor goes to the hand-written kernels of
-``csrc/flash_attention.cu`` through
-:mod:`llm_bci_tpu_torch.ops.flash_attention_cuda`, or raises; a CPU tensor
-goes to :func:`banded_flash_attention_plain`, which is also what the kernels
-are held against on the card. The plain version materialises the
-``(B, H, T, T)`` logits and is no measure of speed.
+:func:`banded_flash_attention` calls the ``torch.library`` custom op
+``llm_bci::flash_fwd`` (``out`` and ``lse``), whose registered backward is
+``llm_bci::flash_bwd`` (``dq``, ``dk``, ``dv``). The op's dispatch key picks
+the implementation, so a graph exported with ``torch.export`` keeps the op
+node wherever it was traced: a CUDA tensor runs the hand-written kernels of
+``csrc/flash_attention.cu`` (:mod:`llm_bci_tpu_torch.ops.flash_attention_cuda`),
+or raises; a CPU tensor runs :func:`banded_flash_attention_plain` (and
+:func:`flash_backward_plain`), which is also what the kernels are held
+against on the card; any other device has no kernel. The plain version
+materialises the ``(B, H, T, T)`` logits and is no measure of speed.
 """
 from __future__ import annotations
 
@@ -92,25 +96,67 @@ def banded_flash_attention_plain(
     context_backward: Optional[int] = None,
     dropout_rate: float = 0.0,
     seed: Union[None, int, torch.Tensor] = None,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Plain tensor version of the kernels: dense logits, the band + padding
     mask, a float32 softmax, rows with no visible key zeroed, the
     counter-based keep mask, the value product. Its gradient is autograd's.
-    ``dropout_rate > 0`` needs a ``seed``; without one nothing is dropped."""
+    ``dropout_rate > 0`` needs a ``seed``; without one nothing is dropped.
+    ``scale`` defaults to ``1 / sqrt(D)``."""
+    return _plain_forward(q, k, v, key_valid, context_forward, context_backward,
+                          dropout_rate, seed, scale)[0]
+
+
+def _plain_forward(q, k, v, key_valid, context_forward, context_backward, dropout_rate, seed,
+                   scale):
+    """(out, lse (B, H, T) float32 with -1e30 on rows with no visible key, the
+    probabilities before dropout (B, H, T, T) float32, the keep mask as 0 / 1
+    floats or ``None`` without dropout)."""
     B, T, H, D = q.shape
     fwd, bwd = _band_bounds(context_forward, context_backward, T)
     qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))        # (B, H, T, D)
-    logits = torch.matmul(qh, kh.transpose(-1, -2)).float() / math.sqrt(D)
+    logits = torch.matmul(qh, kh.transpose(-1, -2)).float()
+    logits = logits / math.sqrt(D) if scale is None else logits * scale
     mask = visibility_mask(T, key_valid, fwd, bwd, q.device)
     logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    lse = torch.where(mask.any(-1), torch.logsumexp(logits, dim=-1),
+                      torch.full_like(logits[..., 0], NEG_INF))
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(mask, probs, torch.zeros_like(probs))  # dead rows -> 0
+    keep, dropped = None, probs
     if dropout_rate > 0.0 and seed is not None:
         pos = torch.arange(T, device=q.device)
         bh = torch.arange(B * H, device=q.device).reshape(B, H, 1, 1)
         keep = keep_mask(seed, bh, pos[:, None], pos[None, :], float(dropout_rate))
-        probs = probs * keep.to(probs.dtype) / (1.0 - float(dropout_rate))
-    return torch.matmul(probs.to(vh.dtype), vh).transpose(1, 2)
+        keep = keep.to(probs.dtype)
+        dropped = probs * keep / (1.0 - float(dropout_rate))
+    out = torch.matmul(dropped.to(vh.dtype), vh).transpose(1, 2)
+    return out, lse.expand(B, H, T), probs, keep
+
+
+def flash_backward_plain(q, k, v, key_valid, seed, dout, fwd: int, bwd: int, scale: float,
+                         drop_p: float):
+    """``(dq, dk, dv)`` of :func:`banded_flash_attention_plain` in float32,
+    returned in the dtypes of ``q``, ``k``, ``v``: the probabilities ``P``
+    recomputed, ``dv = P_drop^T dO``, ``ds = P * (keep * dO V^T / (1 - p) -
+    rowsum(dO * O))``, ``dq = ds K * scale``, ``dk = ds^T Q * scale``; 0 for
+    masked entries and rows with no visible key. This is the kernels'
+    backward written out: a custom op's CPU body cannot call into autograd."""
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, dout))
+    out, _, probs, keep = _plain_forward(qf, kf, vf, key_valid, fwd, bwd, drop_p, seed, scale)
+    qh, kh, vh, gh = (x.transpose(1, 2) for x in (qf, kf, vf, gf))  # (B, H, T, D)
+    delta = (gf * out).sum(-1).transpose(1, 2)[..., None]          # (B, H, T, 1)
+    dp = torch.matmul(gh, vh.transpose(-1, -2))
+    dropped = probs
+    if keep is not None:
+        dp = dp * keep / (1.0 - drop_p)
+        dropped = probs * keep / (1.0 - drop_p)
+    ds = probs * (dp - delta)
+    dq = torch.matmul(ds, kh) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+    dv = torch.matmul(dropped.transpose(-1, -2), gh)
+    return tuple(g.transpose(1, 2).to(x.dtype).contiguous()
+                 for g, x in ((dq, q), (dk, k), (dv, v)))
 
 
 def flash_delta_plain(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
@@ -125,6 +171,85 @@ def draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
     """One int32 in ``[0, 2**31 - 1)`` on ``device`` from ``generator``."""
     return torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device,
                          dtype=torch.int32)
+
+
+# --------------------------------------------------------------- custom ops
+
+@torch.library.custom_op("llm_bci::flash_fwd", mutates_args=(), device_types="cpu")
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              key_valid: Optional[torch.Tensor], seed: Optional[torch.Tensor], fwd: int,
+              bwd: int, scale: float, drop_p: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of the banded attention; ``fwd`` / ``bwd`` are resolved
+    band widths, ``seed`` a one-element int32 tensor or ``None`` (no
+    dropout). CUDA: ``flash_fwd_wgmma_kernel`` / ``flash_fwd_kernel``."""
+    out, lse, _, _ = _plain_forward(q, k, v, key_valid, fwd, bwd, drop_p, seed, scale)
+    return out.contiguous(), lse.contiguous()
+
+
+@flash_fwd.register_kernel("cuda")
+def _flash_fwd_cuda(q, k, v, key_valid, seed, fwd, bwd, scale, drop_p):
+    from llm_bci_tpu_torch.ops import flash_attention_cuda
+
+    return flash_attention_cuda.flash_forward_cuda(q, k, v, key_valid, seed, fwd, bwd, scale,
+                                                   drop_p)
+
+
+@flash_fwd.register_fake
+def _flash_fwd_fake(q, k, v, key_valid, seed, fwd, bwd, scale, drop_p):
+    B, T, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, H, T), dtype=torch.float32)
+
+
+@torch.library.custom_op("llm_bci::flash_bwd", mutates_args=(), device_types="cpu")
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              key_valid: Optional[torch.Tensor], seed: Optional[torch.Tensor],
+              out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, fwd: int, bwd: int,
+              scale: float, drop_p: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)``. CUDA: ``flash_delta_kernel``, then the dQ and the
+    dK / dV kernels."""
+    return flash_backward_plain(q, k, v, key_valid, seed, dout, fwd, bwd, scale, drop_p)
+
+
+@flash_bwd.register_kernel("cuda")
+def _flash_bwd_cuda(q, k, v, key_valid, seed, out, lse, dout, fwd, bwd, scale, drop_p):
+    from llm_bci_tpu_torch.ops import flash_attention_cuda
+
+    return flash_attention_cuda.flash_backward_cuda(q, k, v, key_valid, seed, out, lse, dout,
+                                                    fwd, bwd, scale, drop_p)
+
+
+@flash_bwd.register_fake
+def _flash_bwd_fake(q, k, v, key_valid, seed, out, lse, dout, fwd, bwd, scale, drop_p):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+def _flash_setup(ctx, inputs, output):
+    q, k, v, key_valid, seed, fwd, bwd, scale, drop_p = inputs
+    out, lse = output
+    ctx.band = (fwd, bwd, scale, drop_p)
+    ctx.save_for_backward(q, k, v, out, lse, key_valid, seed)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_backward(ctx, dout, _dlse):
+    q, k, v, out, lse, key_valid, seed = ctx.saved_tensors
+    dout = dout.to(q.dtype).contiguous()   # arrives strided after a transpose
+    dq, dk, dv = flash_bwd(q, k, v, key_valid, seed, out, lse, dout, *ctx.band)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+flash_fwd.register_autograd(_flash_backward, setup_context=_flash_setup)
+
+
+def flash_core(q, k, v, key_valid, seed, fwd: int, bwd: int, scale: float,
+               drop_p: float) -> torch.Tensor:
+    """``out`` of ``llm_bci::flash_fwd`` on arguments already in the kernels'
+    form (contiguous ``(B, T, H, D)`` of one dtype, int32 ``key_valid``, a
+    one-element int32 ``seed`` or ``None``), with its gradient."""
+    return flash_fwd(q, k, v, key_valid, seed, fwd, bwd, scale, drop_p)[0]
+
+
+HEAD_SIZES = (32, 64, 128)   # the kernels' head sizes; a smaller D is zero-padded to one
 
 
 def banded_flash_attention(
@@ -146,27 +271,39 @@ def banded_flash_attention(
     with neither ``generator`` nor ``seed`` nothing is dropped, as in the JAX
     package. ``seed`` (an int or a one-element tensor) pins the keep mask.
 
-    A CUDA tensor runs the kernels (and raises on what they do not take); a
-    CPU tensor runs :func:`banded_flash_attention_plain`."""
+    Brings the arguments to the kernels' form (contiguous, one dtype, int32
+    ``key_valid``, a one-element int32 seed tensor, ``D`` zero-padded to 32 /
+    64 / 128 with ``scale`` from the true ``D``) on every device and calls
+    :func:`flash_core`: a CUDA tensor runs the kernels (and raises on what
+    they do not take), a CPU tensor the plain version."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             "banded_flash_attention: q, k, v must share one (B, T, H, D) shape (no GQA), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
+    B, T, H, D = q.shape
     drop_p = float(dropout_rate)
     if drop_p > 0.0 and seed is None and generator is not None:
         seed = draw_seed(generator, q.device)
-    if seed is None:
-        drop_p = 0.0
-    if q.device.type == "cuda":
-        from llm_bci_tpu_torch.ops.flash_attention_cuda import banded_flash_attention_cuda
-
-        return banded_flash_attention_cuda(
-            q, k, v, key_valid, context_forward, context_backward, drop_p, seed
-        )
-    return banded_flash_attention_plain(
-        q, k, v, key_valid, context_forward, context_backward, drop_p, seed
-    )
+    if drop_p > 0.0 and seed is not None:
+        if not torch.is_tensor(seed):
+            seed = torch.tensor([int(seed)], dtype=torch.int32, device=q.device)
+        seed = seed.to(device=q.device, dtype=torch.int32).reshape(1).contiguous()
+    else:
+        seed, drop_p = None, 0.0
+    fwd, bwd = _band_bounds(context_forward, context_backward, T)
+    if fwd < 0 or bwd < 0:
+        raise ValueError(f"flash kernel: negative band widths ({fwd}, {bwd})")
+    scale = 1.0 / math.sqrt(D)
+    Dp = next((s for s in HEAD_SIZES if s >= D), D)   # above 128 the kernels refuse
+    k, v = k.to(q.dtype), v.to(q.dtype)
+    if Dp != D:
+        q, k, v = (torch.nn.functional.pad(x, (0, Dp - D)) for x in (q, k, v))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if key_valid is not None:
+        key_valid = (key_valid != 0).to(torch.int32).contiguous()
+    out = flash_core(q, k, v, key_valid, seed, fwd, bwd, scale, drop_p)
+    return out[..., :D] if Dp != D else out
 
 
 def flash_attention(q, k, v, mask=None, is_causal: bool = False) -> torch.Tensor:

@@ -3,7 +3,8 @@
 
 Replaces the Pallas TPU kernels of ``llm_bci_tpu/ops/flash_attention.py``
 (``_fwd_kernel`` via ``_flash_fwd``, ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel`` via ``_flash_bwd``, and the custom VJP ``_flash_core``).
+``_bwd_dkv_kernel`` via ``_flash_bwd``; the custom VJP ``_flash_core`` is the
+ops' registered backward).
 The forward kernel writes ``out`` and ``lse``; the backward takes
 ``delta = rowsum(dO * O)`` from ``flash_delta_kernel`` (one pass over ``out``
 and ``dout``, in place of the expression XLA fuses in the JAX package) and
@@ -13,31 +14,31 @@ tiles (dQ) and one owning key tiles (dK, dV; no atomics).
 head size run. See the ``.cu`` file for the design and what bounds it.
 
 The kernels read the public ``(B, T, H, D)`` layout directly and take head
-sizes 32, 64 and 128; any other ``D`` is zero-padded here to the next of
-those (the logits do not change: ``scale`` comes from the true ``D``), and a
-``D`` above 128 raises. bf16 and float32 are taken, any ``T``. The wrapper
-checks device, dtype, shape and contiguity and raises on the rest; there is
-no fallback to the plain version. ``FWD_LAUNCHES``, ``BWD_DELTA_LAUNCHES``,
+sizes 32, 64 and 128; ``banded_flash_attention`` zero-pads any other ``D`` to
+the next of those (the logits do not change: ``scale`` comes from the true
+``D``), and a ``D`` above 128 raises. bf16 and float32 are taken, any ``T``.
+:func:`flash_forward_cuda` and :func:`flash_backward_cuda` are the CUDA
+bodies of the custom ops ``llm_bci::flash_fwd`` and ``llm_bci::flash_bwd``
+(registered in :mod:`llm_bci_tpu_torch.ops.flash_attention`); they check
+device, dtype, shape and contiguity and raise on the rest; there is no
+fallback to the plain version. ``FWD_LAUNCHES``, ``BWD_DELTA_LAUNCHES``,
 ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` count the launches.
 """
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from llm_bci_tpu_torch.ops import _build
-from llm_bci_tpu_torch.ops.flash_attention import _band_bounds, dropout_threshold
+from llm_bci_tpu_torch.ops.flash_attention import HEAD_SIZES, dropout_threshold
 
 FWD_LAUNCHES = 0
 BWD_DELTA_LAUNCHES = 0
 BWD_DQ_LAUNCHES = 0
 BWD_DKV_LAUNCHES = 0
 
-HEAD_SIZES = (32, 64, 128)
 TILE = 64                # queries a block owns, and keys a step of its sweep
 MAX_SMEM_BYTES = 232448  # what one block can use on an H100
 
@@ -177,67 +178,63 @@ def backward_plan(D: int, is_bf16: bool) -> BackwardPlan:
     return BackwardPlan(dq, dkv)
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """``out = attention(q, k, v)`` under the band + key-padding mask.
+def check_forward(q, k, v, key_valid, seed, fwd: int, bwd: int) -> None:
+    """Raise unless the kernels take these arguments: contiguous ``(B, T, H,
+    D)`` tensors of one dtype (bf16 or float32) on one CUDA device with ``D``
+    in ``HEAD_SIZES``, ``key_valid`` ``(B, T)`` int32 or ``None``, ``seed`` a
+    one-element int32 tensor or ``None``, band widths in ``[0, T]``."""
+    device = q.device
+    if q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash kernel: dtype {q.dtype} not taken (bfloat16, float32)")
+    if q.dim() != 4:
+        raise ValueError("flash kernel: expected q, k, v of shape (B, T, H, D)")
+    B, T, H, D = q.shape
+    if D not in HEAD_SIZES:
+        raise ValueError(f"flash kernel: head size {D} not in {HEAD_SIZES}")
+    if B < 1 or T < 1 or H < 1:
+        raise ValueError(f"flash kernel: empty input {tuple(q.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(t, name, q.dtype, (B, T, H, D), device)
+    if key_valid is not None:
+        _check(key_valid, "key_valid", torch.int32, (B, T), device)
+    if seed is not None:
+        _check(seed, "seed", torch.int32, (1,), device)
+    if not (0 <= fwd <= T and 0 <= bwd <= T):
+        raise ValueError(f"flash kernel: band widths ({fwd}, {bwd}) outside [0, {T}]")
+    # the device last, so that every other refusal can be seen without a card
+    if device.type != "cuda":
+        raise ValueError(f"flash kernel: q is on {device}, expected a CUDA device")
 
-    Takes contiguous ``(B, T, H, D)`` tensors of one dtype (bf16 or float32)
-    on one CUDA device with ``D`` in ``HEAD_SIZES``, ``key_valid`` ``(B, T)``
-    int32 or ``None``, ``seed`` a one-element int32 tensor on the device or
-    ``None`` (no dropout). ``scale`` is passed in because ``D`` may be padded."""
 
-    @staticmethod
-    @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, q, k, v, key_valid, seed, fwd: int, bwd: int, scale: float,
-                drop_p: float):
-        device = q.device
-        if q.dtype not in (torch.bfloat16, torch.float32):
-            raise TypeError(f"flash kernel: dtype {q.dtype} not taken (bfloat16, float32)")
-        if q.dim() != 4:
-            raise ValueError("flash kernel: expected q, k, v of shape (B, T, H, D)")
-        B, T, H, D = q.shape
-        if D not in HEAD_SIZES:
-            raise ValueError(f"flash kernel: head size {D} not in {HEAD_SIZES}")
-        if B < 1 or T < 1 or H < 1:
-            raise ValueError(f"flash kernel: empty input {tuple(q.shape)}")
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            _check(t, name, q.dtype, (B, T, H, D), device)
-        if key_valid is not None:
-            _check(key_valid, "key_valid", torch.int32, (B, T), device)
-        use_drop = drop_p > 0.0 and seed is not None
-        if use_drop:
-            _check(seed, "seed", torch.int32, (1,), device)
-        if not (0 <= fwd <= T and 0 <= bwd <= T):
-            raise ValueError(f"flash kernel: band widths ({fwd}, {bwd}) outside [0, {T}]")
-        # the device last, so that every other refusal can be seen without a card
-        if device.type != "cuda":
-            raise ValueError(f"flash kernel: q is on {device}, expected a CUDA device")
-        ctx.meta = kernel_meta(q, fwd, bwd, scale, drop_p if use_drop else 0.0)
-        out, lse = flash_fwd(q, k, v, key_valid, seed if use_drop else None, ctx.meta)
-        ctx.has_valid, ctx.has_seed = key_valid is not None, use_drop
-        saved = [q, k, v, out, lse]
-        saved += [key_valid] if ctx.has_valid else []
-        saved += [seed] if ctx.has_seed else []
-        ctx.save_for_backward(*saved)
-        return out
+def flash_forward_cuda(q, k, v, key_valid, seed, fwd: int, bwd: int, scale: float,
+                       drop_p: float):
+    """``llm_bci::flash_fwd`` on CUDA: checks the call (:func:`check_forward`)
+    and launches the forward kernel; ``(out, lse)``. ``scale`` is passed in
+    because ``D`` may be padded."""
+    check_forward(q, k, v, key_valid, seed, fwd, bwd)
+    use_drop = drop_p > 0.0 and seed is not None
+    meta = kernel_meta(q, fwd, bwd, scale, drop_p if use_drop else 0.0)
+    return flash_fwd(q, k, v, key_valid, seed if use_drop else None, meta)
 
-    @staticmethod
-    @torch.amp.custom_bwd(device_type="cuda")
-    def backward(ctx, dout):
-        q, k, v, out, lse, *rest = ctx.saved_tensors
-        key_valid = rest.pop(0) if ctx.has_valid else None
-        seed = rest.pop(0) if ctx.has_seed else None
-        B, T, H, D = ctx.meta[:4]
-        dout = dout.to(q.dtype).contiguous()   # arrives strided after a transpose
-        _check(dout, "dout", q.dtype, (B, T, H, D), q.device)
-        delta = flash_delta(out, dout)
-        dq = flash_dq(q, k, v, key_valid, seed, dout, lse, delta, ctx.meta)
-        dk, dv = flash_dkv(q, k, v, key_valid, seed, dout, lse, delta, ctx.meta)
-        return dq, dk, dv, None, None, None, None, None, None
+
+def flash_backward_cuda(q, k, v, key_valid, seed, out, lse, dout, fwd: int, bwd: int,
+                        scale: float, drop_p: float):
+    """``llm_bci::flash_bwd`` on CUDA: ``delta`` by ``flash_delta_kernel``,
+    then the dQ and the dK / dV kernels; ``(dq, dk, dv)``."""
+    check_forward(q, k, v, key_valid, seed, fwd, bwd)
+    _check(dout, "dout", q.dtype, q.shape, q.device)
+    use_drop = drop_p > 0.0 and seed is not None
+    seed = seed if use_drop else None
+    meta = kernel_meta(q, fwd, bwd, scale, drop_p if use_drop else 0.0)
+    delta = flash_delta(out, dout)
+    dq = flash_dq(q, k, v, key_valid, seed, dout, lse, delta, meta)
+    dk, dv = flash_dkv(q, k, v, key_valid, seed, dout, lse, delta, meta)
+    return dq, dk, dv
 
 
 def flash_fwd(q, k, v, key_valid, seed, meta):
-    """Launches the forward kernel on tensors :class:`FlashAttentionFunction`
-    has checked; ``meta`` is :func:`kernel_meta`'s tuple. Returns ``out``
+    """Launches the forward kernel on tensors :func:`check_forward` has
+    passed; ``meta`` is :func:`kernel_meta`'s tuple. Returns ``out``
     and ``lse`` ``(B, H, T)`` float32."""
     global FWD_LAUNCHES
     B, T, H, D = q.shape
@@ -321,41 +318,3 @@ def flash_dkv(q, k, v, key_valid, seed, dout, lse, delta, meta):
     _raise_if_failed(rc, "dK/dV")
     BWD_DKV_LAUNCHES += 1
     return dk, dv
-
-
-def banded_flash_attention_cuda(
-    q: torch.Tensor,                           # (B, T, H, D), CUDA
-    k: torch.Tensor,
-    v: torch.Tensor,
-    key_valid: Optional[torch.Tensor] = None,  # (B, T)
-    context_forward: Optional[int] = None,
-    context_backward: Optional[int] = None,
-    dropout_rate: float = 0.0,
-    seed: Union[None, int, torch.Tensor] = None,
-) -> torch.Tensor:
-    """Brings the arguments to what the kernels take (contiguous, one dtype,
-    int32 ``key_valid``, a one-element int32 seed tensor, ``D`` zero-padded to
-    32 / 64 / 128) and applies :class:`FlashAttentionFunction`."""
-    B, T, H, D = q.shape
-    if D > HEAD_SIZES[-1]:
-        raise ValueError(f"flash kernel: head size {D} > {HEAD_SIZES[-1]} is not taken")
-    fwd, bwd = _band_bounds(context_forward, context_backward, T)
-    if fwd < 0 or bwd < 0:
-        raise ValueError(f"flash kernel: negative band widths ({fwd}, {bwd})")
-    scale = 1.0 / math.sqrt(D)
-    Dp = next(s for s in HEAD_SIZES if s >= D)
-    k, v = k.to(q.dtype), v.to(q.dtype)
-    if Dp != D:
-        q, k, v = (F.pad(x, (0, Dp - D)) for x in (q, k, v))
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    if key_valid is not None:
-        key_valid = (key_valid != 0).to(torch.int32).contiguous()
-    drop_p = float(dropout_rate)
-    if drop_p > 0.0 and seed is not None:
-        if not torch.is_tensor(seed):
-            seed = torch.tensor([int(seed)], dtype=torch.int32, device=q.device)
-        seed = seed.to(device=q.device, dtype=torch.int32).reshape(1).contiguous()
-    else:
-        seed, drop_p = None, 0.0
-    out = FlashAttentionFunction.apply(q, k, v, key_valid, seed, fwd, bwd, scale, drop_p)
-    return out[..., :D] if Dp != D else out

@@ -22,7 +22,9 @@ float32 ``x`` (tests and tight comparison only) takes one CUDA-core kernel of
 their kernel; the wrapper checks the cluster plan against the same constants
 before it touches the card. See ``csrc/int8_matmul.cu``.
 
-The wrapper checks device, dtype, shape and contiguity and raises on
+:func:`int8_matmul_cuda` is what the CUDA body of the custom op
+``llm_bci::int8_matmul`` (``ops/quant.py``) calls. It checks device, dtype,
+shape and contiguity and raises on
 anything the kernels do not take; there is no fallback to the plain
 version. ``LAUNCHES`` counts the calls that launched a kernel (a call inside
 a CUDA graph capture counts once, when it is captured; replays of the graph

@@ -14,11 +14,15 @@ kernel reads 16 codes a thread along the contiguous N direction. The
 bridges (``interop/from_jax.py``, ``models/llama.py::load_hf_llama_params``)
 do the transposes.
 
-**Dispatch.** :func:`int8_matmul` on a CUDA tensor always launches the
-hand-written kernel (``ops/int8_matmul_cuda.py``) or raises; on a CPU tensor
-it takes :func:`int8_matmul_plain`. The backward is a plain product outside
-any kernel, ``dx = (g * scale) @ q^T``, as in the JAX package; ``q`` and
-``scale`` take no gradient (the base is frozen).
+**Dispatch.** :func:`int8_matmul` calls the ``torch.library`` custom op
+``llm_bci::int8_matmul``, whose dispatch key picks the implementation (so a
+graph exported with ``torch.export`` keeps the op node wherever it was
+traced): a CUDA tensor always launches the hand-written kernel
+(``ops/int8_matmul_cuda.py``) or raises; a CPU tensor takes
+:func:`int8_matmul_plain`; any other device has no kernel. The registered
+backward is a plain product outside any kernel, ``dx = (g * scale) @ q^T``,
+as in the JAX package; ``q`` and ``scale`` take no gradient (the base is
+frozen).
 
 ``quantize_int8`` / ``dequantize_int8`` / ``adapt_quantization`` are
 host-side numpy with the JAX package's semantics.
@@ -91,30 +95,44 @@ def int8_matmul_plain(
     return y.to(out_dtype or x.dtype)
 
 
-class Int8MatmulFunction(torch.autograd.Function):
-    """``x (M, K)`` times the int8 kernel; the forward is the CUDA kernel on a
-    CUDA tensor and the plain version on a CPU tensor, the backward
-    ``dx = (g * scale) @ q^T`` in the dtype of ``x``."""
+@torch.library.custom_op("llm_bci::int8_matmul", mutates_args=(), device_types="cpu")
+def int8_matmul_op(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """``x (M, K) @ dequant(q, scale)`` in ``out_dtype``: the plain version on
+    a CPU tensor; on CUDA ``cluster::int8_cluster_kernel`` (bf16, M <= 64),
+    ``tiled::int8_wgmma_kernel`` (bf16, M > 64) or ``f32::int8_f32_kernel``."""
+    return int8_matmul_plain(x, q, scale, out_dtype)
 
-    @staticmethod
-    def forward(ctx, x, q, scale, out_dtype):
-        if x.device.type == "cuda":
-            from llm_bci_tpu_torch.ops.int8_matmul_cuda import int8_matmul_cuda
 
-            y = int8_matmul_cuda(x, q, scale, out_dtype)
-        else:
-            y = int8_matmul_plain(x, q, scale, out_dtype)
-        # saved after the product: a checkpointed layer's recompute stops at
-        # its last save, and must still have run this product
-        ctx.save_for_backward(q, scale)
-        ctx.x_dtype = x.dtype
-        return y
+@int8_matmul_op.register_kernel("cuda")
+def _int8_matmul_cuda(x, q, scale, out_dtype):
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
 
-    @staticmethod
-    def backward(ctx, g):
-        q, scale = ctx.saved_tensors
-        gs = (g.float() * scale).to(ctx.x_dtype)
-        return gs @ q.to(ctx.x_dtype).T, None, None, None
+    if x.data_ptr() % 16:       # the kernels read x in 16-byte vectors
+        x = x.clone(memory_format=torch.contiguous_format)
+    return ic.int8_matmul_cuda(x, q, scale, out_dtype)
+
+
+@int8_matmul_op.register_fake
+def _int8_matmul_fake(x, q, scale, out_dtype):
+    return x.new_empty((x.shape[0], q.shape[1]), dtype=out_dtype)
+
+
+def _int8_setup(ctx, inputs, output):
+    x, q, scale, _ = inputs
+    # saved after the product: a checkpointed layer's recompute stops at
+    # its last save, and must still have run this product
+    ctx.save_for_backward(q, scale)
+    ctx.x_dtype = x.dtype
+
+
+def _int8_backward(ctx, g):
+    q, scale = ctx.saved_tensors
+    gs = (g.float() * scale).to(ctx.x_dtype)
+    return gs @ q.to(ctx.x_dtype).T, None, None, None
+
+
+int8_matmul_op.register_autograd(_int8_backward, setup_context=_int8_setup)
 
 
 def int8_matmul(
@@ -123,15 +141,13 @@ def int8_matmul(
     scale: torch.Tensor,                      # (N,) float32
     out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:                            # (..., N)
-    """``x @ dequant(q, scale)`` with the weight read as int8. Leading dims
-    of ``x`` are flattened into M. Under ``torch.autocast`` ``x`` is cast to
-    the autocast dtype first (a custom Function is invisible to autocast)."""
+    """``x @ dequant(q, scale)`` with the weight read as int8, through the
+    custom op ``llm_bci::int8_matmul``. Leading dims of ``x`` are flattened
+    into M. Under ``torch.autocast`` ``x`` is cast to the autocast dtype
+    first (autocast does not see a custom op)."""
     if torch.is_autocast_enabled(x.device.type):
         x = x.to(torch.get_autocast_dtype(x.device.type))
     out_dtype = out_dtype or x.dtype
     K = x.shape[-1]
-    x2 = x.reshape(-1, K)
-    if not x2.is_contiguous() or x2.data_ptr() % 16:
-        x2 = x2.clone(memory_format=torch.contiguous_format)
-    y = Int8MatmulFunction.apply(x2, q, scale, out_dtype)
+    y = int8_matmul_op(x.reshape(-1, K).contiguous(), q, scale, out_dtype)
     return y.reshape(*x.shape[:-1], q.shape[1])

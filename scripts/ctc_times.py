@@ -124,8 +124,8 @@ def main() -> int:
     S = targets.shape[1]
 
     with torch.no_grad():   # one check against the plain version (float64) first
-        from llm_bci_tpu_torch.ops.ctc import ctc_loss_plain
-        got = ctc_cuda.ctc_loss_cuda(lp, targets, il, tl)
+        from llm_bci_tpu_torch.ops.ctc import ctc_loss, ctc_loss_plain
+        got = ctc_loss(lp, targets, il, tl)
         ref = ctc_loss_plain(lp.double(), targets, il, tl).float()
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
     if hasattr(ctc_cuda, "ctc_plan"):

@@ -126,7 +126,7 @@ def test_cuda_dispatch_is_lazy_and_cpu_never_builds():
     assert (ctc_cuda.FWD_LAUNCHES, ctc_cuda.FUSED_LAUNCHES) == (0, 0) and ctc_cuda._LIB is None
     assert "ctc" not in _build._LOADED
     with pytest.raises(ValueError, match="CUDA"):
-        ctc_cuda.CTCLossFunction.apply(
+        ctc_cuda.ctc_alpha_beta_cuda(
             torch.from_numpy(lp), torch.from_numpy(targets), torch.from_numpy(il),
             torch.from_numpy(tl), 0, True,
         )

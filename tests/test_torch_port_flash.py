@@ -211,7 +211,7 @@ def test_shape_checks_and_cuda_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="no GQA"):
         tfa.banded_flash_attention(q, k[:, :, :1], v[:, :, :1])
     with pytest.raises(ValueError, match="CUDA"):
-        fc.banded_flash_attention_cuda(q, k, v)
+        fc.flash_forward_cuda(q, k, v, None, None, 8, 8, 32 ** -0.5, 0.0)
     assert fc._LIB is None and (fc.FWD_LAUNCHES, fc.BWD_DQ_LAUNCHES, fc.BWD_DKV_LAUNCHES) == (0, 0, 0)
 
 
@@ -270,7 +270,7 @@ def test_cuda_function_refuses_what_the_kernels_do_not_take(case, error, match):
     elif case == "band wider than T":
         fwd = T + 1
     with pytest.raises(error, match=match):
-        fc.FlashAttentionFunction.apply(q, k, v, valid, None, fwd, T, 0.125, 0.0)
+        fc.flash_forward_cuda(q, k, v, valid, None, fwd, T, 0.125, 0.0)
     assert fc._LIB is None and fc.FWD_LAUNCHES == 0
 
 

@@ -65,3 +65,33 @@ def test_int8_launches_are_counted_by_the_kernel_that_runs(kind, M, bf16):
     ic.reset_counters()
     assert set(chip_smoke.int8_launches()) == {chip_smoke.INT8_CLUSTER, chip_smoke.INT8_TILED}
     assert ic.LAUNCHES == 0 and not any(ic.REGIME_LAUNCHES.values())
+
+
+# each custom op and the kernels of ``KERNELS`` its CUDA body launches
+OP_KERNELS = {
+    "ctc_alpha": ["ctc_alpha_kernel"],
+    "ctc_alpha_beta": ["ctc_alpha_beta_kernel"],
+    "flash_fwd": ["fwd_wg::flash_fwd_wgmma_kernel"],
+    "flash_bwd": ["flash_delta_kernel", "bwd_wg::flash_dq_wgmma_kernel",
+                  "bwd_wg::flash_dkv_wgmma_kernel"],
+    "int8_matmul": ["cluster::int8_cluster_kernel", "tiled::int8_wgmma_kernel"],
+}
+
+
+@pytest.mark.parametrize("op", sorted(OP_KERNELS))
+def test_each_custom_op_has_a_cpu_and_a_cuda_body_and_launches_named_kernels(op):
+    """Every kernel of the line is reached through one ``llm_bci`` op, whose
+    dispatch keys are the CPU (the plain version) and CUDA (the kernel) and
+    no other backend; the op's fake gives shapes to a trace."""
+    import torch
+
+    from llm_bci_tpu_torch.ops import ctc, flash_attention, quant  # noqa: F401  (registrations)
+
+    name = f"llm_bci::{op}"
+    for key in ("CPU", "CUDA"):
+        assert torch._C._dispatch_has_kernel_for_dispatch_key(name, key), (op, key)
+    assert not torch._C._dispatch_has_kernel_for_dispatch_key(name, "XLA")
+    assert torch._library.simple_registry.singleton.find(name).fake_impl.kernel is not None
+    for kernel in OP_KERNELS[op]:
+        assert kernel in chip_smoke.KERNELS
+    assert sorted(k for ks in OP_KERNELS.values() for k in ks) == sorted(chip_smoke.KERNELS)

@@ -6,7 +6,7 @@ against the JAX package (``llm_bci_tpu.ops.quant``), on the CPU.
 * ``int8_matmul`` on a CPU tensor (the plain version) against the JAX
   ``int8_matmul(impl="xla")`` and against the Pallas kernel in interpret mode
   (``block_n=128, block_k=128``), rtol 1e-5 in float32;
-* ``dx`` through the port's autograd Function against ``jax.grad``;
+* ``dx`` through the port's custom op ``llm_bci::int8_matmul`` against ``jax.grad``;
 * the launch plans of the CUDA wrapper (pure Python): the cluster kernel's
   K-split covers K with no empty rank and fits the card at every decode M,
   and the wrapper refuses a plan that is not the kernel's before the device
