@@ -66,8 +66,9 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
 7. kernels: the int8 dequant-matmul kernels against ``int8_matmul_plain`` on
    the card: float32 ``x`` at small and ragged M, K, N (rtol 1e-4, atol
    1e-4 x max|out|); bf16 ``x`` at the four Llama-2-7B shapes x M in {1, 5,
-   8, 40, 64, 137, 185, 685, 1480} (every M of phases 8, 9 and 12) and at
-   ragged M, K, N (clusters of 1 to 8 ranks) against the
+   8, 40, 64, 137, 185, 685, 1480} (every M of phases 8, 9 and 12), at each
+   rank's share of them under tensor parallelism at tp=2 ((4096, 2048),
+   (4096, 5504), (2048, 4096), (5504, 4096)) and at ragged M, K, N (clusters of 1 to 8 ranks) against the
    plain version in float32 of the same bf16 inputs (rtol 2^-8: one bf16
    rounding of the output; atol 1e-4 x max|out|: the order of the float32
    sums), each call once more for the same bits; codes of +-127 with zero
@@ -222,8 +223,34 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    ``torch.library.opcheck`` of every ``llm_bci`` op on the card at small
    shapes (the launches of F are not counted).
 
+18. multi-device training (``multi-device``, ``llm_bci_tpu_torch.parallel``), each
+   leg through ``python -m torch.distributed.run ... chip_smoke.py --md-rank``,
+   whose ranks run ``llm_bci_tpu_torch.main`` in process with ``-k
+   parallelism....`` (cuDNN deterministic, as the in-process trainers held
+   beside them): A-C on one rank of one NCCL group, the plan on trivial axes
+   (FSDP2 ``fully_shard``, the tensor-parallel plan): A. the flagship of phase
+   5, 4 steps + one eval, losses against the in-process trainer (rtol 1e-5;
+   bit-equal expected), 1 ``ctc_alpha_beta_kernel`` a step; R. A's run with
+   an ``fsdp_min_size`` that no leaf reaches (every parameter in the root's
+   one FSDP2 group), held as A; B. NDT1-mlm at phase 6's shape, 2 steps, 5
+   flash forward, delta, dQ and dK/dV launches a step, losses against the
+   in-process trainer (rtol 1e-5); C. the BCI of phase 9 (32 layers, int8 base, LoRA r=8, B=8 x 185),
+   ``parallelism.fsdp`` and ``tp`` named, 2 steps: 225 ``tiled`` launches a
+   forward, losses against the in-process trainer (rtol 1e-5), peak memory,
+   a greedy decode of 8 tokens under the plan (its all-reduces in the one
+   captured CUDA graph) whose ids equal the unplanned in-process model's
+   carrying the rank's trained leaves; D. two ranks on the one card (gloo
+   with CUDA tensors: NCCL refuses two ranks on one device), the flagship with
+   ``data=2`` and its stochastic parts off, 4 steps, losses against one
+   process at B=64 (rtol 1e-3: bf16 products of 32 rows against 64); E. D's
+   rank-0 checkpoint resumed in one process, every leaf bit-equal to the two
+   ranks' final state; F. ``entry.dryrun_multichip(1)`` at its default, one
+   NCCL rank on the card. Steps' ms beside the in-process trainer's, collective
+   calls and peak memory in a JSON line of its own; no time of D is a speed.
+
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train|cosmooth|
-phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state|warm-start|serve-export`` runs
+phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state|warm-start|serve-export|
+multi-device`` runs
 one phase (for development); ``--profile PATH`` writes ``torch.profiler`` tables of the
 NDT1-CTC and mlm train steps, the replayed BCI greedy token steps, the
 fine-tune step, one folded co-smoothing pass at each shape and the
@@ -1046,6 +1073,8 @@ def _build_resources(name: str, patterns) -> dict:
 
 # (K, N) of the frozen Llama-2-7B base: q/k/v/o, gate/up, down, lm_head.
 INT8_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+# one rank's share of q/k/v/o, gate/up and down at tp=2 (parallel/tensor_parallel.py)
+INT8_TP2_SHAPES = [(4096, 2048), (4096, 5504), (2048, 4096), (5504, 4096)]
 # a token step at one row, 5 beams of one trial, greedy (B=8), 5 beams (B=8),
 # the cluster kernel's largest M; the prefill of one trial, the forward of one
 # trial (eval-phonemes), its prefill with 5 beams; prefill / fine-tune (B=8)
@@ -1159,6 +1188,12 @@ def int8_kernel_phase(results: dict, power_line: str) -> None:
     for K, N in INT8_SHAPES:
         for M in INT8_MS:
             check_bf16(M, K, N, seed=M + K)
+    # Each rank's share of the products under tensor parallelism, tp=2: q/k/v
+    # and gate/up cut along N (column-parallel), o and down along K
+    # (row-parallel); M in both regimes.
+    for K, N in INT8_TP2_SHAPES:
+        for M in INT8_MS:
+            check_bf16(M, K, N, seed=M + N, what=" tp=2 share")
     # Ragged edges: M off every 8-row tile and on the regimes' border, N off
     # the 128-column tile (and exactly on it), K off the 64-deep k-tile, K and
     # N smaller than one tile; clusters of 1 to 8 ranks.
@@ -2772,17 +2807,19 @@ class spied_trainer:
 
     def __init__(self, log: list, stop_at=None):
         self.log, self.stop_at = log, stop_at
+        self.trainers: list = []          # every Trainer built within the block
 
     def __enter__(self):
         from llm_bci_tpu_torch.training.trainer import Trainer
 
         self.saved = Trainer.build_dataloaders, Trainer.train_step
         build, step = self.saved
-        log, stop_at = self.log, self.stop_at
+        log, stop_at, trainers = self.log, self.stop_at, self.trainers
 
         def spy_build(trainer):
             build(trainer)
             trainer.train_dataloader.dataset = IndexSpy(trainer.train_dataloader.dataset)
+            trainers.append(trainer)
 
         def spy_step(trainer, batch):
             out = step(trainer, batch)
@@ -4134,6 +4171,386 @@ def serve_export_phase(power_line: str, profile=None) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 18. multi-device (torch.distributed) on the one card
+# ---------------------------------------------------------------------------
+
+# torch.distributed's collectives as FSDP2 (by torch version) and the port call them
+MD_COLLECTIVES = ("all_reduce", "all_gather", "all_gather_into_tensor", "all_gather_single",
+                  "reduce_scatter_tensor", "reduce_scatter_single", "broadcast", "barrier")
+MD_DETERMINISTIC = 1e-5        # legs A / R / B / C against the in-process trainer (bit-equal
+                               # expected)
+MD_ONE_GROUP = 1 << 40         # leg R: an fsdp_min_size no leaf reaches (the root group only)
+MD_DATA2_RTOL = 1e-3           # leg D: 2 x 32 rows against 64 rows in one process, bf16
+MD_DECODE = 8                  # leg C: greedy tokens under the plan
+
+
+def kernel_launches() -> dict:
+    """Every kernel's launches since the counters' last reset."""
+    from llm_bci_tpu_torch.ops import ctc_cuda
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+    return {"ctc_alpha_kernel": ctc_cuda.FWD_LAUNCHES,
+            "ctc_alpha_beta_kernel": ctc_cuda.FUSED_LAUNCHES,
+            FWD_WG: fc.FWD_LAUNCHES, DQ_WG: fc.BWD_DQ_LAUNCHES, DKV_WG: fc.BWD_DKV_LAUNCHES,
+            "flash_delta_kernel": fc.BWD_DELTA_LAUNCHES, **int8_launches()}
+
+
+def reset_kernel_counters() -> None:
+    from llm_bci_tpu_torch.ops import ctc_cuda
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+    ctc_cuda.reset_counters()
+    fc.reset_counters()
+    ic.reset_counters()
+
+
+class CollectiveCounter:
+    """Counts the calls of ``torch.distributed``'s collectives (FSDP2's and the
+    tensor-parallel products' go through the same functions)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        names = [n for n in MD_COLLECTIVES if hasattr(dist, n)]
+        self.counts = dict.fromkeys(names, 0)
+        for name in names:
+            real = getattr(dist, name)
+
+            def spy(*args, _real=real, _name=name, **kwargs):
+                self.counts[_name] += 1
+                return _real(*args, **kwargs)
+
+            setattr(dist, name, spy)
+
+    def take(self) -> dict:
+        counts, self.counts = self.counts, dict.fromkeys(self.counts, 0)
+        return {k: v for k, v in counts.items() if v}
+
+
+def md_rank(spec_path: str) -> None:
+    """One rank of phase 18 under ``torch.distributed.run``: each leg of the
+    spec is ``python -m llm_bci_tpu_torch.main <argv>`` run in this process
+    (``runpy``), its steps recorded; with ``"backend": "gloo"`` the group is
+    started here first on the spec's device (two ranks share the one card,
+    which NCCL refuses). Writes the legs' records to the spec's ``out``."""
+    import runpy
+
+    import torch
+    import torch.distributed as dist
+    from llm_bci_tpu_torch.models import decode_graph
+    from llm_bci_tpu_torch.parallel import process
+    from llm_bci_tpu_torch.parallel.mesh import fsdp_groups
+    from llm_bci_tpu_torch.training import distributed as tdist
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if spec.get("backend") == "gloo":
+        process.init_process(spec["device"], backend="gloo")
+    counter = CollectiveCounter()
+    records = {}
+    for leg in spec["legs"]:
+        log: list = []
+        reset_kernel_counters()
+        counter.take()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with spied_trainer(log) as spy:
+            sys.argv = ["llm_bci_tpu_torch.main", *leg["argv"]]
+            runpy.run_module("llm_bci_tpu_torch.main", run_name="__main__", alter_sys=True)
+        torch.cuda.synchronize()
+        trainer = spy.trainers[-1]
+        rec = {"wall_s": time.perf_counter() - t0, "steps": log, "launches": kernel_launches(),
+               "collectives": counter.take(), "rank": dist.get_rank(),
+               "world": dist.get_world_size(), "backend": dist.get_backend(),
+               "mesh": {k: int(v) for k, v in trainer.mesh_sizes.items()},
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "eval": trainer.eval_history,
+               "fsdp_groups": len(fsdp_groups(trainer.model, int(
+                   (trainer.config.get("parallelism") or {}).get("fsdp_min_size", 1 << 20))))}
+        if leg.get("step_reps"):
+            rec["step_ms"] = steady_step_ms(trainer, leg["step_reps"])[0]
+            rec["step_collectives"] = {k: v / (leg["step_reps"] + 3)
+                                       for k, v in counter.take().items()}
+        if leg.get("decode"):
+            batch = bci_serving_batch(trainer.device)
+            decode_graph.reset_counters()
+            reset_kernel_counters()
+            with trainer.unsharded(), torch.no_grad(), trainer.autocast():
+                ids = trainer.model.generate(**batch, max_new_tokens=leg["decode"])
+            torch.cuda.synchronize()
+            rec["decode"] = {"ids": ids.cpu().tolist(), "launches": kernel_launches(),
+                             "captures": decode_graph.CAPTURES, "replays": decode_graph.REPLAYS,
+                             "collectives": counter.take()}
+        if leg.get("trained_out"):
+            trained = {}
+            for n, p in trainer.model.named_parameters():
+                if p.requires_grad:
+                    whole = tdist.full_tensor(p, trainer.plan.tp_dims.get(n), trainer.plan)
+                    trained[n] = whole.cpu()
+            if trainer.is_main_process:
+                torch.save(trained, leg["trained_out"])
+        if leg.get("state_out"):
+            state = trainer.whole_state()["model"]
+            if trainer.is_main_process:
+                torch.save(state, leg["state_out"])
+        records[leg["name"]] = rec
+        del trainer, spy
+        gc.collect()
+        torch.cuda.empty_cache()
+    with open(spec["out"].format(rank=dist.get_rank()), "w") as f:
+        json.dump(records, f)
+    dist.destroy_process_group()
+
+
+def torchrun(tmp: str, tag: str, n: int, spec: dict, timeout: float) -> list:
+    """``python -m torch.distributed.run`` of ``n`` ranks of ``md_rank`` on
+    this host (a free port); each rank's records. Fails when any rank
+    fails or the run outlives ``timeout``."""
+    from llm_bci_tpu_torch.parallel.process import free_port
+
+    spec = {**spec, "out": os.path.join(tmp, f"{tag}_rank{{rank}}.json")}
+    path = os.path.join(tmp, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(n),
+           "--master-addr", "localhost", "--master-port", str(free_port()),
+           os.path.join(REPO, "chip_smoke.py"), "--md-rank", path]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"torchrun {tag} ({n} ranks) exited with {run.returncode}:\n"
+                             f"{run.stdout[-6000:]}\n{run.stderr[-6000:]}")
+    out = []
+    for r in range(n):
+        with open(spec["out"].format(rank=r)) as f:
+            out.append(json.load(f))
+    say("multi", f"torchrun {tag}: {n} rank(s), {wall:.1f} s of wall clock with process start")
+    return out
+
+
+def in_process(argv: list, step_reps: int = 0) -> tuple:
+    """``llm_bci_tpu_torch.main`` in this process without a group (cuDNN
+    deterministic, as the ranks): its recorded steps, its trainer, its peak
+    memory in GiB and, with ``step_reps``, the ms of a steady step timed as
+    the ranks time theirs."""
+    import runpy
+
+    import torch
+
+    log: list = []
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with spied_trainer(log) as spy:
+            saved, sys.argv = sys.argv, ["llm_bci_tpu_torch.main", *argv]
+            try:
+                runpy.run_module("llm_bci_tpu_torch.main", run_name="__main__", alter_sys=True)
+            finally:
+                sys.argv = saved
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms = steady_step_ms(spy.trainers[-1], step_reps)[0] if step_reps else None
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    return log, spy.trainers[-1], peak, step_ms
+
+
+def losses(log: list) -> list:
+    return [s["loss"] for s in log]
+
+
+def check_losses(label: str, got: list, want: list, rtol: float) -> float:
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape or not np.all(np.isfinite(got)):
+        raise AssertionError(f"{label}: losses {got.tolist()} against {want.tolist()}")
+    rel = float(np.max(np.abs(got - want) / np.abs(want)))
+    if rel > rtol:
+        raise AssertionError(f"{label}: losses {got.tolist()} against the in-process "
+                             f"{want.tolist()}: relative difference {rel:.3g} > {rtol}")
+    return rel
+
+
+def multi_device_phase(power_line: str, profile=None) -> dict:
+    import pickle
+
+    import torch
+
+    say("multi", f"card: {power_line}")
+    launches: dict = {}
+    report = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        mat = write_mat_dataset(os.path.join(tmp, "mat"))
+        write_spike_pickle(os.path.join(tmp, "spikes.pkl"))
+        with open(os.path.join(tmp, "bci.pkl"), "wb") as f:
+            pickle.dump({"train": bci_rows(32, seed=1), "test": bci_rows(BCI_B, seed=2)}, f)
+        llama = write_llama_config(tmp, 32)
+        common = ["dirs.log_dir=null", "verbosity=1", "training.save_every=null"]
+        flagship = ["-c", os.path.join(REPO, "configs", "trainer_ctc_ndt1.yaml"), "-k",
+                    f"data.data_dir={mat}", "training.max_steps=4", "training.eval_every=4",
+                    *common]
+        mlm = ["-c", os.path.join(REPO, "configs", "trainer_ssl_ndt1.yaml"), "-k",
+               *MLM_OVERRIDES, f"data.data_dir={tmp}", "data.data_file=spikes.pkl",
+               "training.max_steps=2", "training.eval_every=null", *common]
+        bci = ["-c", os.path.join(REPO, "configs", "trainer_bci.yaml"), "-k",
+               f"method.model_kwargs.llm_path={llama}", "method.model_kwargs.quantize=int8",
+               "data.data_load=file", f"data.data_dir={tmp}", "data.data_file=bci.pkl",
+               f"training.train_batch_size={BCI_B}", f"training.test_batch_size={BCI_B}",
+               "training.max_steps=2", "training.eval_every=null", *common]
+        ck = lambda leg: f"dirs.checkpoint_dir={os.path.join(tmp, 'ck' + leg)}"
+
+        # A-C: one rank, one NCCL group, the plan on trivial axes
+        legs = [
+            {"name": "A", "argv": [*flagship, ck("A"), "parallelism.data=1",
+                                   "parallelism.fsdp=1"], "step_reps": 10},
+            # the flagship again with every parameter in the root's one group
+            {"name": "R", "argv": [*flagship, ck("R"), "parallelism.data=1", "parallelism.fsdp=1",
+                                   f"parallelism.fsdp_min_size={MD_ONE_GROUP}"], "step_reps": 10},
+            {"name": "B", "argv": [*mlm, ck("B"), "parallelism.data=1", "parallelism.fsdp=1"]},
+            {"name": "C", "argv": [*bci, ck("C"), "parallelism.fsdp=1", "parallelism.tp=1"],
+             "step_reps": 5, "decode": MD_DECODE,
+             "trained_out": os.path.join(tmp, "C_trained.pt")},
+        ]
+        rank_a_c = torchrun(tmp, "A-C", 1, {"legs": legs}, timeout=600)[0]
+        a, r, b, c = rank_a_c["A"], rank_a_c["R"], rank_a_c["B"], rank_a_c["C"]
+        for name, rec in rank_a_c.items():
+            if rec["backend"] != "nccl" or rec["world"] != 1:
+                raise AssertionError(f"leg {name}: {rec['backend']} group of {rec['world']}")
+            add_launches(launches, {k: v for k, v in rec["launches"].items() if v})
+        if a["launches"]["ctc_alpha_beta_kernel"] != 4 or a["launches"]["ctc_alpha_kernel"] < 1:
+            raise AssertionError(f"leg A: CTC launches {a['launches']}")
+        ref_a, trainer, peak_a, ms_a = in_process([*flagship, ck("A_ref")], step_reps=10)
+        del trainer
+        rel_a = check_losses("leg A", losses(a["steps"]), losses(ref_a), MD_DETERMINISTIC)
+        say("multi", f"A flagship under the plan (1-rank NCCL, mesh {a['mesh']}): losses "
+            f"{[round(x, 4) for x in losses(a['steps'])]}, max rel. difference to the in-process "
+            f"trainer {rel_a:.3g} ({'bit-equal' if rel_a == 0 else 'not bit-equal'}); CTC "
+            f"{a['launches']['ctc_alpha_beta_kernel']} fused + "
+            f"{a['launches']['ctc_alpha_kernel']} alpha launches; step {a['step_ms']:.2f} ms "
+            f"against {ms_a:.2f} in process (both cuDNN deterministic), collectives a step "
+            f"{a['step_collectives']}; peak {a['peak_gib']:.2f} GiB against {peak_a:.2f}; "
+            f"{a['wall_s']:.1f} s")
+        if r["fsdp_groups"] != 0 or a["fsdp_groups"] == 0 or \
+                r["launches"]["ctc_alpha_beta_kernel"] != 4:
+            raise AssertionError(f"leg R: {r['fsdp_groups']} module groups (A: "
+                                 f"{a['fsdp_groups']}), CTC launches {r['launches']}")
+        rel_r = check_losses("leg R", losses(r["steps"]), losses(ref_a), MD_DETERMINISTIC)
+        say("multi", f"R the flagship with one root group (fsdp_min_size={MD_ONE_GROUP}; A had "
+            f"{a['fsdp_groups']} module groups): losses "
+            f"{[round(x, 4) for x in losses(r['steps'])]}, max rel. difference to the in-process "
+            f"trainer {rel_r:.3g}; step {r['step_ms']:.2f} ms, collectives a step "
+            f"{r['step_collectives']}; {r['wall_s']:.1f} s")
+        want_b = {FWD_WG: 10, DQ_WG: 10, DKV_WG: 10, "flash_delta_kernel": 10}
+        got_b = {k: b["launches"][k] for k in want_b}
+        if got_b != want_b:
+            raise AssertionError(f"leg B: flash launches {got_b}, want {want_b}")
+        ref_b, trainer, peak_b, _ = in_process([*mlm, ck("B_ref")])
+        del trainer
+        rel_b = check_losses("leg B", losses(b["steps"]), losses(ref_b), MD_DETERMINISTIC)
+        say("multi", f"B mlm T=1024 under the plan: losses "
+            f"{[round(x, 4) for x in losses(b['steps'])]}, max rel. difference to the "
+            f"in-process trainer {rel_b:.3g}; flash launches {got_b} (5 each a step); "
+            f"collectives {b['collectives']}; peak {b['peak_gib']:.2f} GiB against "
+            f"{peak_b:.2f}; {b['wall_s']:.1f} s")
+        want_c = {INT8_CLUSTER: 0, INT8_TILED: 2 * INT8_PER_FORWARD}
+        got_c = {k: c["launches"][k] for k in want_c}
+        if got_c != want_c:
+            raise AssertionError(f"leg C: int8 launches {got_c}, want {want_c}")
+        ref_c, trainer, peak_c, ms_c = in_process([*bci, ck("C_ref")], step_reps=5)
+        rel_c = check_losses("leg C", losses(c["steps"]), losses(ref_c), MD_DETERMINISTIC)
+        trained = torch.load(os.path.join(tmp, "C_trained.pt"), weights_only=True)
+        diff = max((trained[n].to(p.device) - p.detach()).abs().max().item()
+                   for n, p in trainer.model.named_parameters() if p.requires_grad)
+        trainer.model.load_state_dict(trained, strict=False)
+        batch = bci_serving_batch(trainer.device)
+        with torch.no_grad(), trainer.autocast():
+            ids = trainer.model.generate(**batch, max_new_tokens=MD_DECODE)
+        dec = c["decode"]
+        if ids.cpu().tolist() != dec["ids"] or dec["captures"] != 1:
+            raise AssertionError(f"leg C: the planned decode's ids {dec['ids']} (captures "
+                                 f"{dec['captures']}) against the unplanned {ids.cpu().tolist()}")
+        add_launches(launches, {k: v for k, v in dec["launches"].items() if v})
+        say("multi", f"C BCI int8 LoRA at 7B width under the plan (fsdp=1, tp=1 named): losses "
+            f"{[round(x, 4) for x in losses(c['steps'])]}, max rel. difference to the "
+            f"in-process trainer {rel_c:.3g}; trained leaves max |diff| {diff:.3g}; int8 "
+            f"launches {got_c} ({INT8_PER_FORWARD} tiled a forward); step {c['step_ms']:.2f} ms "
+            f"against {ms_c:.2f} in process, collectives a step {c['step_collectives']}; peak "
+            f"{c['peak_gib']:.2f} GiB against {peak_c:.2f}; greedy "
+            f"8 tokens under the plan, one CUDA graph ({dec['replays']} replays, collectives "
+            f"{dec['collectives']}), ids equal the unplanned decode's; {c['wall_s']:.1f} s")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # D: two ranks on the one card (gloo: NCCL refuses two ranks on one
+        # device), data=2, stochastic parts off so that one process can match
+        quiet = ["model.encoder.embedder.dropout=0.0", "model.encoder.transformer.dropout=0.0",
+                 "model.encoder.smooth_and_noise.noise=false"]
+        d_args = [*flagship, *quiet, "training.save_every=4"]
+        state_out = os.path.join(tmp, "D_state.pt")
+        ranks_d = torchrun(tmp, "D", 2, {"backend": "gloo", "device": "cuda:0", "legs": [
+            {"name": "D", "argv": [*d_args, ck("D"), "parallelism.data=2", "parallelism.fsdp=1",
+                                   "--device", "cuda:0"], "state_out": state_out}]},
+            timeout=600)
+        d0, d1 = ranks_d[0]["D"], ranks_d[1]["D"]
+        if losses(d0["steps"]) != losses(d1["steps"]) or d0["mesh"]["data"] != 2:
+            raise AssertionError(f"leg D: ranks disagree: {losses(d0['steps'])} / "
+                                 f"{losses(d1['steps'])}, mesh {d0['mesh']}")
+        for rec in (d0, d1):
+            if rec["launches"]["ctc_alpha_beta_kernel"] != 4:
+                raise AssertionError(f"leg D: CTC launches {rec['launches']}")
+            add_launches(launches, {k: v for k, v in rec["launches"].items() if v})
+        ref_d, trainer, _, _ = in_process([*d_args, ck("D_ref")])
+        rel_d = check_losses("leg D", losses(d0["steps"]), losses(ref_d), MD_DATA2_RTOL)
+        say("multi", f"D flagship data=2 on two gloo ranks of the one card: losses "
+            f"{[round(x, 4) for x in losses(d0['steps'])]} against one process at B=64 "
+            f"{[round(x, 4) for x in losses(ref_d)]}: max rel. difference {rel_d:.3g} (<= "
+            f"{MD_DATA2_RTOL}); collectives {d0['collectives']}; {d0['wall_s']:.1f} s (gloo "
+            "stages through the host: no speed figure)")
+
+        # E: D's rank-0 checkpoint resumed in one process on the card
+        t0 = time.perf_counter()
+        step = trainer.resume_from(os.path.join(tmp, "ckD", trainer.config.savestring,
+                                                "train_state"))
+        saved = torch.load(state_out, weights_only=True)
+        live = trainer.model.state_dict()
+        unequal = [k for k, v in saved.items() if not torch.equal(live[k].cpu(), v)]
+        if step != 4 or unequal or set(saved) != set(live):
+            raise AssertionError(f"leg E: resumed step {step}, unequal leaves {unequal[:5]}")
+        say("multi", f"E D's rank-0 checkpoint resumed in one process: step {step}, "
+            f"{len(saved)} leaves bit-equal to the two ranks' final state "
+            f"({time.perf_counter() - t0:.1f} s)")
+        del trainer
+
+        # F: the port's dry run entry point at its default, one rank a card
+        from llm_bci_tpu_torch.entry import dryrun_multichip
+
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(1)
+        if "dryrun_multichip(1) OK" not in dry:
+            raise AssertionError(f"leg F: dryrun_multichip(1) printed {dry!r}")
+        say("multi", f"F {dry.strip()} (NCCL on cuda:0, {time.perf_counter() - t0:.1f} s)")
+        report = {"A": {"step_ms": a["step_ms"], "in_process_step_ms": ms_a,
+                        "peak_gib": a["peak_gib"], "in_process_peak_gib": peak_a, "rel": rel_a,
+                        "collectives_a_step": a["step_collectives"], "wall_s": a["wall_s"]},
+                  "R": {"step_ms": r["step_ms"], "rel": rel_r, "wall_s": r["wall_s"],
+                        "collectives_a_step": r["step_collectives"]},
+                  "B": {"peak_gib": b["peak_gib"], "in_process_peak_gib": peak_b, "rel": rel_b,
+                        "wall_s": b["wall_s"], "collectives": b["collectives"]},
+                  "C": {"step_ms": c["step_ms"], "in_process_step_ms": ms_c,
+                        "peak_gib": c["peak_gib"], "in_process_peak_gib": peak_c, "rel": rel_c,
+                        "collectives_a_step": c["step_collectives"], "wall_s": c["wall_s"]},
+                  "D": {"rel": rel_d, "wall_s": d0["wall_s"], "collectives": d0["collectives"]}}
+    print(json.dumps({"multi_device": report, "card": power_line}), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 KERNELS = {
     # name of the kernel that runs at the timed shape: (source, the TPU kernel
     # it replaces). Float32 and head sizes without a wgmma plan take other
@@ -4210,7 +4627,8 @@ def main(only=None, profile=None) -> int:
                        ("itransformer", itransformer_phase), ("patchtst", patchtst_phase),
                        ("trainer-state", trainer_state_phase),
                        ("warm-start", warm_start_phase),
-                       ("serve-export", serve_export_phase)):
+                       ("serve-export", serve_export_phase),
+                       ("multi-device", multi_device_phase)):
         if only in (None, phase):
             add_launches(launches, run(power_line, profile))
             # a trainer holds reference cycles: free what the phase left, so
@@ -4238,11 +4656,18 @@ if __name__ == "__main__":
                         choices=["ctc", "flash", "int8", "ctc-main", "mlm-main", "bci-serve",
                                  "bci-train", "cosmooth", "phoneme-llm", "eval-phonemes",
                                  "itransformer", "patchtst", "trainer-state", "warm-start",
-                                 "serve-export"])
+                                 "serve-export", "multi-device"])
     parser.add_argument("--profile", metavar="PATH", default=None,
                         help="write the torch.profiler tables of the CTC and mlm train steps, "
                              "the BCI greedy decode, the BCI fine-tune step, a folded "
                              "co-smoothing pass and the iTransformer and PatchTST ctc steps "
                              "to PATH")
+    parser.add_argument("--md-rank", metavar="SPEC", default=None,
+                        help="run as one rank of phase 18 under torch.distributed.run "
+                             "(the phase starts these itself)")
     cli = parser.parse_args()
+    if cli.md_rank:
+        sys.path.insert(0, REPO)
+        md_rank(cli.md_rank)
+        sys.exit(0)
     sys.exit(main(cli.only, cli.profile))

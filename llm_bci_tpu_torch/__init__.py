@@ -24,8 +24,12 @@ checkpoint and resume (``training/checkpoint.py``), ``grad_clip_norm``, remat
 checkpoints and ``from_pt`` warm start of NDT1, iTransformer and PatchTST
 (``models/components.py``), NDT1's ``endtoend``, and import and export of the
 reference's PyTorch checkpoint format (``interop/torch_import.py``,
-``interop/torch_export.py``, ``interop/safetensors.py``). Multi-device
-parallelism raises ``NotImplementedError`` naming its ROADMAP item.
+``interop/torch_export.py``, ``interop/safetensors.py``). Slice 11 exports
+decodes and forwards as ``torch.export`` archives (``serving.py``). Slice 8
+trains on several devices with ``torch.distributed`` (``parallel/``: the
+``(data, fsdp, sp, tp)`` mesh, FSDP2, Megatron tensor parallelism of the
+Llama decoder, ``torchrun`` launch); sequence parallelism (``sp > 1``) raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 

@@ -315,18 +315,24 @@ class BCI(nn.Module):
     def _projector_state(self) -> Dict[str, torch.Tensor]:
         return {k: v for k, v in self.state_dict().items() if k.startswith("projector")}
 
-    def save_checkpoint(self, save_dir: str, include_frozen: bool = True) -> None:
+    def save_checkpoint(self, save_dir: str, include_frozen: bool = True,
+                        state: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """``llm.pt`` / ``encoder.pt`` / ``projector.pt``. With
         ``include_frozen=False`` the LLM blob keeps only the leaves that
         train (the LoRA factors): a frozen 7B base is gigabytes a save, and
-        it reloads from ``llm_path``."""
-        llm = self.llm.state_dict()
+        it reloads from ``llm_path``. ``state`` is the model's ``state_dict``
+        to write (a multi-device trainer hands in the gathered whole one)."""
+        state = self.state_dict() if state is None else state
+        part = lambda prefix: {k[len(prefix):]: v for k, v in state.items()
+                               if k.startswith(prefix)}
+        llm = part("llm.")
         if not include_frozen:
             trains = {k for k, p in self.llm.named_parameters() if p.requires_grad}
             llm = {k: v for k, v in llm.items() if k in trains}
         torch.save(llm, os.path.join(save_dir, "llm.pt"))
-        torch.save(self.ndt1_encoder.state_dict(), os.path.join(save_dir, "encoder.pt"))
-        torch.save(self._projector_state(), os.path.join(save_dir, "projector.pt"))
+        torch.save(part("ndt1_encoder."), os.path.join(save_dir, "encoder.pt"))
+        torch.save({k: v for k, v in state.items() if k.startswith("projector")},
+                   os.path.join(save_dir, "projector.pt"))
 
     def save_config(self, save_dir: str) -> None:
         for name, node in (("projector", self.config["projector"]),

@@ -58,11 +58,13 @@ class ComponentCheckpoints:
         """The model's tensors of ``components`` from a reference-format directory."""
         raise NotImplementedError
 
-    def save_checkpoint(self, save_dir: str, include_frozen: bool = True) -> None:
+    def save_checkpoint(self, save_dir: str, include_frozen: bool = True,
+                        state: Optional[Dict[str, torch.Tensor]] = None) -> None:
         """``encoder.pt`` and ``decoder.pt``. ``include_frozen`` is the
         trainer's ``component_blobs``; every tensor of these models trains, so
-        both blobs are whole either way."""
-        sd = self.state_dict()
+        both blobs are whole either way. ``state`` is the ``state_dict`` to
+        write (a multi-device trainer hands in the gathered whole one)."""
+        sd = self.state_dict() if state is None else state
         for comp in COMPONENTS:
             strip = len("encoder.") if comp == "encoder" else 0
             blob = {k[strip:]: sd[k] for k in component_keys(sd, comp)}

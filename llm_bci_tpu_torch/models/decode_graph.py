@@ -29,7 +29,10 @@ that a later change of either could leave stale. Kernels launched inside the cap
 counters, when captured; ``REPLAYS`` counts the replays, so that a run can
 reconcile its counts: launches a step x (eager steps + captures) on the
 host, x (eager steps + replays) on the device. On a CPU tensor (the tests)
-the step function is called directly every step.
+the step function is called directly every step, and so it is under a gloo
+process group: a step under the tensor-parallel plan holds all-reduces,
+which NCCL lets a CUDA graph capture and gloo (staged through the host) does
+not.
 """
 from __future__ import annotations
 
@@ -42,6 +45,14 @@ EAGER_STEPS = 0     # steps run eagerly (the first step of each decode on the ca
 CAPTURES = 0        # graphs captured
 REPLAYS = 0         # graph replays
 CAPTURE_SECONDS = 0.0  # host seconds in capturing them (the first steps' eager runs apart)
+
+
+def capturable() -> bool:
+    """False under a gloo process group, whose collectives no CUDA graph can
+    hold."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized() and dist.get_backend() == "gloo")
 
 
 def reset_counters() -> None:
@@ -75,7 +86,7 @@ class TokenStep:
             self.embeds = torch.empty_like(embeds)
         self.embeds.copy_(embeds)
         self.position.fill_(position)
-        if self.key_mask.device.type != "cuda":
+        if self.key_mask.device.type != "cuda" or not capturable():
             EAGER_STEPS += 1
             return self.run_eager()
         if self.graph is not None:

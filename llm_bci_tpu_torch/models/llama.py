@@ -27,6 +27,10 @@
   whatever position the tensor holds (``models/decode_graph.py``).
 * Every leaf is created directly on ``device`` in its storage dtype, drawn
   from ``generator``: a 7B base never exists in float32 or on the host.
+* Tensor parallelism (``parallel/tensor_parallel.py::apply_tp_plan``) cuts
+  the projections to a rank's share in place: a ``LoRADense`` then holds its
+  ``tp`` role, an attention layer its local head counts, and the KV cache of
+  :meth:`LlamaForCausalLM.init_cache` this rank's key/value heads.
 * ``remat=True`` recomputes each decoder layer in the backward
   (``models/remat.py``), LoRA dropout drawn again from the same generator
   state; a forward without autograd (eval, decoding) runs the layers plainly.
@@ -50,6 +54,11 @@ from llm_bci_tpu_torch.ops.quant import (
     quantize_int8,
 )
 from llm_bci_tpu_torch.ops.rotary import apply_rotary_pos_emb, rope_cos_sin
+from llm_bci_tpu_torch.parallel.tensor_parallel import (
+    copy_to_tp,
+    reduce_from_tp,
+    sum_grad_over_tp,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,6 +158,28 @@ class LoRADense(nn.Module):
         if r > 0:
             self.lora_A = nn.Parameter(_normal((in_features, r), 1.0 / r, device, generator))
             self.lora_B = nn.Parameter(torch.zeros((r, features), device=device))
+        # Set by parallel/tensor_parallel.py::shard_dense: this rank's share
+        # of a column- or row-parallel projection.
+        self.tp = None
+        # Set by training/distributed.py when this module is an FSDP2 group
+        # of its own: its forward's end frees its whole parameters, so the
+        # factors it hands out deferred must be copies, not views.
+        self.copy_deferred = False
+
+    def lora_factors(self):
+        """``(A, B)`` in the compute dtype; under tensor parallelism the
+        slice of the whole factor that this rank's share uses (``B``'s
+        columns of a column-parallel projection, ``A``'s rows of a
+        row-parallel one), the gradient summed over ``tp``."""
+        a, b = self.lora_A, self.lora_B
+        if self.tp is not None:
+            a, b = sum_grad_over_tp(a, self.tp.group), sum_grad_over_tp(b, self.tp.group)
+            n = self.tp.stop - self.tp.start
+            if self.tp.role == "column":
+                b = b.narrow(1, self.tp.start, n)
+            else:
+                a = a.narrow(0, self.tp.start, n)
+        return a.to(self.dtype), b.to(self.dtype)
 
     def forward(self, x: torch.Tensor, defer_lora: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -156,16 +187,24 @@ class LoRADense(nn.Module):
             y = int8_matmul(x, self.kernel, self.kernel_scale, out_dtype=self.dtype)
         else:
             y = F.linear(x, self.weight.to(self.dtype))
-        if self.bias is not None:
+        row = self.tp is not None and self.tp.role == "row"
+        if self.bias is not None and not row:
             y = y + self.bias.to(self.dtype)
         if self.r > 0:
-            a, b = self.lora_A.to(self.dtype), self.lora_B.to(self.dtype)
+            a, b = self.lora_factors()
             if defer_lora:
                 # The caller applies the adapter grouped with its siblings
                 # (apply_lora_group); the parameters stay under this module.
+                if self.copy_deferred:
+                    a, b = a.clone(), b.clone()
                 return y, a, b
             h = dropout(x, self.lora_dropout, self.training, generator)
             y = y + (self.alpha / self.r) * ((h @ a) @ b)
+        if row:
+            # the partial products of the rank's input features, summed
+            y = reduce_from_tp(y, self.tp.group)
+            if self.bias is not None:
+                y = y + self.bias.to(self.dtype)
         if defer_lora:
             return y, None, None
         return y
@@ -245,11 +284,15 @@ class LlamaAttention(nn.Module):
         self.k_proj = spec.proj("k_proj", H, nKV * hd)
         self.v_proj = spec.proj("v_proj", H, nKV * hd)
         self.o_proj = spec.proj("o_proj", nH * hd, H)
+        # this rank's heads and its tp group (parallel/tensor_parallel.py)
+        self.n_heads, self.n_kv, self.tp_group = nH, nKV, None
 
     def forward(self, x, mask, positions, rope, cache=None, cache_index=None, generator=None):
         cfg, spec = self.config, self.spec
         B, T, _ = x.shape
-        nH, nKV, hd = cfg.num_attention_heads, cfg.n_kv, cfg.head_dim
+        nH, nKV, hd = self.n_heads, self.n_kv, cfg.head_dim
+        if self.tp_group is not None:
+            x = copy_to_tp(x, self.tp_group)
         # q / k / v share their input: one grouped LoRA delta, one keep mask.
         q, k, v = apply_lora_group(
             x, [p(x, defer_lora=True) for p in (self.q_proj, self.k_proj, self.v_proj)],
@@ -283,9 +326,12 @@ class LlamaMLP(nn.Module):
         self.gate_proj = spec.proj("gate_proj", H, inter)
         self.up_proj = spec.proj("up_proj", H, inter)
         self.down_proj = spec.proj("down_proj", inter, H)
+        self.tp_group = None
 
     def forward(self, x, generator=None):
         spec = self.spec
+        if self.tp_group is not None:
+            x = copy_to_tp(x, self.tp_group)
         gate, up = apply_lora_group(
             x, [p(x, defer_lora=True) for p in (self.gate_proj, self.up_proj)],
             alpha=spec.lora_alpha, r=max(spec.lora_r, 1),
@@ -400,7 +446,9 @@ class LlamaForCausalLM(nn.Module):
     def init_cache(self, batch_size: int, max_len: int):
         cfg = self.config
         dev = self.rope_cos.device
-        shape = (batch_size, max_len, cfg.n_kv, cfg.head_dim)
+        # this rank's key/value heads under tensor parallelism
+        n_kv = self.model.layers[0].self_attn.n_kv if len(self.model.layers) else cfg.n_kv
+        shape = (batch_size, max_len, n_kv, cfg.head_dim)
         return tuple({"k": torch.zeros(shape, dtype=self.dtype, device=dev),
                       "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
                      for _ in range(cfg.num_hidden_layers))

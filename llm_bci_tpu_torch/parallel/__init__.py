@@ -1,0 +1,12 @@
+"""Multi-device training on ``torch.distributed`` (counterpart of
+``llm_bci_tpu/parallel``): the mesh and its layout rules (``mesh.py``),
+process start and host collectives (``process.py``), and Megatron tensor
+parallelism of the Llama decoder (``tensor_parallel.py``)."""
+from llm_bci_tpu_torch.parallel.mesh import (  # noqa: F401
+    AXES,
+    batch_rows,
+    fsdp_groups,
+    make_mesh,
+    mesh_shape,
+    tp_layout,
+)

@@ -114,9 +114,19 @@ def overlay_model_state(model: torch.nn.Module, saved: Dict[str, torch.Tensor]) 
     """Load the saved leaves that fit ``model`` (same name and shape, cast to
     the live dtype); every other live leaf keeps its value. Returns the names
     of the leaves restored."""
+    take = fit_model_state(saved, model.state_dict())
+    model.load_state_dict(take, strict=False)
+    return sorted(take)
+
+
+def fit_model_state(saved: Dict[str, torch.Tensor], target: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+    """The saved leaves that fit ``target`` (a ``state_dict``, or tensors of
+    its names, shapes and dtypes on the meta device): same name and shape,
+    cast to the target's dtype, after the LLM blob is put into the target's
+    quantization layout; what does not fit is printed."""
     from llm_bci_tpu_torch.models.llama import adapt_state_dict_quantization
 
-    target = model.state_dict()
     saved = adapt_state_dict_quantization(saved, target)
     take, filled, mismatched = {}, [], []
     for key, live in target.items():
@@ -128,8 +138,7 @@ def overlay_model_state(model: torch.nn.Module, saved: Dict[str, torch.Tensor]) 
         else:
             take[key] = value.to(live.dtype)
     _report("model", filled, mismatched, sorted(set(saved) - set(target)))
-    model.load_state_dict(take, strict=False)
-    return sorted(take)
+    return take
 
 
 def optimizer_state(optimizer: torch.optim.Optimizer, names: List[str]) -> Dict[str, object]:

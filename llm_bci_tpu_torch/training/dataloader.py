@@ -13,6 +13,12 @@ trainer. The semantics are the same, and the parity tests rely on them:
   the same batches in the same order as the JAX package's loader;
   ``set_epoch(e, skip_batches=k)`` makes the next iteration start at batch
   ``k`` of that order, which a run resumed in mid-epoch uses.
+
+With several ranks (``parallel/``) every rank builds the same loader with
+the same seed and walks the same global batches in the same epoch order, as
+the JAX multi-process trainer does; the trainer keeps a rank's rows of each
+batch. A ``DistributedSampler`` would deal whole examples out to the ranks
+and so change which examples share a batch.
 """
 from __future__ import annotations
 

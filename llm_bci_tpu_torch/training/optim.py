@@ -25,7 +25,7 @@ norm before AdamW (:func:`clip_by_global_norm`), in the order of
 from __future__ import annotations
 
 import math
-from typing import Callable, Iterable, List, Tuple
+from typing import Callable, Iterable, List, Optional, Set, Tuple
 
 import torch
 
@@ -101,19 +101,52 @@ def build_optimizer(params: Iterable[torch.nn.Parameter], opt_cfg, steps_per_epo
     return opt, schedule
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """The rank's own part of a tensor: an FSDP2 ``DTensor``'s local shard,
+    else the tensor itself."""
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
 @torch.no_grad()
-def clip_by_global_norm(params: List[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(params: List[torch.nn.Parameter], max_norm: float,
+                        tp_split: Optional[Set[int]] = None, fsdp_group=None,
+                        tp_group=None) -> torch.Tensor:
     """``optax.clip_by_global_norm``: when the global norm of the gradients
     reaches ``max_norm``, every gradient becomes ``g / norm * max_norm``.
     Pass only the parameters that train: a frozen leaf never enters the norm.
     Returns the norm before clipping, a 0-dim float32 tensor on the device
-    (nothing is read back to the host)."""
-    grads = [p.grad for p in params if p.grad is not None]
+    (nothing is read back to the host).
+
+    On several ranks the norm is that of the whole arrays: each rank sums the
+    squares of its own shards; the sums are added over ``fsdp_group`` (the
+    FSDP2 shards; replicas over ``data`` hold the same gradient and count
+    once), and those of the parameters whose ``id`` is in ``tp_split`` (split
+    by tensor parallelism) also over ``tp_group``, while a replicated leaf
+    (LoRA, norms), the same on every ``tp`` rank, counts once."""
+    import torch.distributed as dist
+
+    grads = [(id(p), _local(p.grad)) for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
+    tp_split = tp_split or set()
     # optax's order: the sum of squares of each leaf, their sum, its root
-    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    sq = {pid: g.float().square().sum() for pid, g in grads}
+    if fsdp_group is None and tp_group is None:
+        norm = torch.stack(list(sq.values())).sum().sqrt()
+    else:
+        zero = torch.zeros((), device=grads[0][1].device)
+        sums = torch.stack([
+            torch.stack([sq[i] for i, _ in grads if i in tp_split] or [zero]).sum(),
+            torch.stack([sq[i] for i, _ in grads if i not in tp_split] or [zero]).sum(),
+        ])
+        if fsdp_group is not None:
+            dist.all_reduce(sums, group=fsdp_group)
+        if tp_group is not None:
+            split = sums[:1].clone()
+            dist.all_reduce(split, group=tp_group)
+            sums = torch.cat([split, sums[1:]])
+        norm = sums.sum().sqrt()
     keep = norm < max_norm
-    for g in grads:
+    for _, g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
     return norm

@@ -58,12 +58,49 @@ path. ``precision.remat`` (``configs/trainer.yaml``) is read by nothing, as
 in the JAX package: remat is the model's ``encoder.remat`` (NDT1) or
 ``llm_remat`` (BCI).
 
-Not ported yet (see ROADMAP.md): multi-device parallelism. The TPU-only
-performance knobs ``chain_steps`` and ``cache_device_batches`` change no
-result and are ignored.
+Multi-device training (``parallelism``, ``parallel/``): once a process
+group is up, the trainer builds the ``(data, fsdp, sp, tp)`` mesh over the
+world and applies the plan at every mesh size, trivial axes included: the
+Llama projections of a BCI are cut to the rank's tensor-parallel share
+(``parallel/tensor_parallel.py``), then FSDP2 ``fully_shard`` shards the
+model over the ``(data, fsdp)`` sub-mesh (replicated over ``data``, sharded
+over ``fsdp``), the float32 master weights kept under autocast as on one
+device. Every rank walks the same global batches; a rank keeps the rows of
+its ``data`` index (a batch the axis does not divide stays whole), and its
+loss is scaled so that the reduced gradient is that of the global batch's
+summed loss. A step's ``loss`` and ``n_examples`` are summed over ``data``;
+when metric fns run, the batch-dim outputs are gathered, so that the fns see
+the global batch as on one device. Only rank 0 prints, logs and writes; a
+checkpoint gathers the full state (``save_checkpoint``) and is written in
+the single-device format, which any world size resumes
+(:meth:`resume_from`). The keys of the JAX trainer's ``parallelism`` block:
+``data`` / ``fsdp`` / ``tp`` read; ``sp`` read, and ``sp > 1`` refused
+(ROADMAP item 12b); ``sp_keys`` read only by that refused path;
+``multihost: true`` starts the process group from the launcher's
+environment (``torchrun`` sets ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``;
+the group is also started whenever those are set), the counterpart of
+``jax.distributed.initialize``; ``fsdp_min_size`` says which modules get an
+FSDP2 group of their own (``parallel/mesh.py::fsdp_groups``);
+``training.preemption_sync_every`` (default 10): with several ranks a
+preemption request is agreed on every that many steps, so that every rank
+stops and saves at the same step. ``dirs.compilation_cache_dir`` is ignored:
+it is XLA's compile cache, and the port compiles no XLA program (the CUDA
+kernels are cached by source hash under ``llm_bci_tpu_torch/_build``).
+A rank's training and eval generators are seeded from ``config.seed`` and
+its ``data`` index (index 0: the single process's seeds; ``train_seed``).
+The models' random parts draw from them, the flash dropout seed too
+(``ops/flash_attention.py::draw_seed``), so with dropout on rank 0 draws
+what one process draws for its rows and the other data ranks draw streams of
+their own, where one process would draw the rest of one stream (the JAX
+package folds the data index into the flash key instead,
+``llm_bci_tpu/ops/flash_attention.py:558``).
+
+The TPU-only performance knobs ``chain_steps`` and ``cache_device_batches``
+change no result and are ignored.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import os
@@ -88,7 +125,10 @@ from llm_bci_tpu_torch import not_ported
 import llm_bci_tpu_torch.data  # noqa: F401  (fills NAME2DATASET)
 from llm_bci_tpu_torch.registry import NAME2DATASET, NAME2MODEL
 import llm_bci_tpu_torch.models  # noqa: F401  (fills NAME2MODEL)
+from llm_bci_tpu_torch.parallel import mesh as pmesh
+from llm_bci_tpu_torch.parallel import process
 from llm_bci_tpu_torch.training import checkpoint
+from llm_bci_tpu_torch.training import distributed as tdist
 from llm_bci_tpu_torch.training.dataloader import HostDataLoader, freeze_pad_lengths
 from llm_bci_tpu_torch.training.optim import build_optimizer, clip_by_global_norm
 
@@ -102,10 +142,34 @@ def default_trainer_config() -> DictConfig:
     return update_config(resolve_path(DEFAULT_TRAINER_CONFIG), None)
 
 
-def eval_seed(seed: int) -> int:
+def eval_seed(seed: int, data_index: int = 0) -> int:
     """Seed of the eval generator: a function of ``config.seed`` that is not
-    the training generator's seed."""
-    return int(np.random.SeedSequence((int(seed), 1)).generate_state(1)[0])
+    the training generator's seed (and of a rank's ``data`` index, when it
+    is not 0)."""
+    key = (int(seed), 1) if not data_index else (int(seed), 1, int(data_index))
+    return int(np.random.SeedSequence(key).generate_state(1)[0])
+
+
+def train_seed(seed: int, data_index: int = 0) -> int:
+    """Seed of the training generator: ``config.seed`` on one device and on
+    the ranks of ``data`` index 0, a stream of its own on every other data
+    index (ranks that share a data index draw the same)."""
+    if not data_index:
+        return int(seed)
+    return int(np.random.SeedSequence((int(seed), 2, int(data_index))).generate_state(1)[0])
+
+
+def build_model(config, device, **kwargs) -> torch.nn.Module:
+    """The model that ``config`` describes, on ``device``, warm-started
+    where the model has a ``warm_start``: what the trainer builds when no
+    model is handed in. ``kwargs`` override ``method.model_kwargs``."""
+    model_class = NAME2MODEL[config.model.model_class]
+    kwargs = {**dict(config.method.model_kwargs), **kwargs}
+    kwargs.setdefault("compute_dtype", (config.get("precision") or {}).get("compute_dtype"))
+    model = model_class.from_config(config.model, device=device, **kwargs)
+    if hasattr(model, "warm_start"):
+        model.warm_start()
+    return model
 
 
 def resolve_device(device) -> torch.device:
@@ -184,12 +248,9 @@ class Trainer:
         eval_metric_fns: Optional[Dict[str, Callable]] = None,
         device=None,
     ):
-        self.device = resolve_device(device)
         self.config = update_config(default_trainer_config(), config)
         cfg = self.config
-        par = cfg.get("parallelism") or {}
-        if any(int(par.get(k, 1)) > 1 for k in ("data", "fsdp", "tp", "sp")):
-            raise not_ported("Multi-device parallelism", "Queue 1, slice 8, item 12")
+        self.setup_parallel(device)
         prec = cfg.get("precision") or {}
         if DTYPES[prec.get("param_dtype")] != torch.float32:
             raise ValueError("precision.param_dtype must be float32 (master weights)")
@@ -197,12 +258,16 @@ class Trainer:
         self.verbosity = cfg.verbosity
         self.seed = int(cfg.seed)
         torch.manual_seed(self.seed)
-        self.generator = torch.Generator(self.device).manual_seed(self.seed)
-        self.eval_generator = torch.Generator(self.device).manual_seed(eval_seed(self.seed))
+        data_index = self.coords["data"]
+        self.generator = torch.Generator(self.device).manual_seed(
+            train_seed(self.seed, data_index))
+        self.eval_generator = torch.Generator(self.device).manual_seed(
+            eval_seed(self.seed, data_index))
 
         self.print_v(yaml.safe_dump(to_plain_dict(cfg), default_flow_style=False), verbosity=0)
         self.checkpoint_dir = os.path.join(cfg.dirs.checkpoint_dir, cfg.savestring)
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        if self.is_main_process:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
         self.init_logging()
         self._preempt_flag = False
         self._resume_step = 0
@@ -219,6 +284,7 @@ class Trainer:
         self.trainable = trainable = [p for _, p in named]
         self.grad_clip_norm = float(cfg.optimizer.get("grad_clip_norm") or 0.0)
         self.grad_norm: Optional[torch.Tensor] = None   # before the last update's clip
+        self.tp_split = {id(p) for n, p in named if n in self.plan.tp_dims}
         self.optimizer, self.schedule = build_optimizer(
             trainable, cfg.optimizer,
             steps_per_epoch=len(self.train_dataloader),
@@ -236,8 +302,39 @@ class Trainer:
 
     # ------------------------------------------------------------- plumbing
 
+    def setup_parallel(self, device) -> None:
+        """Join the process group when the config or the launcher asks for
+        one, and build the mesh over it (``mesh``, ``mesh_sizes``, this
+        rank's ``coords``); without a group the trainer runs on one device
+        and every axis must be 1."""
+        import torch.distributed as dist
+
+        par = self.config.get("parallelism") or {}
+        sizes = {k: int(par.get(k, -1 if k == "data" else 1)) for k in pmesh.AXES}
+        if sizes["sp"] > 1:
+            raise not_ported("Sequence parallelism", "Queue 1, slice 8, item 12b")
+        if (par.get("multihost") or process.launcher_env()) and not dist.is_initialized():
+            process.init_process(device)
+        self.distributed = dist.is_available() and dist.is_initialized()
+        if not self.distributed:
+            try:
+                self.mesh_sizes = pmesh.mesh_shape(1, **sizes)
+            except ValueError as err:
+                raise ValueError(f"{err}: no process group is up; start the ranks with "
+                                 "torchrun --nproc-per-node N -m llm_bci_tpu_torch.main") from err
+            self.device = resolve_device(device)
+            self.mesh, self.coords, self.is_main_process = None, dict.fromkeys(pmesh.AXES, 0), True
+        else:
+            self.device = process.rank_device(device)
+            self.mesh = pmesh.make_mesh(**sizes, device_type=self.device.type)
+            self.mesh_sizes = dict(zip(pmesh.AXES, self.mesh.mesh.shape))
+            self.coords = {a: self.mesh.get_local_rank(a) for a in pmesh.AXES}
+            self.is_main_process = dist.get_rank() == 0
+        self.plan = tdist.Plan()
+        self._batch_split = False
+
     def print_v(self, *args, verbosity: int = 3) -> None:
-        if verbosity >= self.verbosity:
+        if verbosity >= self.verbosity and self.is_main_process:
             print(*args, flush=True)
 
     def init_logging(self) -> None:
@@ -246,6 +343,9 @@ class Trainer:
         imported here and skipped when its package is missing."""
         cfg = self.config
         self.wandb = None
+        self.writer = None
+        if not self.is_main_process:
+            return
         if cfg.get("log_to_wandb"):
             try:
                 import wandb
@@ -256,7 +356,6 @@ class Trainer:
                     self.config, config_from_kwargs(dict(wandb.config), convert=False))
             except ImportError:
                 self.print_v("wandb not available; disabling", verbosity=0)
-        self.writer = None
         if cfg.dirs.get("log_dir"):
             try:
                 from torch.utils.tensorboard import SummaryWriter
@@ -291,15 +390,15 @@ class Trainer:
         self.dataset = dataset
 
     def set_model(self, model) -> None:
+        """The model handed in, or :func:`build_model`'s; with a process
+        group, cut and sharded by the plan (``training/distributed.py``)."""
         if model is None:
-            model_class = NAME2MODEL[self.config.model.model_class]
-            kwargs = dict(self.config.method.model_kwargs)
-            kwargs.setdefault(
-                "compute_dtype", (self.config.get("precision") or {}).get("compute_dtype"))
-            model = model_class.from_config(self.config.model, device=self.device, **kwargs)
-            if hasattr(model, "warm_start"):
-                model.warm_start()
+            model = build_model(self.config, self.device)
         self.model = model.to(self.device)
+        if self.distributed:
+            par = self.config.get("parallelism") or {}
+            self.plan = tdist.apply_plan(self.model, self.mesh,
+                                         int(par.get("fsdp_min_size", 1 << 20)))
 
     def get_model_inputs(self) -> None:
         """Batch columns that go to the model: the parameters of its
@@ -337,12 +436,17 @@ class Trainer:
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Numpy columns -> tensors on the device (other columns stay out).
         float64 columns (a JSON dataset's lists) arrive as float32, as JAX
-        without 64-bit mode places them."""
+        without 64-bit mode places them. With several ``data`` ranks, the
+        rank's rows of the global batch (``parallel/mesh.py::batch_rows``)."""
+        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
+        n = next(iter(arrays.values())).shape[0] if arrays else 0
+        start, stop = pmesh.batch_rows(n, self.mesh_sizes["data"], self.coords["data"])
+        self._batch_split = stop - start < n
         return {
-            k: torch.from_numpy(v.astype(np.float32) if v.dtype == np.float64 else v).to(
+            k: torch.from_numpy(np.ascontiguousarray(
+                (v.astype(np.float32) if v.dtype == np.float64 else v)[start:stop])).to(
                 self.device, non_blocking=True)
-            for k, v in batch.items()
-            if isinstance(v, np.ndarray)
+            for k, v in arrays.items()
         }
 
     def autocast(self):
@@ -370,21 +474,41 @@ class Trainer:
         """One forward/backward on a device batch; an optimizer update every
         ``gradient_accumulation_steps`` calls. Returns the outputs dict."""
         self.model.train()
+        split = self._batch_split
         with self.autocast():
             out = self.model(**dev_batch, generator=self.generator)
         # The gradient of the summed loss, as the JAX trainer takes it; the
         # micro-batch gradients of one update are averaged (optax.MultiSteps).
-        (out.loss / self.grad_accum).backward()
+        # FSDP2 averages the gradients of the (data, fsdp) ranks: a rank that
+        # holds 1/data of the rows scales its loss by data, so that the
+        # average is the global batch's gradient.
+        loss = out.loss / self.grad_accum
+        if split:
+            loss = loss * self.mesh_sizes["data"]
+        loss.backward()
         self.n_micro += 1
         if self.n_micro % self.grad_accum == 0:
             if self.grad_clip_norm:
-                self.grad_norm = clip_by_global_norm(self.trainable, self.grad_clip_norm)
+                self.grad_norm = clip_by_global_norm(
+                    self.trainable, self.grad_clip_norm, self.tp_split,
+                    fsdp_group=self.plan.fsdp_group, tp_group=self.plan.tp_group)
             for group in self.optimizer.param_groups:
                 group["lr"] = self.schedule(self.n_updates)
             self.optimizer.step()
             self.optimizer.zero_grad(set_to_none=True)
             self.n_updates += 1
-        return {k: (v.detach() if torch.is_tensor(v) else v) for k, v in out.to_dict().items()}
+        outputs = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in out.to_dict().items()}
+        return self.global_outputs(outputs, split, gather=bool(self.metric_fns))
+
+    def global_outputs(self, outputs: Dict[str, Any], split: bool, gather: bool
+                       ) -> Dict[str, Any]:
+        """A step's outputs over the global batch when the rank held a share
+        of its rows: 0-dim tensors (``loss``, ``n_examples``) summed over
+        ``data``, and with ``gather`` the batch-dim tensors gathered in rank
+        order (what a metric fn reads)."""
+        if not split:
+            return outputs
+        return tdist.global_outputs(outputs, self.mesh["data"].get_group(), gather)
 
     # ------------------------------------------------------------- evaluate
 
@@ -406,9 +530,12 @@ class Trainer:
         readback = LaggedReadback(metric_fns, self.metric_lag, consume)
         loader = self.train_dataloader if eval_train_set else self.test_dataloader
         for model_inputs, unused_inputs in loader:
+            batch = self.to_device(model_inputs)
             with self.autocast():
-                out = self.model(**self.to_device(model_inputs), generator=self.eval_generator)
-            readback.add((model_inputs, unused_inputs), out.to_dict())
+                out = self.model(**batch, generator=self.eval_generator)
+            readback.add((model_inputs, unused_inputs),
+                         self.global_outputs(out.to_dict(), self._batch_split,
+                                             gather=bool(metric_fns)))
         readback.flush()
         total_examples = float(sum(examples))
         total_loss = float(sum(losses))
@@ -428,6 +555,7 @@ class Trainer:
         eval_every = cfg.training.get("eval_every")
         save_every = cfg.training.get("save_every")
         halt_on_nonfinite = bool(cfg.training.get("halt_on_nonfinite", False))
+        preempt_sync = max(1, int(cfg.training.get("preemption_sync_every", 10) or 1))
         steps_per_epoch = max(len(self.train_dataloader), 1)
         n_epochs = int(cfg.training.num_epochs)
         budget = int(max_steps) if max_steps else steps_per_epoch * n_epochs
@@ -482,7 +610,13 @@ class Trainer:
                         self.stop_profiler(profiler, profile_cfg)
                         profiler = None
 
-                    if self._preempt_flag:
+                    preempted = self._preempt_flag
+                    if self.distributed:
+                        # every rank must stop (and save, a collective) at one
+                        # step: agree every preemption_sync_every steps
+                        preempted = (step % preempt_sync == 0
+                                     and process.any_rank(self._preempt_flag))
+                    if preempted:
                         self.print_v(f"Preemption: saving at step {step} and stopping",
                                      verbosity=0)
                         readback.flush()
@@ -593,20 +727,53 @@ class Trainer:
         """``STEP{n}/``: the model's ``state_dict`` (or its own component
         blobs and configs), the optimizer's ``state_dict`` and the config;
         and the full train state of the current step
-        (:meth:`save_train_state`)."""
+        (:meth:`save_train_state`). With several ranks, every rank takes part
+        in gathering the whole state and rank 0 writes it, in the format of
+        one device."""
         path = os.path.join(self.checkpoint_dir, tag)
-        os.makedirs(path, exist_ok=True)
         self.print_v(f"Saving checkpoint to {path}", verbosity=1)
-        if hasattr(self.model, "save_checkpoint"):
-            self.model.save_checkpoint(
-                path, include_frozen=bool(self.config.training.get("component_blobs", True)))
-            self.model.save_config(path)
-        else:
-            torch.save(self.model.state_dict(), os.path.join(path, "model.pt"))
-        torch.save(self.optimizer.state_dict(), os.path.join(path, "optimizer.pt"))
-        with open(os.path.join(path, "trainer_config.yaml"), "w") as f:
-            yaml.safe_dump(to_plain_dict(self.config), f)
-        self.save_train_state()
+        state = self.whole_state()
+        if self.is_main_process:
+            os.makedirs(path, exist_ok=True)
+            include_frozen = bool(self.config.training.get("component_blobs", True))
+            if hasattr(self.model, "save_checkpoint"):
+                self.model.save_checkpoint(path, include_frozen=include_frozen,
+                                           state=state["model"])
+                self.model.save_config(path)
+            else:
+                torch.save(state["model"], os.path.join(path, "model.pt"))
+            torch.save(state["optimizer"]["state_dict"], os.path.join(path, "optimizer.pt"))
+            with open(os.path.join(path, "trainer_config.yaml"), "w") as f:
+                yaml.safe_dump(to_plain_dict(self.config), f)
+        self.save_train_state(state)
+
+    def whole_state(self) -> Dict[str, Any]:
+        """The model's ``state_dict``, the optimizer's (by parameter name)
+        and the partial gradients of an open accumulation window, as whole
+        tensors: on one device the live ones; with several ranks gathered
+        (a collective), kept on rank 0 only."""
+        open_window = self.n_micro % self.grad_accum
+        if not self.distributed:
+            return {
+                "model": self.model.state_dict(),
+                "optimizer": checkpoint.optimizer_state(self.optimizer, self.trainable_names),
+                "grads": {n: p.grad for n, p in zip(self.trainable_names, self.trainable)
+                          if p.grad is not None} if open_window else {},
+            }
+        keep = self.is_main_process
+        grads = {}
+        if open_window:
+            for n, p in zip(self.trainable_names, self.trainable):
+                if p.grad is not None:
+                    g = tdist.full_tensor(p.grad, self.plan.tp_dims.get(n), self.plan)
+                    if keep:
+                        grads[n] = g.cpu()
+        return {
+            "model": tdist.model_full_state(self.model, self.plan, keep),
+            "optimizer": tdist.optimizer_full_state(self.optimizer, self.trainable_names,
+                                                    self.plan, keep),
+            "grads": grads,
+        }
 
     def train_state_dir(self) -> str:
         return os.path.join(self.checkpoint_dir, "train_state")
@@ -619,38 +786,57 @@ class Trainer:
                    if n.endswith((".kernel", ".kernel_scale"))}
         return frozen
 
-    def save_train_state(self) -> str:
+    def save_train_state(self, state: Optional[Dict[str, Any]] = None) -> Optional[str]:
         """``train_state/<step>/`` (``training/checkpoint.py``): the model's
         ``state_dict`` (without its frozen leaves under
         ``training.component_blobs: false``), the optimizer's, the update and
         step counts, both generators' states and the partial gradients of an
         open accumulation window; and ``resume_meta.json``, the dataloader
-        geometry that a mid-epoch resume assumes."""
-        model_state = self.model.state_dict()
-        if not bool(self.config.training.get("component_blobs", True)):
-            frozen = self.frozen_state_keys()
-            model_state = {k: v for k, v in model_state.items() if k not in frozen}
-        grads = {}
-        if self.n_micro % self.grad_accum:
-            grads = {n: p.grad for n, p in zip(self.trainable_names, self.trainable)
-                     if p.grad is not None}
-        trainer_state = {
-            "n_updates": self.n_updates, "n_micro": self.n_micro,
-            "generator": self.generator.get_state(),
-            "eval_generator": self.eval_generator.get_state(), "grads": grads,
-        }
-        path = checkpoint.save_train_state(self.train_state_dir(), self.n_micro, {
-            "model": model_state,
-            "optimizer": checkpoint.optimizer_state(self.optimizer, self.trainable_names),
-            "trainer": trainer_state,
-        })
-        meta = {
-            "steps_per_epoch": len(self.train_dataloader),
-            "train_batch_size": int(self.config.training.train_batch_size),
-            "train_dataset_len": len(self.train_dataloader.dataset),
-        }
-        with open(os.path.join(self.checkpoint_dir, "resume_meta.json"), "w") as f:
-            json.dump(meta, f)
+        geometry that a mid-epoch resume assumes. With several ranks the
+        state is the gathered whole one (``state``, or :meth:`whole_state`),
+        written by rank 0 with rank 0's generators, and every ``data``
+        index's generator states beside them under ``rank_generators``; the
+        ranks wait for the write. Returns the directory (``None`` on the
+        other ranks)."""
+        state = self.whole_state() if state is None else state
+        rank_generators = {}
+        if self.distributed:
+            states = [self.generator.get_state(), self.eval_generator.get_state()]
+            gathered = process.all_gather_host(
+                np.concatenate([s.numpy() for s in states]))
+            coords = [pmesh.coordinates(r, self.mesh_sizes) for r in range(len(gathered))]
+            n = states[0].numel()
+            for c, g in zip(coords, gathered):
+                rank_generators[c["data"]] = (torch.from_numpy(g[:n].copy()),
+                                              torch.from_numpy(g[n:].copy()))
+        path = None
+        if self.is_main_process:
+            model_state = state["model"]
+            if not bool(self.config.training.get("component_blobs", True)):
+                frozen = self.frozen_state_keys()
+                model_state = {k: v for k, v in model_state.items() if k not in frozen}
+            trainer_state = {
+                "n_updates": self.n_updates, "n_micro": self.n_micro,
+                "generator": self.generator.get_state(),
+                "eval_generator": self.eval_generator.get_state(), "grads": state["grads"],
+            }
+            if rank_generators:
+                trainer_state["rank_generators"] = rank_generators
+            path = checkpoint.save_train_state(self.train_state_dir(), self.n_micro, {
+                "model": model_state, "optimizer": state["optimizer"],
+                "trainer": trainer_state,
+            })
+            meta = {
+                "steps_per_epoch": len(self.train_dataloader),
+                "train_batch_size": int(self.config.training.train_batch_size),
+                "train_dataset_len": len(self.train_dataloader.dataset),
+            }
+            with open(os.path.join(self.checkpoint_dir, "resume_meta.json"), "w") as f:
+                json.dump(meta, f)
+        if self.distributed:
+            import torch.distributed as dist
+
+            dist.barrier()
         return path
 
     def resume_from(self, directory: Optional[str] = None) -> int:
@@ -682,17 +868,49 @@ class Trainer:
                     verbosity=3,
                 )
         step, parts = checkpoint.load_train_state(directory)
-        checkpoint.overlay_model_state(self.model, parts["model"])
-        checkpoint.overlay_optimizer_state(self.optimizer, self.trainable_names,
-                                           self.trainable, parts["optimizer"])
         state = parts["trainer"]
-        self.n_updates, self.n_micro = int(state["n_updates"]), int(state["n_micro"])
-        checkpoint.restore_generator(self.generator, state.get("generator"), "generator")
-        checkpoint.restore_generator(self.eval_generator, state.get("eval_generator"),
-                                     "eval generator")
+        generators = (state.get("generator"), state.get("eval_generator"))
         grads = state.get("grads") or {}
+        if not self.distributed:
+            checkpoint.overlay_model_state(self.model, parts["model"])
+            checkpoint.overlay_optimizer_state(self.optimizer, self.trainable_names,
+                                               self.trainable, parts["optimizer"])
+        else:
+            # every rank read the whole state: cut it to this rank's share
+            plan = self.plan
+            target = {k: torch.empty(tdist.whole_shape(v, plan.tp_dims.get(k), plan),
+                                     dtype=v.dtype, device="meta")
+                      for k, v in self.model.state_dict().items()}
+            tdist.load_model_full_state(
+                self.model, checkpoint.fit_model_state(parts["model"], target), plan)
+            checkpoint.overlay_optimizer_state(
+                self.optimizer, self.trainable_names, self.trainable,
+                tdist.optimizer_local_state(parts["optimizer"], self.trainable_names,
+                                            self.trainable, plan))
+            generators = state.get("rank_generators", {}).get(self.coords["data"], generators)
+            grads = {n: tdist.local_like(grads[n], p, plan.tp_dims.get(n), plan)
+                     for n, p in zip(self.trainable_names, self.trainable) if n in grads}
+        self.n_updates, self.n_micro = int(state["n_updates"]), int(state["n_micro"])
+        checkpoint.restore_generator(self.generator, generators[0], "generator")
+        checkpoint.restore_generator(self.eval_generator, generators[1], "eval generator")
         for name, p in zip(self.trainable_names, self.trainable):
             g = grads.get(name)
             p.grad = None if g is None else g.to(device=p.device, dtype=p.dtype)
         self._resume_step = int(step)
         return int(step)
+
+    @contextlib.contextmanager
+    def unsharded(self):
+        """Within the block every FSDP2 group of the model holds its whole
+        parameters, so that a method other than ``forward`` (``generate``)
+        can run; resharded after. A no-op on one device."""
+        from torch.distributed.fsdp import FSDPModule
+
+        groups = [m for m in self.model.modules() if isinstance(m, FSDPModule)]
+        for m in groups:
+            m.unshard()
+        try:
+            yield self.model
+        finally:
+            for m in groups:
+                m.reshard()

@@ -20,6 +20,7 @@ The kernels run only on the card. What can be held here:
 Tolerances are the chip gates' (loss rtol 1e-4 / atol 1e-4, gradient atol
 1e-4 against the float64 plain version), but for the JAX XLA path in the
 confident case: it recurses in float32 and is itself 2.3e-4 off there."""
+import functools
 import os
 import re
 
@@ -146,6 +147,14 @@ def flagship(scale: float):
     return torch.log_softmax(logits * scale, -1), targets, il, tl
 
 
+@functools.lru_cache(maxsize=None)
+def emulated(scale: float, zero_infinity: bool = True):
+    """``emulate_kernel`` on ``flagship(scale)``, computed once for the
+    module: several tests read the same emulation, none changes it."""
+    lp, targets, il, tl = flagship(scale)
+    return emulate_kernel(lp, targets, il, tl, zero_infinity=zero_infinity)
+
+
 def plain_f64(lp, targets, il, tl, zero_infinity):
     x = lp.double().requires_grad_(True)
     loss = ctc_loss_plain(x, targets, il, tl, zero_infinity=zero_infinity)
@@ -157,7 +166,7 @@ def plain_f64(lp, targets, il, tl, zero_infinity):
 @pytest.mark.parametrize("zero_infinity", [True, False])
 def test_kernel_arithmetic_matches_float64_plain(scale, zero_infinity):
     lp, targets, il, tl = flagship(scale)
-    loss, grad, _, _ = emulate_kernel(lp, targets, il, tl, zero_infinity=zero_infinity)
+    loss, grad, _, _ = emulated(scale, zero_infinity)
     ref_loss, ref_grad = plain_f64(lp, targets, il, tl, zero_infinity)
     torch.testing.assert_close(loss, ref_loss.float(), **GATE_LOSS)
     feasible = torch.arange(lp.shape[0]) != INFEASIBLE
@@ -175,7 +184,7 @@ def test_kernel_arithmetic_matches_float64_plain(scale, zero_infinity):
 @pytest.mark.parametrize("scale", [1.0, 15.0], ids=["ctc_case", "confident"])
 def test_kernel_arithmetic_matches_jax_xla(scale):
     lp, targets, il, tl = flagship(scale)
-    loss, grad, _, _ = emulate_kernel(lp, targets, il, tl)
+    loss, grad, _, _ = emulated(scale)
     args = [jnp.asarray(a.numpy()) for a in (targets, il, tl)]
     x = jnp.asarray(lp.numpy())
     jloss = np.asarray(jax_ctc_loss(x, *args, impl="xla"))
@@ -192,7 +201,7 @@ def test_confident_case_defeats_a_scaled_linear_recursion():
     frames), where the scaled float32 recursion underflows; log space holds."""
     def gaps(scale):
         lp, targets, il, tl = flagship(scale)
-        _, _, alpha, beta = emulate_kernel(lp, targets, il, tl)
+        _, _, alpha, beta = emulated(scale)
         rows = torch.arange(lp.shape[0])
         out = []
         for t in range(0, lp.shape[1], 10):
@@ -221,7 +230,7 @@ def test_every_frame_gives_the_terminal_log_p_and_unit_occupancy():
     occupancies of every frame below the input length sum to 1: each block
     of the fused kernel may form the occupancies of its own frames."""
     lp, targets, il, tl = flagship(1.0)
-    loss, grad, alpha, beta = emulate_kernel(lp, targets, il, tl)
+    loss, grad, alpha, beta = emulated(1.0)
     feasible = torch.arange(lp.shape[0]) != INFEASIBLE
     n = il.long()
     frame_sums = -grad.sum(-1)                       # (B, T)

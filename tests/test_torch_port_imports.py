@@ -9,8 +9,9 @@ every module of ``llm_bci_tpu_torch`` (``eval_phonemes`` and
 ``eval.co_smoothing`` among them),
 runs a tiny NDT1-CTC and a tiny NDT1-mlm forward and backward on the CPU (the
 latter through the flash branch) and a tiny int8 BCI forward, backward and
-greedy decode, the BCI's reference-format export (HF base, PEFT adapter)
-read back by ``from_pt``, and then checks that none of those was loaded and that no
+greedy decode (again under the tensor-parallel plan on a one-rank gloo
+group: the same loss and ids), the BCI's reference-format export (HF base,
+PEFT adapter) read back by ``from_pt``, and then checks that none of those was loaded and that no
 kernel was built. On a CPU tensor ``int8_matmul`` takes the plain version,
 and the CUDA wrapper handed a CPU tensor raises instead of falling back."""
 import os
@@ -52,7 +53,10 @@ for mod in pkgutil.walk_packages(llm_bci_tpu_torch.__path__, "llm_bci_tpu_torch.
     if importlib.util.find_spec(mod.name).origin.endswith(".py"):
         importlib.import_module(mod.name)
 assert {"llm_bci_tpu_torch.eval_phonemes", "llm_bci_tpu_torch.eval.co_smoothing",
-        "llm_bci_tpu_torch.models.phoneme_llm", "llm_bci_tpu_torch.data.ibl"} <= set(sys.modules)
+        "llm_bci_tpu_torch.models.phoneme_llm", "llm_bci_tpu_torch.data.ibl",
+        "llm_bci_tpu_torch.parallel.mesh", "llm_bci_tpu_torch.parallel.process",
+        "llm_bci_tpu_torch.parallel.tensor_parallel",
+        "llm_bci_tpu_torch.training.distributed"} <= set(sys.modules)
 
 from llm_bci_tpu_torch.models.ndt1 import NDT1
 
@@ -131,6 +135,23 @@ assert bci.llm.lm_head.kernel.dtype == torch.int8
 assert all((p.grad is not None) == p.requires_grad for p in bci.parameters())
 tokens = bci.generate(**inputs, max_new_tokens=3)
 assert tuple(tokens.shape) == (B, 3)
+
+# the tensor-parallel plan on a one-rank gloo group: the same loss and ids
+import torch.distributed as dist
+from llm_bci_tpu_torch.parallel import process
+from llm_bci_tpu_torch.parallel.tensor_parallel import apply_tp_plan
+
+targets = torch.tensor([[-100, -100, 5, 6, 7], [-100, 9, 8, 7, 6]])
+bci.eval()
+with torch.no_grad():
+    before = bci(**inputs, targets=targets).loss
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{process.free_port()}",
+                            rank=0, world_size=1)
+    apply_tp_plan(bci.llm, dist.group.WORLD)
+    assert torch.equal(bci(**inputs, targets=targets).loss, before)
+assert torch.equal(bci.generate(**inputs, max_new_tokens=3), tokens)
+dist.destroy_process_group()
+bci.train()
 
 # the reference format both ways: the int8 BCI's encoder, projector and LoRA
 # factors (a PEFT adapter; an int8 base has no HF export), and a float BCI

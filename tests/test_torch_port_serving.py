@@ -90,21 +90,21 @@ def bci(request, tmp_path_factory):
 
 def both(jm, params, tm, np_in, t_in, tmp, name, **gen):
     """(the JAX artifact's output, the loaded port archive's, in-process
-    ``generate``'s, the port archive's path)."""
+    ``generate``'s, the port archive's path, the loaded archive)."""
     jpath = jserving.export_decode(jm, params, np_in, str(tmp / f"{name}.jaxexport"),
                                    max_new_tokens=NEW, platforms=("cpu",), **gen)
     jout = jserving.load_decode(jpath)(params, np_in)
     path = serving.export_decode(tm, serving.params_of(tm), t_in, str(tmp / f"{name}.pt2"),
                                  max_new_tokens=NEW, **gen)
-    out = serving.load_decode(path)(serving.params_of(tm), t_in)
-    return jout, out, tm.generate(**t_in, max_new_tokens=NEW, **gen), path
+    fn = serving.load_decode(path)
+    out = fn(serving.params_of(tm), t_in)
+    return jout, out, tm.generate(**t_in, max_new_tokens=NEW, **gen), path, fn
 
 
 def test_greedy_round_trip(bci):
-    jout, out, ref, path = bci[-1]
+    jout, out, ref, path, fn = bci[-1]
     np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
     assert torch.equal(out, ref)
-    fn = serving.load_decode(path)
     assert fn.device == torch.device("cpu")
     assert fn.signature["inputs"]["spikes"]["shape"] == list(bci[4]["spikes"].shape)
     int8 = [t for t in fn.archive.graph_targets("token_step") if t.startswith("llm_bci.")]
@@ -130,7 +130,7 @@ def test_beam_round_trip(bci, gen):
     holds against JAX)."""
     jm, params, tm, np_in, t_in, tmp, _ = bci
     if tm.quant is None and "num_beam_groups" not in gen:
-        jout, out, ref, _ = both(jm, params, tm, np_in, t_in, tmp, "best", **gen)
+        jout, out, ref, _, _ = both(jm, params, tm, np_in, t_in, tmp, "best", **gen)
         np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
         assert torch.equal(out, ref)
     path = serving.export_decode(tm, serving.params_of(tm), t_in, str(tmp / "all.pt2"),
@@ -142,17 +142,17 @@ def test_beam_round_trip(bci, gen):
 
 
 def test_archive_holds_no_weight_or_example_input(bci):
-    tm, path = bci[2], bci[-1][-1]
+    tm, path, fn = bci[2], bci[-1][3], bci[-1][4]
     n_param_bytes = sum(v.numel() * v.element_size() for v in serving.params_of(tm).values())
     assert os.path.getsize(path) < max(n_param_bytes // 2, 1 << 20)
-    archive = serving.load_decode(path).archive
+    archive = fn.archive
     for ep in archive.exported.values():
         assert not ep.state_dict and ep.example_inputs is None
         assert sum(t.numel() * t.element_size() for t in ep.constants.values()) < 1 << 20
 
 
 def test_load_decode_in_a_fresh_process(bci, tmp_path):
-    tm, t_in, path = bci[2], bci[4], bci[-1][-1]
+    tm, t_in, path = bci[2], bci[4], bci[-1][3]
     if tm.quant is not None:
         return      # one process is enough: the loader does not depend on the base
     torch.save({"params": serving.params_of(tm), "inputs": t_in}, tmp_path / "w.pt")
