@@ -245,8 +245,18 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    process at B=64 (rtol 1e-3: bf16 products of 32 rows against 64); E. D's
    rank-0 checkpoint resumed in one process, every leaf bit-equal to the two
    ranks' final state; F. ``entry.dryrun_multichip(1)`` at its default, one
-   NCCL rank on the card. Steps' ms beside the in-process trainer's, collective
-   calls and peak memory in a JSON line of its own; no time of D is a speed.
+   NCCL rank on the card; S. sequence parallelism, two gloo ranks on the one
+   card with ``sp=2``: S1. the flagship (stochastic parts on: every rank of a
+   sequence draws its noise and dropout at the whole sequence's shape), 4
+   steps + one eval, losses and trained parameters against one process (rtol
+   1e-3), one ``ctc_alpha_beta_kernel`` a step on each rank on the gathered
+   (64, 121, 41) log-probs, the train step's ``preds`` (what the CER fns read)
+   the whole (64, 121, 41); S2. NDT1-mlm at phase 6's shape (T=1024, width
+   kept, depth cut to ``MD_SP_LAYERS``), 2 steps, 0 flash launches (dense
+   under ``sp``), losses against one process on the dense path (rtol 1e-3),
+   each rank's peak memory beside one process's. Steps' ms beside the
+   in-process trainer's, collective calls and peak memory in a JSON line of
+   its own; no time of D or S is a speed.
 
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train|cosmooth|
 phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state|warm-start|serve-export|
@@ -2823,8 +2833,10 @@ class spied_trainer:
 
         def spy_step(trainer, batch):
             out = step(trainer, batch)
+            preds = out.get("preds")
             log.append({"step": trainer.n_micro, "indices": trainer.train_dataloader.dataset.take(),
-                        "loss": float(out["loss"])})
+                        "loss": float(out["loss"]),
+                        "preds_shape": list(preds.shape) if hasattr(preds, "shape") else None})
             if trainer.n_micro == stop_at:
                 trainer.request_preemption()
             return out
@@ -4183,6 +4195,9 @@ MD_DETERMINISTIC = 1e-5        # legs A / R / B / C against the in-process train
 MD_ONE_GROUP = 1 << 40         # leg R: an fsdp_min_size no leaf reaches (the root group only)
 MD_DATA2_RTOL = 1e-3           # leg D: 2 x 32 rows against 64 rows in one process, bf16
 MD_DECODE = 8                  # leg C: greedy tokens under the plan
+MD_SP_RTOL = 1e-3              # leg S: sp=2 against one process, bf16 (K / V gradients summed
+                               # from two ranks' partials)
+MD_SP_LAYERS = 3               # leg S2: the mlm's depth (width kept)
 
 
 def kernel_launches() -> dict:
@@ -4251,9 +4266,20 @@ def md_rank(spec_path: str) -> None:
     if spec.get("backend") == "gloo":
         process.init_process(spec["device"], backend="gloo")
     counter = CollectiveCounter()
+    from llm_bci_tpu_torch.ops import ctc_cuda
+
+    ctc_shapes: list = []      # the log-probs each CTC training launch was given
+    real_fused = ctc_cuda.ctc_alpha_beta_cuda
+
+    def fused(log_probs, *args):
+        ctc_shapes.append(list(log_probs.shape))
+        return real_fused(log_probs, *args)
+
+    ctc_cuda.ctc_alpha_beta_cuda = fused
     records = {}
     for leg in spec["legs"]:
         log: list = []
+        ctc_shapes.clear()
         reset_kernel_counters()
         counter.take()
         torch.cuda.reset_peak_memory_stats()
@@ -4268,7 +4294,9 @@ def md_rank(spec_path: str) -> None:
                "world": dist.get_world_size(), "backend": dist.get_backend(),
                "mesh": {k: int(v) for k, v in trainer.mesh_sizes.items()},
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-               "eval": trainer.eval_history,
+               "eval": trainer.eval_history, "ctc_shapes": list(ctc_shapes),
+               "flash_fallback": getattr(getattr(trainer.model, "encoder", None),
+                                         "flash_fallback", None),
                "fsdp_groups": len(fsdp_groups(trainer.model, int(
                    (trainer.config.get("parallelism") or {}).get("fsdp_min_size", 1 << 20))))}
         if leg.get("step_reps"):
@@ -4534,7 +4562,9 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
         if "dryrun_multichip(1) OK" not in dry:
             raise AssertionError(f"leg F: dryrun_multichip(1) printed {dry!r}")
         say("multi", f"F {dry.strip()} (NCCL on cuda:0, {time.perf_counter() - t0:.1f} s)")
-        report = {"A": {"step_ms": a["step_ms"], "in_process_step_ms": ms_a,
+
+        report["S"] = sequence_parallel_legs(tmp, flagship, mlm, ck, launches)
+        report = {**report, "A": {"step_ms": a["step_ms"], "in_process_step_ms": ms_a,
                         "peak_gib": a["peak_gib"], "in_process_peak_gib": peak_a, "rel": rel_a,
                         "collectives_a_step": a["step_collectives"], "wall_s": a["wall_s"]},
                   "R": {"step_ms": r["step_ms"], "rel": rel_r, "wall_s": r["wall_s"],
@@ -4549,6 +4579,102 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def params_rel(trained: dict, model) -> tuple:
+    """``(|a - b| / |b|, max |a - b|)`` over every trainable parameter of
+    ``model`` against the whole tensors ``trained`` (one flattened vector)."""
+    import torch
+
+    num = den = 0.0
+    worst = 0.0
+    for n, p in model.named_parameters():
+        if p.requires_grad:
+            d = trained[n].to(p.device).float() - p.detach().float()
+            num += float(d.square().sum())
+            den += float(p.detach().float().square().sum())
+            worst = max(worst, float(d.abs().max()))
+    return math.sqrt(num / den), worst
+
+
+def sequence_parallel_legs(tmp: str, flagship: list, mlm: list, ck, launches: dict) -> dict:
+    """Leg S of phase 18: ``sp=2`` on two gloo ranks of the one card (S1 the
+    flagship, S2 the mlm at T=1024), each against one process in this one."""
+    import torch
+
+    t0 = time.perf_counter()
+    sp = ["parallelism.data=1", "parallelism.fsdp=1", "parallelism.sp=2"]
+    s2_args = [*mlm, f"model.encoder.transformer.n_layers={MD_SP_LAYERS}"]
+    trained_out = os.path.join(tmp, "S1_trained.pt")
+    ranks = torchrun(tmp, "S", 2, {"backend": "gloo", "device": "cuda:0", "legs": [
+        {"name": "S1", "argv": [*flagship, ck("S1"), *sp, "--device", "cuda:0"],
+         "trained_out": trained_out},
+        {"name": "S2", "argv": [*s2_args, ck("S2"), *sp, "--device", "cuda:0"]}]}, timeout=600)
+    flash = (FWD_WG, DQ_WG, DKV_WG, "flash_delta_kernel")
+    for rank, rec in enumerate(ranks):
+        s1, s2 = rec["S1"], rec["S2"]
+        if s1["mesh"]["sp"] != 2 or s2["mesh"]["sp"] != 2:
+            raise AssertionError(f"leg S: rank {rank} meshes {s1['mesh']} / {s2['mesh']}")
+        # one fused CTC launch a step on the gathered log-probs, one alpha
+        # launch for the eval, on every rank
+        if s1["launches"]["ctc_alpha_beta_kernel"] != 4 or \
+                s1["launches"]["ctc_alpha_kernel"] != 1 or \
+                s1["ctc_shapes"] != [[B, T, V]] * 4:
+            raise AssertionError(f"leg S1 rank {rank}: CTC launches {s1['launches']}, "
+                                 f"shapes {s1['ctc_shapes']}")
+        if any(step["preds_shape"] != [B, T, V] for step in s1["steps"]):
+            raise AssertionError(f"leg S1 rank {rank}: the metric fns' preds "
+                                 f"{[step['preds_shape'] for step in s1['steps']]}")
+        got = {k: s2["launches"][k] for k in flash}
+        if any(got.values()) or "sequence-parallel" not in (s2["flash_fallback"] or ""):
+            raise AssertionError(f"leg S2 rank {rank}: flash launches {got}, fallback "
+                                 f"{s2['flash_fallback']!r}")
+        for rec in (s1, s2):
+            add_launches(launches, {k: v for k, v in rec["launches"].items() if v})
+    s1, s2 = ranks[0]["S1"], ranks[0]["S2"]
+    if losses(s1["steps"]) != losses(ranks[1]["S1"]["steps"]) or \
+            losses(s2["steps"]) != losses(ranks[1]["S2"]["steps"]):
+        raise AssertionError(f"leg S: the two sp ranks' losses differ: {losses(s1['steps'])} / "
+                             f"{losses(ranks[1]['S1']['steps'])}")
+    ref1, trainer, peak1, _ = in_process([*flagship, ck("S1_ref")])
+    rel1 = check_losses("leg S1", losses(s1["steps"]), losses(ref1), MD_SP_RTOL)
+    rel_p, worst = params_rel(torch.load(trained_out, weights_only=True), trainer.model)
+    if not rel_p <= MD_SP_RTOL:
+        raise AssertionError(f"leg S1: trained parameters {rel_p:.3g} from one process's "
+                             f"(> {MD_SP_RTOL})")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("multi", f"S1 flagship sp=2 on two gloo ranks of the one card (T=512 bins, T'=121: "
+        "frames 61 / 60, noise and dropout on): losses "
+        f"{[round(x, 4) for x in losses(s1['steps'])]} against one process "
+        f"{[round(x, 4) for x in losses(ref1)]}: max rel. difference {rel1:.3g}; trained "
+        f"parameters {rel_p:.3g} (relative L2; max |diff| {worst:.3g}) (<= {MD_SP_RTOL}); "
+        f"ctc_alpha_beta_kernel 4 a rank on {s1['ctc_shapes'][0]}, ctc_alpha_kernel 1 a rank; "
+        f"the CER fns read preds {s1['steps'][0]['preds_shape']}; collectives "
+        f"{s1['collectives']}; peak {s1['peak_gib']:.2f} / {ranks[1]['S1']['peak_gib']:.2f} "
+        f"GiB a rank against {peak1:.2f} in one process; {s1['wall_s']:.1f} s (gloo: no speed)")
+    ref2, trainer, peak2, _ = in_process(
+        [*s2_args, ck("S2_ref"), "model.encoder.transformer.flash_attention=off"])
+    del trainer
+    rel2 = check_losses("leg S2", losses(s2["steps"]), losses(ref2), MD_SP_RTOL)
+    say("multi", f"S2 mlm T=1024 sp=2 ({MD_SP_LAYERS} layers x 1024): losses "
+        f"{[round(x, 4) for x in losses(s2['steps'])]} against one process on the dense path "
+        f"{[round(x, 4) for x in losses(ref2)]}: max rel. difference {rel2:.3g}; flash launches "
+        f"0 a rank (dense under sp: {s2['flash_fallback']}); peak "
+        f"{s2['peak_gib']:.2f} / {ranks[1]['S2']['peak_gib']:.2f} GiB a rank against "
+        f"{peak2:.2f} in one process (dense); collectives {s2['collectives']}; "
+        f"{s2['wall_s']:.1f} s (gloo: no speed)")
+    wall = time.perf_counter() - t0
+    say("multi", f"S in {wall:.1f} s with the process start of its two ranks and the two "
+        "in-process references")
+    return {"S1": {"rel": rel1, "params_rel": rel_p, "params_max_abs": worst,
+                   "peak_gib": [r["S1"]["peak_gib"] for r in ranks], "in_process_peak_gib": peak1,
+                   "collectives": s1["collectives"], "wall_s": s1["wall_s"]},
+            "S2": {"rel": rel2, "peak_gib": [r["S2"]["peak_gib"] for r in ranks],
+                   "in_process_peak_gib": peak2, "collectives": s2["collectives"],
+                   "wall_s": s2["wall_s"]},
+            "wall_s": wall}
 
 
 KERNELS = {

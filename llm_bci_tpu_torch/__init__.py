@@ -28,8 +28,9 @@ reference's PyTorch checkpoint format (``interop/torch_import.py``,
 decodes and forwards as ``torch.export`` archives (``serving.py``). Slice 8
 trains on several devices with ``torch.distributed`` (``parallel/``: the
 ``(data, fsdp, sp, tp)`` mesh, FSDP2, Megatron tensor parallelism of the
-Llama decoder, ``torchrun`` launch); sequence parallelism (``sp > 1``) raises
-``NotImplementedError`` naming its ROADMAP item.
+Llama decoder, ``torchrun`` launch); slice 12 adds sequence parallelism
+(``sp > 1``) for NDT1 (``parallel/sequence.py``), and the other families
+raise ``NotImplementedError`` naming its ROADMAP item under it.
 """
 
 

@@ -14,10 +14,11 @@ kernel (``ctc_alpha_kernel``); ``device="cpu"`` runs its plain version.
 it raises when the host has fewer than ``n`` cards), or ``n`` gloo ranks on
 the CPU when the caller passes ``device="cpu"``, and runs one training step
 through the port's ``Trainer`` on tiny shapes in each of two meshes: NDT1 ``mlm`` (random
-masker, dropout) on ``(data, fsdp)``, ``fsdp = 2`` when ``n`` is even; and the
-debug BCI (int8 base, LoRA on q / v) on ``(data, fsdp, tp)``, ``tp = 2`` when
-``n`` is even and ``fsdp = 2`` when 4 divides ``n``. The JAX dry run's ``sp``
-leg waits for ROADMAP item 12b (sequence parallelism). Run it as
+masker, dropout) on ``(data, fsdp, sp)`` with the JAX dry run's axes
+(``fsdp = 2`` when ``n`` is even, ``sp = 2`` when ``2 * fsdp`` divides ``n``
+at least twice, ``data`` the rest: ``sp = 2`` from 8 ranks); and the debug
+BCI (int8 base, LoRA on q / v) on ``(data, fsdp, tp)``, ``tp = 2`` when
+``n`` is even and ``fsdp = 2`` when 4 divides ``n``. Run it as
 ``python -m llm_bci_tpu_torch.entry --dryrun N [--device cpu]``.
 """
 from __future__ import annotations
@@ -181,12 +182,14 @@ def _bci_rows(n: int, T: int = 16, N: int = 8, L: int = 10, vocab: int = 97,
 
 
 def dryrun_meshes(n: int) -> Tuple[dict, dict]:
-    """The ``(data, fsdp)`` mesh of the NDT1 leg and the ``(data, fsdp, tp)``
-    mesh of the BCI leg for ``n`` ranks."""
+    """The ``(data, fsdp, sp)`` mesh of the NDT1 leg (the axes of
+    ``__graft_entry__.dryrun_multichip``) and the ``(data, fsdp, tp)`` mesh
+    of the BCI leg for ``n`` ranks."""
     fsdp = 2 if n % 2 == 0 else 1
+    sp = 2 if n % (2 * fsdp) == 0 and n // (2 * fsdp) >= 2 else 1
     tp = 2 if n % 2 == 0 else 1
     fsdp_bci = 2 if n % 4 == 0 else 1
-    return ({"data": n // fsdp, "fsdp": fsdp},
+    return ({"data": n // (fsdp * sp), "fsdp": fsdp, "sp": sp},
             {"data": n // (fsdp_bci * tp), "fsdp": fsdp_bci, "tp": tp})
 
 

@@ -18,7 +18,11 @@ Masked bins are zeroed with probability ``zero_ratio``; of the remainder,
 (the max is taken after zeroing).
 
 Every draw comes from an explicit ``torch.Generator`` on the tensor's
-device (``None`` reads torch's global RNG). The streams differ from
+device (``None`` reads torch's global RNG). Under sequence parallelism
+(``time``: the bins a rank holds of the whole sequence's) every draw is made
+at the whole sequence's shape and sliced, so that the ranks of one sequence,
+whose generators move in lockstep, mask what one device masks, and the
+maximum of the random replacement is taken over the ranks (``reduce_max``). The streams differ from
 ``jax.random``'s: for one seed the two packages mask different bins with the
 same statistics; the deterministic modes give identical results. Region
 names never reach the device: the caller resolves them to integer ids and
@@ -27,9 +31,11 @@ passes ``neuron_regions_idx`` ``(B, N)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+
+from llm_bci_tpu_torch.ops.attention import TimeSlice
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,12 +150,22 @@ def apply_masker(
     training: bool,
     neuron_regions_idx: Optional[torch.Tensor] = None,  # (B, N) int region ids
     overrides: Optional[MaskerOverrides] = None,
+    time: Optional[TimeSlice] = None,
+    reduce_max: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns ``(masked_spikes, targets_mask)``; ``targets_mask`` is int32,
-    1 on bins the model must reconstruct."""
-    B, T, N = spikes.shape
+    1 on bins the model must reconstruct. With ``time``, ``spikes`` holds
+    those bins of a sequence of ``time.total``: the masks are drawn for the
+    whole sequence and sliced, and ``reduce_max`` takes the maximum over the
+    ranks that hold the rest."""
+    B, T_local, N = spikes.shape
+    T = T_local if time is None else time.total
+    start = 0 if time is None else time.start
     dev = spikes.device
     ov = overrides or MaskerOverrides()
+
+    def part(m: torch.Tensor) -> torch.Tensor:     # (B, T, ...) -> the rank's bins
+        return m if time is None else m[:, start:start + T_local]
 
     if not cfg.active or (not training and not cfg.force_active):
         return spikes, torch.zeros(spikes.shape, dtype=torch.int32, device=dev)
@@ -168,11 +184,11 @@ def apply_masker(
         mask_bt = _bernoulli(cfg.ratio / timespan, (B, T), generator, dev)
         mask_bt = _expand_timesteps_dynamic(mask_bt.to(torch.int32), timespan,
                                             cfg.max_timespan) > 0
-        mask = mask_bt[:, :, None].expand(B, T, N)
+        mask = part(mask_bt)[:, :, None].expand(B, T_local, N)
     elif mode == "neuron":
-        mask = _bernoulli(cfg.ratio, (B, N), generator, dev)[:, None, :].expand(B, T, N)
+        mask = _bernoulli(cfg.ratio, (B, N), generator, dev)[:, None, :].expand(B, T_local, N)
     elif mode == "random":
-        mask = _bernoulli(cfg.ratio, (B, T, N), generator, dev)
+        mask = part(_bernoulli(cfg.ratio, (B, T, N), generator, dev))
     elif mode == "region":
         if neuron_regions_idx is None:
             raise ValueError("Can't mask region without brain region information")
@@ -181,7 +197,7 @@ def apply_masker(
             if ov.mask_region_sel is not None
             else _isin(neuron_regions_idx, cfg.mask_region_ids or ())
         )
-        mask = sel[:, None, :].expand(B, T, N)
+        mask = sel[:, None, :].expand(B, T_local, N)
     elif mode == "co-smooth":
         if ov.channels_onehot is not None:
             onehot = ov.channels_onehot.bool()
@@ -190,7 +206,7 @@ def apply_masker(
                 raise ValueError("No channels to mask")
             onehot = _isin(torch.arange(N, device=dev), cfg.channels)
         rows = onehot if onehot.dim() == 2 else onehot[None, :]     # (B or 1, N)
-        mask = rows[:, None, :].expand(B, T, N)
+        mask = rows[:, None, :].expand(B, T_local, N)
     elif mode == "forward-pred":
         if ov.timesteps_onehot is not None:
             onehot = ov.timesteps_onehot.bool()
@@ -198,7 +214,7 @@ def apply_masker(
             if cfg.timesteps is None:
                 raise ValueError("No time steps to mask")
             onehot = _isin(torch.arange(T, device=dev), cfg.timesteps)
-        mask = onehot[None, :, None].expand(B, T, N)
+        mask = onehot[start:start + T_local][None, :, None].expand(B, T_local, N)
     elif mode in ("inter-region", "intra-region"):
         if neuron_regions_idx is None:
             raise ValueError("Can't mask region without brain region information")
@@ -216,7 +232,7 @@ def apply_masker(
         outside = 1.0 if intra else 0.0
         probs = torch.where(sel, torch.full_like(sel, cfg.ratio, dtype=torch.float32),
                             torch.full_like(sel, outside, dtype=torch.float32))
-        mask = _bernoulli(probs, (B, N), generator, dev)[:, None, :].expand(B, T, N)
+        mask = _bernoulli(probs, (B, N), generator, dev)[:, None, :].expand(B, T_local, N)
         if intra:
             intra_targets_sel = sel
     else:
@@ -224,16 +240,19 @@ def apply_masker(
 
     # Corrupt: zero a zero_ratio fraction; of the rest, replace random_ratio
     # with uniform draws scaled by the post-zeroing max.
-    zero_idx = _bernoulli(cfg.zero_ratio, (B, T, N), generator, dev) & mask
+    zero_idx = part(_bernoulli(cfg.zero_ratio, (B, T, N), generator, dev)) & mask
     spikes = torch.where(zero_idx, torch.zeros_like(spikes), spikes)
-    random_idx = _bernoulli(cfg.random_ratio, (B, T, N), generator, dev) & mask & ~zero_idx
+    random_idx = part(_bernoulli(cfg.random_ratio, (B, T, N), generator, dev)) & mask & ~zero_idx
     # The max spans the whole batch. Where a batch holds several examples'
     # copies (the co-smoothing sweep's folded points) that couples them, but
     # only through ``random_idx``, which is empty under ``zero_ratio = 1``:
     # every masker of that sweep has it (``eval/co_smoothing.py``).
-    random_spikes = spikes.max() * torch.rand(
+    top = spikes.max()
+    if reduce_max is not None:
+        top = reduce_max(top).to(spikes.dtype)
+    random_spikes = top * part(torch.rand(
         (B, T, N), generator=generator, device=dev, dtype=spikes.dtype
-    )
+    ))
     spikes = torch.where(random_idx, random_spikes, spikes)
 
     targets_mask = mask
@@ -249,12 +268,16 @@ def apply_maskers(
     training: bool,
     neuron_regions_idx: Optional[torch.Tensor] = None,
     overrides: Optional[dict] = None,
+    time: Optional[TimeSlice] = None,
+    reduce_max: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply a list of maskers in sequence, OR-ing their target masks.
-    ``overrides`` maps masker index -> :class:`MaskerOverrides`."""
+    ``overrides`` maps masker index -> :class:`MaskerOverrides`; ``time`` and
+    ``reduce_max`` as in :func:`apply_masker`."""
     targets_mask = torch.zeros(spikes.shape, dtype=torch.int32, device=spikes.device)
     for i, cfg in enumerate(cfgs):
         ov = (overrides or {}).get(i)
-        spikes, new_mask = apply_masker(cfg, spikes, generator, training, neuron_regions_idx, ov)
+        spikes, new_mask = apply_masker(cfg, spikes, generator, training, neuron_regions_idx, ov,
+                                        time, reduce_max)
         targets_mask = targets_mask | new_mask
     return spikes, targets_mask

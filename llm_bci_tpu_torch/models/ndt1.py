@@ -29,14 +29,30 @@ Stochastic parts (white / offset noise, maskers, dropout, Poisson sampling
 in ``generate``) draw from an explicit ``torch.Generator`` passed in; with
 ``generator=None`` they use torch's global RNG. Train / eval follows
 ``Module.training``.
+
+Sequence parallelism (``seq_shard``, :func:`sequence_layout`): a rank runs
+the trunk on its part of the tokens. The bins (unstacked) are split evenly;
+stacked frames are split into near-even parts (121 over 2: 61 and 60), a
+frame belonging to the rank of its part, and the rank reads the bins of its
+frames' windows (a frame's window of 32 bins reaches 28 bins past the next
+frame's start). Its smoothing reads ``pad_lo`` / ``pad_hi`` more bins on
+each side; positions come from the timestamps of its own tokens. Noise,
+masker and dropout draws are made at the whole sequence's shape and sliced,
+attention runs dense on the rank's queries against K and V gathered over the
+group, the mlm and autoregressive losses sum over the rank's bins (the
+autoregressive head reads one raw bin past its part), and the ``ctc`` head
+gathers the log-probs and runs the CTC loss on the whole of T' on every rank.
+Day and block prefix tokens are refused under it (ROADMAP item 12c).
 """
 from __future__ import annotations
 
 import math
 import os
 import warnings
+from functools import partial
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -49,6 +65,7 @@ from llm_bci_tpu_torch.interop.torch_import import (
 )
 from llm_bci_tpu_torch.model_output import ModelOutput
 from llm_bci_tpu_torch.models.components import ComponentCheckpoints, remerge_saved_configs
+from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.ops.attention import dot_product_attention, dropout, make_attention_mask
 from llm_bci_tpu_torch.ops.context import create_context_mask
 from llm_bci_tpu_torch.models.masker import MaskerConfig, apply_maskers
@@ -61,7 +78,9 @@ from llm_bci_tpu_torch.ops.flash_attention import (
 )
 from llm_bci_tpu_torch.ops.losses import mse_loss, poisson_nll_loss
 from llm_bci_tpu_torch.ops.rotary import apply_rotary_pos_emb, rope_cos_sin
-from llm_bci_tpu_torch.ops.smoothing import gaussian_kernel, smooth_spikes
+from llm_bci_tpu_torch.ops.smoothing import gaussian_kernel, smooth_spikes, smoothing_pads
+from llm_bci_tpu_torch.parallel.mesh import split_range, sequence_range
+from llm_bci_tpu_torch.parallel.sequence import SequenceShard, all_gather_time, gather_time
 from llm_bci_tpu_torch.registry import register_model
 
 DEFAULT_CONFIG = "configs/ndt1.yaml"
@@ -109,21 +128,46 @@ class SmoothAndNoise(nn.Module):
         kernel = None if smooth_sd is None else torch.from_numpy(gaussian_kernel(smooth_sd))
         self.register_buffer("kernel", kernel, persistent=False)
 
-    def forward(self, spikes: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        B, T, N = spikes.shape
-        if self.kernel is not None:
+    @property
+    def width(self) -> int:
+        """Bins of the smoothing window (0 without smoothing)."""
+        return 0 if self.kernel is None else int(self.kernel.shape[0])
+
+    def forward(self, spikes: torch.Tensor, generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None) -> torch.Tensor:
+        """``spikes`` smoothed and noised; with ``seq_shard`` the raw bins of
+        its ``spikes`` slice in, its ``computed`` bins out."""
+        if seq_shard is not None:
+            spikes = self._shard_window(spikes, seq_shard)
+        elif self.kernel is not None:
             spikes = smooth_spikes(spikes, self.kernel)
+        B, T, N = spikes.shape
         if self.noise and self.training:
             if self.white_noise_sd is not None:
-                spikes = spikes + self.white_noise_sd * torch.randn(
-                    (B, T, N), generator=generator, device=spikes.device, dtype=spikes.dtype
-                )
+                shape = (B, T if seq_shard is None else seq_shard.bins, N)
+                noise = torch.randn(shape, generator=generator, device=spikes.device,
+                                    dtype=spikes.dtype)
+                if seq_shard is not None:
+                    noise = noise[:, seq_shard.computed[0]:seq_shard.computed[1]]
+                spikes = spikes + self.white_noise_sd * noise
             if self.constant_offset_sd is not None:
                 spikes = spikes + self.constant_offset_sd * torch.randn(
                     (B, 1, N), generator=generator, device=spikes.device, dtype=spikes.dtype
                 )
         return spikes
+
+    def _shard_window(self, spikes: torch.Tensor, shard: SequenceShard) -> torch.Tensor:
+        """The smoothed bins ``shard.computed`` from the raw bins
+        ``shard.slices["spikes"]``: the halo the neighbours own is read,
+        zeros only past the sequence's ends."""
+        lo, hi = shard.slices["spikes"]
+        c_lo, c_hi = shard.computed
+        if self.kernel is None:
+            return spikes[:, c_lo - lo:c_hi - lo]
+        pad_lo, pad_hi = smoothing_pads(self.width)
+        a, b = max(lo, c_lo - pad_lo), min(hi, c_hi + pad_hi)
+        return smooth_spikes(spikes[:, a - lo:b - lo], self.kernel,
+                             pads=(pad_lo - (c_lo - a), pad_hi - (b - c_hi)))
 
 
 class StackProjection(nn.Module):
@@ -152,6 +196,58 @@ def stacked_lengths(lengths: torch.Tensor, size: int, stride: int, active: bool)
     if not active:
         return lengths
     return torch.div(lengths - size, stride, rounding_mode="floor") + 1
+
+
+def sequence_layout(T: int, n_sp: int, index: int, smooth_width: int = 0,
+                    stack: Optional[Dict[str, Any]] = None,
+                    next_bin: bool = False) -> SequenceShard:
+    """What ``sp`` rank ``index`` of ``n_sp`` computes of a sequence of ``T``
+    bins, and what it reads (a pure function; the group is added by the
+    caller).
+
+    Tokens: without stacking the bins, split evenly (``T`` divides by
+    ``n_sp``: the trainer keeps an indivisible sequence whole, as the JAX
+    trainer does); with ``stack`` active the ``1 + (T - size) // stride``
+    frames (``real_tokens``), padded to ``pad_to_multiple``, in near-even
+    parts. Computed bins: the rank's bins, or the windows of its real frames
+    (from its first frame's first bin to its last frame's last), stretched
+    to the next rank's first frame's bin (the last rank: to ``T``), so that
+    the ranks' bins together cover the sequence (the masker's maximum).
+    Slices: ``spikes`` the computed bins with the smoothing window's halo
+    (``smooth_width``) and, with ``next_bin``, one raw bin past the tokens
+    (the autoregressive target); ``spikes_mask`` the computed bins;
+    ``spikes_timestamp`` the timestamps of the rank's real tokens (a stacked
+    frame ``l`` takes the timestamp of bin ``l``, as on one device)."""
+    stack = stack or {}
+    if stack.get("active"):
+        size, stride = int(stack["size"]), int(stack["stride"])
+        real = 1 + (T - size) // stride
+        tokens = real + (-real) % max(int(stack.get("pad_to_multiple", 1)), 1)
+        bounds = tuple(split_range(tokens, n_sp, r)[0] for r in range(n_sp)) + (tokens,)
+        if bounds[n_sp - 1] >= real:
+            raise ValueError(f"sequence parallelism: sp={n_sp} leaves a rank no frame of the "
+                             f"{real} that T={T} bins stack to")
+        t0, t1 = bounds[index], bounds[index + 1]
+        r1 = min(t1, real)
+        lo = t0 * stride
+        hi = T if index == n_sp - 1 else min(T, max((r1 - 1) * stride + size, t1 * stride))
+        timestamps = (t0, r1)
+    else:
+        if T % n_sp:
+            raise ValueError(f"sequence parallelism: T={T} bins do not divide by sp={n_sp}")
+        real = tokens = T
+        bounds = tuple(sequence_range(T, n_sp, r)[0] for r in range(n_sp)) + (T,)
+        t0, t1 = bounds[index], bounds[index + 1]
+        lo, hi = t0, t1
+        timestamps = (t0, t1)
+    pad_lo, pad_hi = smoothing_pads(smooth_width) if smooth_width else (0, 0)
+    raw = (max(0, lo - pad_lo), min(T, hi + pad_hi))
+    if next_bin:
+        raw = (raw[0], max(raw[1], min(T, t1 + 1)))
+    return SequenceShard(n_sp=n_sp, index=index, bins=T, tokens=tokens, real_tokens=real,
+                         bounds=bounds, computed=(lo, hi),
+                         slices={"spikes": raw, "spikes_mask": (lo, hi),
+                                 "spikes_timestamp": timestamps})
 
 
 class NeuralEmbeddingLayer(nn.Module):
@@ -187,7 +283,11 @@ class NeuralEmbeddingLayer(nn.Module):
         self.day_embedding = nn.Embedding(n_days, hidden_size) if day_token else None
 
     def forward(self, spikes, spikes_mask, spikes_timestamp, block_idx=None, day_idx=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None):
+        """With ``seq_shard``: ``spikes`` / ``spikes_mask`` are its computed
+        bins, ``spikes_timestamp`` its tokens' timestamps; out come its
+        tokens."""
         if (self.adapt or self.day_token) and day_idx is None:
             raise ValueError("adapt/day_token require a day_idx batch column")
         if self.block_token and block_idx is None:
@@ -204,12 +304,20 @@ class NeuralEmbeddingLayer(nn.Module):
 
         if self.stack_active:
             x = self.stack_projection(x)
-            L = x.shape[1]
-            spikes_timestamp = spikes_timestamp[:, :L]
             # A stacked frame is valid only if every bin of its window was.
             windows = spikes_mask.float().unfold(1, self.stack_size, self.stack_stride)
             spikes_mask = windows.prod(-1).to(spikes_mask.dtype)
-            pad = (-L) % self.stack_pad_multiple
+            if seq_shard is None:
+                L = x.shape[1]
+                spikes_timestamp = spikes_timestamp[:, :L]
+                pad = (-L) % self.stack_pad_multiple
+            else:
+                # the computed bins start at the rank's first frame and may
+                # run past its last one; padding frames are the last rank's
+                t0, t1 = seq_shard.token_range
+                real = min(t1, seq_shard.real_tokens) - t0
+                x, spikes_mask = x[:, :real], spikes_mask[:, :real]
+                pad = t1 - t0 - real
             if pad:
                 x = F.pad(x, (0, 0, 0, pad))
                 spikes_mask = F.pad(spikes_mask, (0, pad))
@@ -227,7 +335,8 @@ class NeuralEmbeddingLayer(nn.Module):
             x = torch.cat([self.day_embedding(day_idx)[:, None, :].to(x.dtype), x], dim=1)
             spikes_mask = torch.cat([ones, spikes_mask], dim=1)
 
-        x = dropout(x, self.dropout, self.training, generator)
+        x = dropout(x, self.dropout, self.training, generator,
+                    None if seq_shard is None else seq_shard.token_time)
         return x, spikes_mask, spikes_timestamp
 
 
@@ -260,7 +369,8 @@ class NeuralAttention(nn.Module):
         self.out_proj = _linear(hidden_size, hidden_size, use_bias, fixup)
 
     def forward(self, x, attn_mask, key_valid=None, timestamp=None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None):
         B, T, Hd = x.shape
         shape = (B, T, self.n_heads, Hd // self.n_heads)
         q = self.query(x).view(shape)
@@ -271,6 +381,12 @@ class NeuralAttention(nn.Module):
                                           self.rope_cos, self.rope_sin)
             q, k = qh.transpose(1, 2), kh.transpose(1, 2)
         rate = self.dropout if self.training else 0.0
+        time = None
+        if seq_shard is not None:
+            # the rank's queries against every rank's keys (dense: the mask
+            # holds the rank's rows); K and V gradients summed back
+            k, v = gather_time(k, seq_shard), gather_time(v, seq_shard)
+            time = seq_shard.token_time
         if attn_mask is None:
             # Attention-probability dropout runs inside the kernel; no
             # (B, H, T, T) tensor is made. Its seed is drawn here, on the
@@ -282,8 +398,8 @@ class NeuralAttention(nn.Module):
             )
         else:
             out = dot_product_attention(q, k, v, mask=attn_mask, dropout_rate=rate,
-                                        generator=generator)
-        out = dropout(out.reshape(B, T, Hd), self.dropout, self.training, generator)
+                                        generator=generator, time=time)
+        out = dropout(out.reshape(B, T, Hd), self.dropout, self.training, generator, time)
         return self.out_proj(out)
 
 
@@ -298,9 +414,9 @@ class NeuralMLP(nn.Module):
         self.down_proj = _linear(inter_size, hidden_size, use_bias, fixup_scale)
         self.dropout = dropout
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
+    def forward(self, x, generator: Optional[torch.Generator] = None, time=None):
         x = self.down_proj(self.act(self.up_proj(x)))
-        return dropout(x, self.dropout, self.training, generator)
+        return dropout(x, self.dropout, self.training, generator, time)
 
 
 class NeuralEncoderLayer(nn.Module):
@@ -325,9 +441,11 @@ class NeuralEncoderLayer(nn.Module):
                              fixup)
 
     def forward(self, x, attn_mask, key_valid=None, timestamp=None,
-                generator: Optional[torch.Generator] = None):
-        x = x + self.attn(self.ln1(x), attn_mask, key_valid, timestamp, generator)
-        return x + self.mlp(self.ln2(x), generator)
+                generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None):
+        x = x + self.attn(self.ln1(x), attn_mask, key_valid, timestamp, generator, seq_shard)
+        return x + self.mlp(self.ln2(x), generator,
+                            None if seq_shard is None else seq_shard.token_time)
 
 
 class NeuralFactorsProjection(nn.Module):
@@ -351,8 +469,8 @@ class NeuralFactorsProjection(nn.Module):
             self.proj = nn.Sequential(layer)
             self.act = ACT2FN[act]
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        x = dropout(x, self.dropout, self.training, generator)
+    def forward(self, x, generator: Optional[torch.Generator] = None, time=None):
+        x = dropout(x, self.dropout, self.training, generator, time)
         if not self.active:
             return x
         return self.act(self.proj(x))
@@ -376,6 +494,7 @@ class NeuralEncoder(nn.Module):
         self.flash_possible = (
             ctx["forward"] != -1 and ctx["backward"] != -1 and self.flash_mode != "off"
         )
+        self.flash_fallback: Optional[str] = None   # why the last call took the dense path
         sn = config["smooth_and_noise"]
         self.smooth_and_noise = SmoothAndNoise(
             sn["noise"], sn["smooth_sd"], sn["white_noise_sd"], sn["constant_offset_sd"]
@@ -409,32 +528,56 @@ class NeuralEncoder(nn.Module):
         """Width of what :meth:`forward` returns."""
         return self.out_proj.out_size
 
-    def _use_flash_now(self, T: int) -> bool:
-        """Per-call flash decision (``_use_flash_now`` of the JAX package,
-        without its mesh conditions): mode ``on`` takes the flash path,
-        ``auto`` takes it from ``FLASH_AUTO_MIN_T`` tokens, a ``-1`` context
-        or mode ``off`` never. The decision does not look at the device: on
-        a CUDA tensor the flash path launches the kernels, on a CPU tensor it
-        runs their plain version."""
+    def _use_flash_now(self, T: int, sequence_sharded: bool = False) -> bool:
+        """Per-call flash decision (``_use_flash_now`` of the JAX package):
+        mode ``on`` takes the flash path, ``auto`` takes it from
+        ``FLASH_AUTO_MIN_T`` tokens, a ``-1`` context or mode ``off`` never,
+        and a time-sharded sequence (``sp > 1``) never either, as in the JAX
+        package: its queries meet keys gathered over the ``sp`` ranks, which
+        the flash kernels, without a query offset, cannot take. The JAX
+        package's other mesh condition (a batch that its ``data`` axis does
+        not divide) has no counterpart: a rank's kernels see its own rows.
+        The decision does not look at the device: on a CUDA tensor the flash
+        path launches the kernels, on a CPU tensor it runs their plain
+        version."""
         if not self.flash_possible:
+            return False
+        if sequence_sharded:
+            self._note_flash_fallback(
+                "sequence-parallel (sp>1) activations are time-sharded; the dense path "
+                "attends the rank's queries to K and V gathered over sp")
             return False
         if self.flash_mode == "on":
             return True
         return self.flash_mode == "auto" and T >= FLASH_AUTO_MIN_T
 
+    def _note_flash_fallback(self, why: str) -> None:
+        """Record why the flash path was not taken (``flash_fallback``); an
+        explicit ``flash_attention: on`` also warns, as the JAX package's
+        ``_note_flash_fallback`` does (``auto`` falls back silently)."""
+        self.flash_fallback = why
+        if self.flash_mode == "on":
+            warnings.warn(f"flash_attention: on - falling back to dense attention: {why}",
+                          stacklevel=3)
+
     def forward(self, spikes, spikes_mask, spikes_timestamp, block_idx=None, day_idx=None,
                 generator: Optional[torch.Generator] = None, neuron_regions_idx=None,
-                masker_overrides: Optional[dict] = None):
-        spikes = self.smooth_and_noise(spikes, generator)
+                masker_overrides: Optional[dict] = None,
+                seq_shard: Optional[SequenceShard] = None):
+        """The trunk over the tokens; with ``seq_shard`` over the rank's
+        tokens (``spikes`` etc. sliced as ``seq_shard.slices`` says)."""
+        spikes = self.smooth_and_noise(spikes, generator, seq_shard)
         spikes, targets_mask = apply_maskers(
             self.masker_cfgs, spikes, generator, self.training,
             neuron_regions_idx=neuron_regions_idx, overrides=masker_overrides,
+            time=None if seq_shard is None else seq_shard.bin_time,
+            reduce_max=None if seq_shard is None else seq_shard.all_max,
         )
         x, spikes_mask, spikes_timestamp = self.embedder(
-            spikes, spikes_mask, spikes_timestamp, block_idx, day_idx, generator
+            spikes, spikes_mask, spikes_timestamp, block_idx, day_idx, generator, seq_shard
         )
-        Tn = x.shape[1]
-        if self._use_flash_now(Tn):
+        Tn = x.shape[1] if seq_shard is None else seq_shard.tokens
+        if self._use_flash_now(Tn, seq_shard is not None):
             # The band + padding mask is evaluated inside the kernel.
             attn_mask = None
         else:
@@ -443,19 +586,28 @@ class NeuralEncoder(nn.Module):
             else:
                 c = self.config["context"]
                 context_np = create_context_mask(c["forward"], c["backward"], Tn)
-            attn_mask = make_attention_mask(
-                spikes_mask, torch.from_numpy(context_np).to(x.device))
+            if seq_shard is None:
+                attn_mask = make_attention_mask(
+                    spikes_mask, torch.from_numpy(context_np).to(x.device))
+            else:
+                # the rank's query rows against the whole sequence's keys
+                t0, t1 = seq_shard.token_range
+                attn_mask = make_attention_mask(
+                    all_gather_time(spikes_mask, seq_shard),
+                    torch.from_numpy(np.ascontiguousarray(context_np[t0:t1])).to(x.device),
+                    n_queries=t1 - t0, query_offset=t0)
         for layer in self.layers:
             if self.remat:
-                x = remat_call(layer, x, attn_mask, spikes_mask, spikes_timestamp,
-                               generator=generator)
+                x = remat_call(partial(layer, seq_shard=seq_shard), x, attn_mask, spikes_mask,
+                               spikes_timestamp, generator=generator)
             else:
-                x = layer(x, attn_mask, spikes_mask, spikes_timestamp, generator)
+                x = layer(x, attn_mask, spikes_mask, spikes_timestamp, generator, seq_shard)
         x = self.out_norm(x)
         # Drop the day / block prefix tokens, and their mask entries.
         n_prefix = int(self.embedder.day_token) + int(self.embedder.block_token)
         x, spikes_mask = x[:, n_prefix:], spikes_mask[:, n_prefix:]
-        return self.out_proj(x, generator).float(), spikes_mask, targets_mask
+        return (self.out_proj(x, generator, None if seq_shard is None else seq_shard.token_time
+                              ).float(), spikes_mask, targets_mask)
 
 
 # ---------------------------------------------------------------------------
@@ -509,6 +661,35 @@ class NDT1(ComponentCheckpoints, nn.Module):
             "method_name", "loss", "log_input", "vocab_size", "blank_id", "zero_infinity"
         )}
         return cls(config=to_plain_dict(cfg), **kwargs)
+
+    # ----------------------------------------------------- sequence parallel
+
+    def check_sequence_parallel(self) -> None:
+        """Raise when this configuration cannot run time-sharded: the day and
+        block prefix tokens are refused (ROADMAP item 12c)."""
+        emb = self.config["encoder"]["embedder"]
+        if emb["day_token"] or emb["block_token"]:
+            raise not_ported("Sequence parallelism with NDT1's day / block prefix tokens",
+                             "Queue 1, slice 8, item 12c")
+
+    def sequence_layout(self, T: int, n_sp: int, index: int) -> SequenceShard:
+        """What ``sp`` rank ``index`` of ``n_sp`` computes of a batch of ``T``
+        bins (:func:`sequence_layout` with this model's smoothing window and
+        stacking, and the extra raw bin of the autoregressive head)."""
+        self.check_sequence_parallel()
+        emb = self.config["encoder"]["embedder"]
+        return sequence_layout(T, n_sp, index, self.encoder.smooth_and_noise.width,
+                               emb["stack"], next_bin=self.method_name == "autoregressive")
+
+    def sequence_outputs(self) -> Tuple[Tuple[str, ...], bool]:
+        """Which outputs of a time-sharded forward hold the rank's tokens
+        (gathered along dim 1 for the metric fns), and whether ``loss`` and
+        ``n_examples`` are the rank's sums (summed over ``sp``) or, as for
+        the ``ctc`` head's loss on the gathered log-probs, the same whole
+        value on every rank."""
+        if self.method_name in ("mlm", "autoregressive"):
+            return ("preds", "targets", "mask"), True
+        return (), False
 
     def reference_state(self, load_dir, components):
         return ndt1_state_dict_from_reference(load_dir, self, components)
@@ -569,36 +750,53 @@ class NDT1(ComponentCheckpoints, nn.Module):
         neuron_regions_idx: Optional[torch.Tensor] = None,
         masker_overrides: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
+        seq_shard: Optional[SequenceShard] = None,
     ) -> NDT1Output:
         method = self.method_name
-        if method in ("mlm", "autoregressive"):
-            targets = spikes
         x, spikes_mask_out, targets_mask = self.encoder(
             spikes, spikes_mask, spikes_timestamp, block_idx, day_idx, generator,
             neuron_regions_idx=neuron_regions_idx, masker_overrides=masker_overrides,
+            seq_shard=seq_shard,
         )
         preds = self._decode(x)
+        T, t0, t1, raw_lo = spikes.shape[1], 0, spikes.shape[1], 0
+        if seq_shard is not None:
+            T, (t0, t1), raw_lo = seq_shard.bins, seq_shard.token_range, \
+                seq_shard.slices["spikes"][0]
+        if method in ("mlm", "autoregressive"):
+            # the raw bins of the rank's tokens, and for autoregressive one
+            # more (the next rank's first), which the shard's slice holds
+            targets = spikes[:, t0 - raw_lo:min(t1 + 1, T) - raw_lo]
 
         if method == "mlm":
+            targets = targets[:, :t1 - t0]
             tmask = targets_mask & spikes_mask_out[:, :, None].to(targets_mask.dtype)
             loss = (self._ssl_loss(preds, targets) * tmask).sum()
             return NDT1Output(loss=loss, n_examples=tmask.sum(), preds=preds,
                               targets=targets, mask=tmask)
         if method == "autoregressive":
-            shift_mask = spikes_mask_out[:, :-1]
+            # preds[:, t] against targets[:, t + 1], for t < T - 1
+            pairs = min(t1, T - 1) - t0
+            shift_mask = spikes_mask_out[:, :pairs]
             loss = (
-                self._ssl_loss(preds[:, :-1, :], targets[:, 1:, :]) * shift_mask[:, :, None]
+                self._ssl_loss(preds[:, :pairs, :], targets[:, 1:pairs + 1, :])
+                * shift_mask[:, :, None]
             ).sum()
             return NDT1Output(loss=loss, n_examples=shift_mask.sum() * targets.shape[2],
-                              preds=preds, targets=targets, mask=spikes_mask_out)
+                              preds=preds, targets=targets[:, :t1 - t0], mask=spikes_mask_out)
 
         stack = self.config["encoder"]["embedder"]["stack"]
         lens = stacked_lengths(spikes_lengths, stack["size"], stack["stride"], stack["active"])
         with torch.autocast(x.device.type, enabled=False):
+            if seq_shard is not None:
+                # the recursion needs all of T': every rank runs the loss on
+                # the gathered log-probs, and its gradient goes back to each
+                # rank's frames only (not summed: the ranks' losses are one)
+                preds = gather_time(preds, seq_shard, sum_grads=False)
             if stack["active"]:
                 # Frames past the unpadded stacked length exist only for
                 # pad_to_multiple; pin them to blank for decoding.
-                L_valid = 1 + (spikes.shape[1] - stack["size"]) // stack["stride"]
+                L_valid = 1 + (T - stack["size"]) // stack["stride"]
                 if preds.shape[1] > L_valid:
                     blank_row = torch.full_like(preds[:, L_valid:], -1e9)
                     blank_row[:, :, self.blank_id] = 0.0

@@ -6,9 +6,16 @@ path, not its flash kernel, so this module is plain tensor code: logits,
 a masked softmax in float32, attention-probability dropout with torch SDPA
 semantics (``probs * keep / (1 - p)``) drawn from an explicit generator,
 and the value product. Layouts follow the JAX package: (B, T, H, D).
+
+Under sequence parallelism a rank holds a part of the time axis
+(:class:`TimeSlice`): its queries attend to keys gathered over the ranks,
+the mask rows are its queries' (``query_offset``), and every dropout mask is
+drawn at the whole axis's shape and sliced, so that the ranks of one
+sequence, whose generators move in lockstep, draw what one device draws.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
@@ -17,14 +24,31 @@ import torch
 MASK_VALUE = -1e30
 
 
+@dataclasses.dataclass(frozen=True)
+class TimeSlice:
+    """A part of a time axis of ``total`` steps that starts at ``start``
+    (its length is the tensor's)."""
+
+    total: int
+    start: int
+
+
 def dropout(
-    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator] = None
+    x: torch.Tensor, rate: float, training: bool, generator: Optional[torch.Generator] = None,
+    time: Optional[TimeSlice] = None, dim: int = 1,
 ) -> torch.Tensor:
     """Inverted dropout whose keep mask comes from ``generator``
-    (``F.dropout`` only reads the global RNG)."""
+    (``F.dropout`` only reads the global RNG). With ``time``, ``x``'s dim
+    ``dim`` is that part of the axis: the mask is drawn for the whole axis
+    and sliced."""
     if not training or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    shape = list(x.shape)
+    if time is not None:
+        shape[dim] = time.total
+    keep = torch.rand(shape, generator=generator, device=x.device) >= rate
+    if time is not None:
+        keep = keep.narrow(dim, time.start, x.shape[dim])
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 
@@ -35,6 +59,7 @@ def dot_product_attention(
     mask: Optional[torch.Tensor] = None,  # (B, 1|H, T, S) bool; True = attend
     dropout_rate: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    time: Optional[TimeSlice] = None,     # the queries' part of the time axis
 ) -> torch.Tensor:                        # (B, T, H, D)
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -52,23 +77,30 @@ def dot_product_attention(
     if mask is not None:
         logits = logits.masked_fill(~mask, MASK_VALUE)
     probs = torch.softmax(logits.float(), dim=-1).to(vh.dtype)
-    probs = dropout(probs, dropout_rate, dropout_rate > 0.0, generator)
+    probs = dropout(probs, dropout_rate, dropout_rate > 0.0, generator, time, dim=2)
     out = torch.matmul(probs.view(B, Hkv, (H // Hkv) * T, S), vh)
     return out.view(B, H, T, D).transpose(1, 2)
 
 
 def make_attention_mask(
-    spikes_mask: torch.Tensor,                    # (B, T) 1 = valid
-    context_mask: Optional[torch.Tensor],         # (T, T) 1 = in-window, or None
-) -> torch.Tensor:                                # (B, 1, T, T) bool
+    spikes_mask: torch.Tensor,                    # (B, S) 1 = valid key
+    context_mask: Optional[torch.Tensor],         # (T, S) 1 = in-window, or None
+    n_queries: Optional[int] = None,              # T; S when None
+    query_offset: int = 0,                        # the first query's place among the keys
+) -> torch.Tensor:                                # (B, 1, T, S) bool
     """Padding mask AND the banded context window, OR the diagonal: every
     position may attend to itself, so a padded query never sees an
-    all-masked row (``llm_bci_tpu/ops/attention.py:89-106``)."""
-    B, T = spikes_mask.shape
-    mask = spikes_mask.bool()[:, None, :]                       # (B, 1, T) keys
+    all-masked row (``llm_bci_tpu/ops/attention.py:89-106``). A rank's
+    queries of a time shard are the rows ``query_offset`` onward of the
+    whole sequence's mask: ``context_mask`` holds those rows, and the
+    diagonal is shifted by the offset."""
+    B, S = spikes_mask.shape
+    T = S if n_queries is None else n_queries
+    mask = spikes_mask.bool()[:, None, :]                       # (B, 1, S) keys
     if context_mask is not None:
         mask = mask & context_mask.bool()[None, :, :]
     else:
-        mask = mask.expand(B, T, T)
-    eye = torch.eye(T, dtype=torch.bool, device=spikes_mask.device)
+        mask = mask.expand(B, T, S)
+    rows = torch.arange(T, device=spikes_mask.device)[:, None] + query_offset
+    eye = rows == torch.arange(S, device=spikes_mask.device)[None, :]
     return (mask | eye[None, :, :])[:, None, :, :]

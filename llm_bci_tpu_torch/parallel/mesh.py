@@ -14,8 +14,12 @@ names ``("data", "fsdp", "sp", "tp")``, the JAX package's axes in its order:
 * ``tp``: Megatron tensor parallelism of the Llama projections on plain
   local shards (:func:`tp_layout`, applied by
   ``parallel/tensor_parallel.py``).
-* ``sp``: sequence parallelism; a mesh with ``sp > 1`` is refused by the
-  trainer (ROADMAP item 12b).
+* ``sp``: sequence parallelism. Every rank of an ``sp`` group holds the same
+  rows and its part of their time axis (:func:`sequence_range`); the model
+  says which bins, frames and halo each part needs (NDT1:
+  ``models/ndt1.py::sequence_layout``), attention gathers K and V over the
+  group (``parallel/sequence.py``), and FSDP2 sums the partial gradients with
+  ``sp`` on the replicate side of its mesh (:func:`fsdp_mesh`).
 
 Where GSPMD gives the JAX package its collectives, the port's come from
 FSDP2 (all-gather, reduce-scatter, all-reduce over ``data``) and from the
@@ -25,7 +29,7 @@ them to the Pallas kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -70,6 +74,26 @@ def make_mesh(data: int = -1, fsdp: int = 1, tp: int = 1, sp: int = 1, device_ty
     return init_device_mesh(device_type, tuple(sizes[a] for a in AXES), mesh_dim_names=AXES)
 
 
+def fsdp_mesh(mesh):
+    """The 2-D mesh FSDP2 shards over: ``(data, fsdp)``, replicated over the
+    first dim and sharded over the second. With ``sp > 1`` the first dim is
+    ``data`` and ``sp`` flattened (``data_sp``): the ranks of a time shard
+    hold partial gradients of the same parameters, which FSDP2 then reduces
+    with the data replicas' (the trainer scales the loss by ``sp`` as by
+    ``data``), and the ``fsdp`` groups stay the ranks that share a ``data``
+    and an ``sp`` index. ``sp > 1`` with ``tp > 1`` is refused (no model that
+    takes ``tp`` runs sequence-parallel)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if mesh["sp"].size() == 1:
+        return mesh["data", "fsdp"]
+    if mesh["tp"].size() > 1:
+        raise ValueError("parallelism.sp > 1 with tp > 1: no model takes both")
+    ranks = mesh.mesh                                  # (data, fsdp, sp, tp)
+    grid = ranks.permute(0, 2, 3, 1).reshape(-1, ranks.shape[1])
+    return DeviceMesh(mesh.device_type, grid, mesh_dim_names=("data_sp", "fsdp"))
+
+
 def coordinates(rank: int, sizes: Dict[str, int]) -> Dict[str, int]:
     """The index of ``rank`` along each axis of a row-major mesh of
     ``sizes``."""
@@ -78,6 +102,17 @@ def coordinates(rank: int, sizes: Dict[str, int]) -> Dict[str, int]:
         out[axis] = rank % sizes[axis]
         rank //= sizes[axis]
     return {a: out[a] for a in AXES}
+
+
+def sequence_range(length: int, n_sp: int, sp_index: int) -> Tuple[int, int]:
+    """``(start, stop)`` of the time steps an ``sp`` rank keeps of a sequence
+    of ``length`` steps: its even share when the axis divides the length
+    (``sequence_sharding``'s ``P("data", "sp")`` of the JAX package), else
+    all of it (the JAX trainer's ``_put_batch`` then keeps the key whole)."""
+    if n_sp > 1 and length % n_sp == 0:
+        size = length // n_sp
+        return sp_index * size, (sp_index + 1) * size
+    return 0, length
 
 
 def batch_rows(batch_size: int, n_data: int, data_index: int) -> Tuple[int, int]:
@@ -151,8 +186,12 @@ def check_tp_heads(n_heads: int, n_kv: int, intermediate: int, tp: int) -> None:
             "divisible by it")
 
 
-def split_range(n: int, parts: int, index: int) -> Sequence[int]:
-    """``(start, stop)`` of part ``index`` of ``n`` split evenly into
-    ``parts``."""
-    size = n // parts
-    return index * size, (index + 1) * size
+def split_range(n: int, parts: int, index: int) -> Tuple[int, int]:
+    """``(start, stop)`` of part ``index`` of ``n`` items cut into ``parts``
+    contiguous parts, evenly when ``parts`` divides ``n`` (a tensor-parallel
+    share), else in sizes that differ by one, the first ``n % parts`` parts
+    the longer: how the ``sp`` ranks share stacked frames whose count the
+    axis does not divide (121 frames over 2: 61 and 60)."""
+    size, extra = divmod(n, parts)
+    start = index * size + min(index, extra)
+    return start, start + size + (index < extra)

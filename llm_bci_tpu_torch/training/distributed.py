@@ -17,7 +17,7 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
-from llm_bci_tpu_torch.parallel.mesh import TP_DIMS, fsdp_groups, split_range
+from llm_bci_tpu_torch.parallel.mesh import TP_DIMS, fsdp_groups, fsdp_mesh, split_range
 from llm_bci_tpu_torch.parallel.tensor_parallel import apply_tp_plan
 
 
@@ -37,7 +37,8 @@ class Plan:
 def apply_plan(model: torch.nn.Module, mesh, fsdp_min_size: int) -> Plan:
     """Cut every Llama decoder of ``model`` to this rank's ``tp`` share,
     then ``fully_shard`` the modules of :func:`fsdp_groups` and the root over
-    the ``(data, fsdp)`` sub-mesh. With ``fsdp == 1`` nothing is sharded (the
+    the ``(data, fsdp)`` sub-mesh (``(data x sp, fsdp)`` with ``sp > 1``,
+    ``parallel/mesh.py::fsdp_mesh``). With ``fsdp == 1`` nothing is sharded (the
     JAX rule shards no leaf then either), so the groups keep their whole
     parameters from forward to backward instead of gathering them twice.
     When no module reaches ``fsdp_min_size`` the root's group holds every
@@ -66,7 +67,7 @@ def apply_plan(model: torch.nn.Module, mesh, fsdp_min_size: int) -> Plan:
             name = f"{prefix}.{leaf}"
             if name in names:
                 tp_dims[name] = dim
-    dp_mesh = mesh["data", "fsdp"]
+    dp_mesh = fsdp_mesh(mesh)
     reshard = mesh["fsdp"].size() > 1
     for name in fsdp_groups(model, fsdp_min_size):
         module = model.get_submodule(name)

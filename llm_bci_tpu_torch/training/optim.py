@@ -119,8 +119,8 @@ def clip_by_global_norm(params: List[torch.nn.Parameter], max_norm: float,
 
     On several ranks the norm is that of the whole arrays: each rank sums the
     squares of its own shards; the sums are added over ``fsdp_group`` (the
-    FSDP2 shards; replicas over ``data`` hold the same gradient and count
-    once), and those of the parameters whose ``id`` is in ``tp_split`` (split
+    FSDP2 shards; replicas over ``data`` and ``sp``, whose gradients FSDP2
+    has reduced to the same values, count once), and those of the parameters whose ``id`` is in ``tp_split`` (split
     by tensor parallelism) also over ``tp_group``, while a replicated leaf
     (LoRA, norms), the same on every ``tp`` rank, counts once."""
     import torch.distributed as dist

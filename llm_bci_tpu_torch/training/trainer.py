@@ -73,9 +73,23 @@ when metric fns run, the batch-dim outputs are gathered, so that the fns see
 the global batch as on one device. Only rank 0 prints, logs and writes; a
 checkpoint gathers the full state (``save_checkpoint``) and is written in
 the single-device format, which any world size resumes
-(:meth:`resume_from`). The keys of the JAX trainer's ``parallelism`` block:
-``data`` / ``fsdp`` / ``tp`` read; ``sp`` read, and ``sp > 1`` refused
-(ROADMAP item 12b); ``sp_keys`` read only by that refused path;
+(:meth:`resume_from`). With ``sp > 1`` (sequence parallelism, NDT1 only)
+the ranks of an ``sp`` group hold the same rows and each a part of their
+time axis: ``to_device`` cuts each ``sp_keys`` column to the range the
+model's ``sequence_layout`` gives the rank (its tokens' bins and their halo;
+a time dim that ``sp`` does not divide stays whole, and the ranks then
+compute the same and scale nothing), the model gathers what it needs over
+the group (``parallel/sequence.py``), FSDP2 reduces over ``data x sp``
+(``parallel/mesh.py::fsdp_mesh``) with the loss scaled by ``sp`` as by
+``data``, a step's ``loss`` and ``n_examples`` are summed over ``sp`` where
+they are the rank's part (mlm, autoregressive) and taken once where every
+rank holds the whole (``ctc``), and the metric fns see the time-dim outputs
+gathered. Random draws on that path are made at the whole sequence's shape
+and sliced, so ``sp`` changes no result. The keys of the JAX trainer's
+``parallelism`` block: ``data`` / ``fsdp`` / ``sp`` / ``tp`` read (``sp >
+1`` refused for iTransformer, PatchTST, BCI and PhonemeLLM, and for NDT1's
+prefix tokens: ROADMAP item 12c); ``sp_keys`` read (the port splits exactly
+the JAX default's three spike keys, and refuses another list);
 ``multihost: true`` starts the process group from the launcher's
 environment (``torchrun`` sets ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``;
 the group is also started whenever those are set), the counterpart of
@@ -87,7 +101,8 @@ stops and saves at the same step. ``dirs.compilation_cache_dir`` is ignored:
 it is XLA's compile cache, and the port compiles no XLA program (the CUDA
 kernels are cached by source hash under ``llm_bci_tpu_torch/_build``).
 A rank's training and eval generators are seeded from ``config.seed`` and
-its ``data`` index (index 0: the single process's seeds; ``train_seed``).
+its ``data`` index (index 0: the single process's seeds; ``train_seed``), so
+the ``fsdp`` and ``sp`` ranks of one data index draw in lockstep.
 The models' random parts draw from them, the flash dropout seed too
 (``ops/flash_attention.py::draw_seed``), so with dropout on rank 0 draws
 what one process draws for its rows and the other data ranks draw streams of
@@ -127,6 +142,7 @@ from llm_bci_tpu_torch.registry import NAME2DATASET, NAME2MODEL
 import llm_bci_tpu_torch.models  # noqa: F401  (fills NAME2MODEL)
 from llm_bci_tpu_torch.parallel import mesh as pmesh
 from llm_bci_tpu_torch.parallel import process
+from llm_bci_tpu_torch.parallel.sequence import SP_KEYS, SequenceShard, whole_sequence_outputs
 from llm_bci_tpu_torch.training import checkpoint
 from llm_bci_tpu_torch.training import distributed as tdist
 from llm_bci_tpu_torch.training.dataloader import HostDataLoader, freeze_pad_lengths
@@ -311,8 +327,12 @@ class Trainer:
 
         par = self.config.get("parallelism") or {}
         sizes = {k: int(par.get(k, -1 if k == "data" else 1)) for k in pmesh.AXES}
-        if sizes["sp"] > 1:
-            raise not_ported("Sequence parallelism", "Queue 1, slice 8, item 12b")
+        self.sp_keys = tuple(par.get("sp_keys") or SP_KEYS)
+        if sizes["sp"] != 1:
+            self.check_sequence_parallel(NAME2MODEL.get(self.config.model.get("model_class")))
+            if set(self.sp_keys) != set(SP_KEYS):
+                raise ValueError(f"parallelism.sp_keys={list(self.sp_keys)}: the port splits "
+                                 f"the time dim of exactly {list(SP_KEYS)} (the JAX default)")
         if (par.get("multihost") or process.launcher_env()) and not dist.is_initialized():
             process.init_process(device)
         self.distributed = dist.is_available() and dist.is_initialized()
@@ -332,6 +352,16 @@ class Trainer:
             self.is_main_process = dist.get_rank() == 0
         self.plan = tdist.Plan()
         self._batch_split = False
+        self._seq_shard: Optional[SequenceShard] = None
+
+    @staticmethod
+    def check_sequence_parallel(model_class) -> None:
+        """Only NDT1 runs sequence-parallel (a model with a
+        ``sequence_layout``); iTransformer, PatchTST, BCI and PhonemeLLM are
+        ROADMAP item 12c."""
+        if model_class is not None and not hasattr(model_class, "sequence_layout"):
+            raise not_ported(f"Sequence parallelism for {model_class.__name__}",
+                             "Queue 1, slice 8, item 12c")
 
     def print_v(self, *args, verbosity: int = 3) -> None:
         if verbosity >= self.verbosity and self.is_main_process:
@@ -394,6 +424,9 @@ class Trainer:
         group, cut and sharded by the plan (``training/distributed.py``)."""
         if model is None:
             model = build_model(self.config, self.device)
+        if self.mesh_sizes["sp"] > 1:
+            self.check_sequence_parallel(type(model))
+            model.check_sequence_parallel()
         self.model = model.to(self.device)
         if self.distributed:
             par = self.config.get("parallelism") or {}
@@ -404,7 +437,7 @@ class Trainer:
         """Batch columns that go to the model: the parameters of its
         ``forward``."""
         sig = inspect.signature(type(self.model).forward)
-        skip = {"self", "generator", "masker_overrides"}
+        skip = {"self", "generator", "masker_overrides", "seq_shard"}
         self.model_inputs = [p for p in sig.parameters if p not in skip]
 
     def build_dataloaders(self) -> None:
@@ -433,21 +466,39 @@ class Trainer:
             seed=self.seed + 1,
         )
 
-    def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    def to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
         """Numpy columns -> tensors on the device (other columns stay out).
         float64 columns (a JSON dataset's lists) arrive as float32, as JAX
         without 64-bit mode places them. With several ``data`` ranks, the
-        rank's rows of the global batch (``parallel/mesh.py::batch_rows``)."""
+        rank's rows of the global batch (``parallel/mesh.py::batch_rows``).
+        With several ``sp`` ranks and a time dim that ``sp`` divides, each
+        ``sp_keys`` column is cut to the range that the model's
+        ``sequence_layout`` gives this rank (its tokens' bins and their halo,
+        read from the host batch that every rank holds), and the layout goes
+        to the model as ``seq_shard``; an indivisible time dim stays whole and
+        the ``sp`` ranks compute the same, as the JAX trainer keeps such a key
+        whole."""
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         n = next(iter(arrays.values())).shape[0] if arrays else 0
         start, stop = pmesh.batch_rows(n, self.mesh_sizes["data"], self.coords["data"])
         self._batch_split = stop - start < n
-        return {
-            k: torch.from_numpy(np.ascontiguousarray(
-                (v.astype(np.float32) if v.dtype == np.float64 else v)[start:stop])).to(
-                self.device, non_blocking=True)
-            for k, v in arrays.items()
-        }
+        shard = None
+        n_sp = self.mesh_sizes["sp"]
+        spikes = arrays.get(SP_KEYS[0])
+        if n_sp > 1 and spikes is not None and spikes.shape[1] % n_sp == 0:
+            shard = self.model.sequence_layout(spikes.shape[1], n_sp, self.coords["sp"])
+            shard = shard.with_group(self.mesh["sp"].get_group())
+        self._seq_shard = shard
+        out: Dict[str, Any] = {}
+        for k, v in arrays.items():
+            v = (v.astype(np.float32) if v.dtype == np.float64 else v)[start:stop]
+            if shard is not None and k in self.sp_keys:
+                lo, hi = shard.slices[k]
+                v = v[:, lo:hi]
+            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
+        if shard is not None:
+            out["seq_shard"] = shard
+        return out
 
     def autocast(self):
         """``torch.autocast`` to ``precision.compute_dtype`` (off for float32)."""
@@ -479,12 +530,15 @@ class Trainer:
             out = self.model(**dev_batch, generator=self.generator)
         # The gradient of the summed loss, as the JAX trainer takes it; the
         # micro-batch gradients of one update are averaged (optax.MultiSteps).
-        # FSDP2 averages the gradients of the (data, fsdp) ranks: a rank that
-        # holds 1/data of the rows scales its loss by data, so that the
-        # average is the global batch's gradient.
+        # FSDP2 averages the gradients of the (data x sp, fsdp) ranks: a rank
+        # that holds 1/data of the rows scales its loss by data, and one that
+        # holds a time shard (its gradient is the part of its tokens) by sp,
+        # so that the average is the global batch's gradient.
         loss = out.loss / self.grad_accum
         if split:
             loss = loss * self.mesh_sizes["data"]
+        if self._seq_shard is not None:
+            loss = loss * self.mesh_sizes["sp"]
         loss.backward()
         self.n_micro += 1
         if self.n_micro % self.grad_accum == 0:
@@ -503,9 +557,15 @@ class Trainer:
     def global_outputs(self, outputs: Dict[str, Any], split: bool, gather: bool
                        ) -> Dict[str, Any]:
         """A step's outputs over the global batch when the rank held a share
-        of its rows: 0-dim tensors (``loss``, ``n_examples``) summed over
-        ``data``, and with ``gather`` the batch-dim tensors gathered in rank
-        order (what a metric fn reads)."""
+        of its rows or of their time axis: 0-dim tensors (``loss``,
+        ``n_examples``) summed over ``sp`` where they are the rank's part
+        (``model.sequence_outputs()``), then over ``data``; with ``gather``
+        the time-dim outputs gathered over ``sp`` and the batch-dim tensors
+        over ``data``, in rank order (what a metric fn reads)."""
+        if self._seq_shard is not None:
+            time_keys, summed = self.model.sequence_outputs()
+            outputs = whole_sequence_outputs(outputs, self._seq_shard, time_keys, summed,
+                                             gather)
         if not split:
             return outputs
         return tdist.global_outputs(outputs, self.mesh["data"].get_group(), gather)

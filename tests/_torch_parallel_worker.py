@@ -1,4 +1,5 @@
-"""Ranks of the port's multi-rank CPU tests (``tests/test_torch_port_parallel*.py``).
+"""Ranks of the port's multi-rank CPU tests (``tests/test_torch_port_parallel*.py``,
+``tests/test_torch_port_sequence_parallel.py``).
 
 ``python tests/_torch_parallel_worker.py <job.pt>`` is started as every rank
 of one gloo group (``llm_bci_tpu_torch.parallel.process.spawn``); it runs the
@@ -62,10 +63,12 @@ def train(plain, parallelism, dataset_path, weights_path, **training):
     from llm_bci_tpu_torch.ops.flash_attention import banded_flash_attention, draw_seed
     from llm_bci_tpu_torch.parallel.mesh import fsdp_groups
 
-    losses = []
+    losses, pred_shapes = [], []
 
     def record(model, model_inputs, unused_inputs, outputs, **kwargs):
         losses.append(float(outputs["loss"]))
+        if torch.is_tensor(outputs.get("preds")):
+            pred_shapes.append(tuple(outputs["preds"].shape))
         return 0.0
 
     trainer = _trainer(plain, parallelism, dataset_path, weights_path,
@@ -84,7 +87,12 @@ def train(plain, parallelism, dataset_path, weights_path, **training):
              for n, p in trainer.model.named_parameters()}
     lora = {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach().clone()
             for n, p in trainer.model.named_parameters() if ".lora_" in n}
+    encoder = getattr(trainer.model, "encoder", None)
     return {"losses": losses, "model": state["model"], "n_micro": trainer.n_micro,
+            "pred_shapes": pred_shapes, "eval": trainer.eval_history,
+            "flash_fallback": getattr(encoder, "flash_fallback", None),
+            "shard": (None if getattr(trainer, "_seq_shard", None) is None else
+                      (trainer._seq_shard.token_range, trainer._seq_shard.tokens)),
             "shapes": {n: tuple(v.shape) for n, v in trainer.model.state_dict().items()},
             "local": local, "lora": lora, "flash": flash, "draws": draws,
             "coords": dict(trainer.coords), "groups": groups}
@@ -122,6 +130,23 @@ def resume(plain, parallelism, dataset_path, weights_path, **training):
     step = trainer.resume_from()
     state = trainer.whole_state()
     return {"step": step, "model": state["model"], "optimizer": state["optimizer"]}
+
+
+def resume_train(plain, parallelism, dataset_path, weights_path, **training):
+    """A fresh trainer resumed from the newest train state of its run and
+    trained on to ``max_steps``: the restored step, the losses of the steps
+    after it and the whole final state."""
+    losses = []
+
+    def record(model, model_inputs, unused_inputs, outputs, **kwargs):
+        losses.append(float(outputs["loss"]))
+        return 0.0
+
+    trainer = _trainer(plain, parallelism, dataset_path, weights_path,
+                       metric_fns={"rec": record}, **training)
+    step = trainer.resume_from()
+    trainer.train()
+    return {"step": step, "losses": losses, "model": trainer.whole_state()["model"]}
 
 
 def preempt(plain, parallelism, dataset_path, weights_path, stop_rank, stop_after, **training):
@@ -198,7 +223,8 @@ def dryrun(tmp):
     return {"report": report if _rank() == 0 else None}
 
 
-CASES = {f.__name__: f for f in (train, train_hooked_by_tree_flatten, resume, preempt, clip, decode, dryrun)}
+CASES = {f.__name__: f for f in (train, train_hooked_by_tree_flatten, resume, resume_train,
+                                  preempt, clip, decode, dryrun)}
 
 
 def main(job_path: str) -> None:

@@ -16,7 +16,9 @@
   preemption asked on rank 1 stops both ranks at one step; the flash keep
   mask and the training stream of data rank 0 equal the single process's,
   rank 1's differ (the pinned divergence);
-* ``sp=2`` raises the item-12b ``not_ported``; ``dryrun_multichip(2)``.
+* ``sp=2`` raises the item-12c ``not_ported`` for every family but NDT1
+  (``tests/test_torch_port_sequence_parallel.py`` holds what ``sp`` does);
+  ``dryrun_multichip(2)``.
 """
 import os
 import re
@@ -122,11 +124,15 @@ def test_fsdp_groups_follow_fsdp_min_size():
     assert [n.count(".") for n in names] == sorted((n.count(".") for n in names), reverse=True)
 
 
-def test_sp_raises_the_item_12b_refusal(tmp_path):
+@pytest.mark.parametrize("family", ["iTransformer", "PatchTST", "BCI", "PhonemeLLM"])
+def test_sp_raises_the_item_12c_refusal(tmp_path, family):
+    # only NDT1 runs sequence-parallel (tests/test_torch_port_sequence_parallel.py)
     cfg = port_cfg(trainer_config(tmp_path))
     cfg["parallelism"] = {"data": 1, "fsdp": 1, "sp": 2}
-    with pytest.raises(NotImplementedError, match="Queue 1, slice 8, item 12b"):
+    cfg["model"]["model_class"] = family
+    with pytest.raises(NotImplementedError, match="Queue 1, slice 8, item 12c"):
         PortTrainer(cfg, dataset={"train": [], "test": []}, device="cpu")
+    cfg["model"]["model_class"] = "NDT1"
     cfg["parallelism"] = {"data": 1, "fsdp": 2}
     with pytest.raises(ValueError, match="no process group is up"):
         PortTrainer(cfg, dataset={"train": [], "test": []}, device="cpu")
@@ -323,5 +329,7 @@ def test_dryrun_multichip_two_ranks(dryrun):
     if torch.cuda.device_count() < 2:
         with pytest.raises(RuntimeError, match="runs one rank a card"):
             dryrun_multichip(2)
-    assert dryrun_meshes(2) == ({"data": 1, "fsdp": 2}, {"data": 1, "fsdp": 1, "tp": 2})
-    assert dryrun_meshes(8) == ({"data": 4, "fsdp": 2}, {"data": 2, "fsdp": 2, "tp": 2})
+    assert dryrun_meshes(2) == ({"data": 1, "fsdp": 2, "sp": 1},
+                                {"data": 1, "fsdp": 1, "tp": 2})
+    assert dryrun_meshes(8) == ({"data": 2, "fsdp": 2, "sp": 2},
+                                {"data": 2, "fsdp": 2, "tp": 2})

@@ -231,4 +231,5 @@ def test_dryrun_multichip_four_ranks(runs):
     from llm_bci_tpu_torch.entry import dryrun_meshes
 
     assert "dryrun_multichip(4) OK" in _ok(runs["ranks"]["fsdp2_tp2"][0]["dryrun"])["report"]
-    assert dryrun_meshes(4) == ({"data": 2, "fsdp": 2}, {"data": 1, "fsdp": 2, "tp": 2})
+    assert dryrun_meshes(4) == ({"data": 2, "fsdp": 2, "sp": 1},
+                                {"data": 1, "fsdp": 2, "tp": 2})
