@@ -254,9 +254,20 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    the whole (64, 121, 41); S2. NDT1-mlm at phase 6's shape (T=1024, width
    kept, depth cut to ``MD_SP_LAYERS``), 2 steps, 0 flash launches (dense
    under ``sp``), losses against one process on the dense path (rtol 1e-3),
-   each rank's peak memory beside one process's. Steps' ms beside the
-   in-process trainer's, collective calls and peak memory in a JSON line of
-   its own; no time of D or S is a speed.
+   each rank's peak memory beside one process's; S3. the BCI of leg C (32
+   layers x 7B width, int8 base, LoRA dropout on), 2 steps: the trunk on the
+   rank's frames, its output gathered, the Llama whole on each rank, 225
+   ``tiled`` launches a forward on each rank, losses and trained parameters
+   against leg C's in-process run (rtol 1e-3); S4. iTransformer ``ctc`` at
+   the itransformer phase's widths (512 bins, the ``mlp`` embedder's first
+   Linear row-parallel), 4 steps + eval; S5. PatchTST ``ctc`` at the patchtst
+   phase's widths (26 / 26 of its 52 patches, BatchNorm synced), 2 steps +
+   eval; S4 and S5 against one process (rtol 1e-3), the fused CTC kernel once
+   a step on each rank on the whole (64, 512 | 52, 41) log-probs and the
+   eval's CTC launches as in one process, S5's running averages equal on
+   both ranks. Steps' ms beside the in-process trainer's, collective calls
+   and peak memory in a JSON line of its own; no time of D or S is a
+   speed.
 
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train|cosmooth|
 phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state|warm-start|serve-export|
@@ -283,6 +294,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -4198,6 +4210,8 @@ MD_DECODE = 8                  # leg C: greedy tokens under the plan
 MD_SP_RTOL = 1e-3              # leg S: sp=2 against one process, bf16 (K / V gradients summed
                                # from two ranks' partials)
 MD_SP_LAYERS = 3               # leg S2: the mlm's depth (width kept)
+MD_SP_PT_STEPS = 2             # leg S5: PatchTST ctc steps (each gathers K / V of 64 x 256
+                               # sequences through the host)
 
 
 def kernel_launches() -> dict:
@@ -4249,15 +4263,11 @@ def md_rank(spec_path: str) -> None:
     spec is ``python -m llm_bci_tpu_torch.main <argv>`` run in this process
     (``runpy``), its steps recorded; with ``"backend": "gloo"`` the group is
     started here first on the spec's device (two ranks share the one card,
-    which NCCL refuses). Writes the legs' records to the spec's ``out``."""
-    import runpy
-
+    which NCCL refuses). Writes the legs' records to the spec's ``out``, or
+    the traceback of a failure beside it (``.err``)."""
     import torch
     import torch.distributed as dist
-    from llm_bci_tpu_torch.models import decode_graph
     from llm_bci_tpu_torch.parallel import process
-    from llm_bci_tpu_torch.parallel.mesh import fsdp_groups
-    from llm_bci_tpu_torch.training import distributed as tdist
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -4277,6 +4287,29 @@ def md_rank(spec_path: str) -> None:
 
     ctc_cuda.ctc_alpha_beta_cuda = fused
     records = {}
+    try:
+        md_legs(spec, records, counter, ctc_shapes)
+    except BaseException:
+        # the traceback for torchrun()'s report (the launcher keeps only the
+        # tail of the ranks' output), then the failure goes on
+        with open(spec["out"].format(rank=dist.get_rank()) + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    with open(spec["out"].format(rank=dist.get_rank()), "w") as f:
+        json.dump(records, f)
+    dist.destroy_process_group()
+
+
+def md_legs(spec: dict, records: dict, counter, ctc_shapes: list) -> None:
+    """``md_rank``'s legs, in order, each recorded into ``records``."""
+    import runpy
+
+    import torch
+    import torch.distributed as dist
+    from llm_bci_tpu_torch.models import decode_graph
+    from llm_bci_tpu_torch.parallel.mesh import fsdp_groups
+    from llm_bci_tpu_torch.training import distributed as tdist
+
     for leg in spec["legs"]:
         log: list = []
         ctc_shapes.clear()
@@ -4297,6 +4330,7 @@ def md_rank(spec_path: str) -> None:
                "eval": trainer.eval_history, "ctc_shapes": list(ctc_shapes),
                "flash_fallback": getattr(getattr(trainer.model, "encoder", None),
                                          "flash_fallback", None),
+               "running": running_averages(trainer.model),
                "fsdp_groups": len(fsdp_groups(trainer.model, int(
                    (trainer.config.get("parallelism") or {}).get("fsdp_min_size", 1 << 20))))}
         if leg.get("step_reps"):
@@ -4329,9 +4363,13 @@ def md_rank(spec_path: str) -> None:
         del trainer, spy
         gc.collect()
         torch.cuda.empty_cache()
-    with open(spec["out"].format(rank=dist.get_rank()), "w") as f:
-        json.dump(records, f)
-    dist.destroy_process_group()
+
+
+def running_averages(model) -> dict:
+    """Each BatchNorm running average as a list (float64): a rank's, to hold
+    against another's and one process's."""
+    return {n: b.double().cpu().tolist() for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
 
 
 def torchrun(tmp: str, tag: str, n: int, spec: dict, timeout: float) -> list:
@@ -4351,8 +4389,14 @@ def torchrun(tmp: str, tag: str, n: int, spec: dict, timeout: float) -> list:
     run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=timeout)
     wall = time.perf_counter() - t0
     if run.returncode != 0:
+        errors = ""
+        for r in range(n):
+            err = spec["out"].format(rank=r) + ".err"
+            if os.path.exists(err):
+                with open(err) as f:
+                    errors += f"\nrank {r}:\n{f.read()[-4000:]}"
         raise AssertionError(f"torchrun {tag} ({n} ranks) exited with {run.returncode}:\n"
-                             f"{run.stdout[-6000:]}\n{run.stderr[-6000:]}")
+                             f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}{errors}")
     out = []
     for r in range(n):
         with open(spec["out"].format(rank=r)) as f:
@@ -4361,11 +4405,13 @@ def torchrun(tmp: str, tag: str, n: int, spec: dict, timeout: float) -> list:
     return out
 
 
-def in_process(argv: list, step_reps: int = 0) -> tuple:
+def in_process(argv: list, step_reps: int = 0, keep=None) -> tuple:
     """``llm_bci_tpu_torch.main`` in this process without a group (cuDNN
     deterministic, as the ranks): its recorded steps, its trainer, its peak
     memory in GiB and, with ``step_reps``, the ms of a steady step timed as
-    the ranks time theirs."""
+    the ranks time theirs. With a dict ``keep``, ``keep["trained"]`` gets the
+    trainable parameters (on the host) as the run left them, before any
+    timed step."""
     import runpy
 
     import torch
@@ -4382,6 +4428,9 @@ def in_process(argv: list, step_reps: int = 0) -> tuple:
                 sys.argv = saved
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        if keep is not None:
+            keep["trained"] = {n: p.detach().cpu().clone()
+                               for n, p in trainer_trained(spy.trainers[-1]).items()}
         step_ms = steady_step_ms(spy.trainers[-1], step_reps)[0] if step_reps else None
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
@@ -4488,7 +4537,12 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
         got_c = {k: c["launches"][k] for k in want_c}
         if got_c != want_c:
             raise AssertionError(f"leg C: int8 launches {got_c}, want {want_c}")
-        ref_c, trainer, peak_c, ms_c = in_process([*bci, ck("C_ref")], step_reps=5)
+        # one process's 2 steps, its parameters before the timed steps: leg
+        # C's reference, and leg S3's
+        bci_ref = {}
+        ref_c, trainer, peak_c, ms_c = in_process([*bci, ck("C_ref")], step_reps=5,
+                                                  keep=bci_ref)
+        bci_ref.update(steps=ref_c, peak_gib=peak_c)
         rel_c = check_losses("leg C", losses(c["steps"]), losses(ref_c), MD_DETERMINISTIC)
         trained = torch.load(os.path.join(tmp, "C_trained.pt"), weights_only=True)
         diff = max((trained[n].to(p.device) - p.detach()).abs().max().item()
@@ -4563,7 +4617,17 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
             raise AssertionError(f"leg F: dryrun_multichip(1) printed {dry!r}")
         say("multi", f"F {dry.strip()} (NCCL on cuda:0, {time.perf_counter() - t0:.1f} s)")
 
-        report["S"] = sequence_parallel_legs(tmp, flagship, mlm, ck, launches)
+        itr = ["-c", trainer_yaml(tmp, "trainer_ctc_ndt1.yaml", "itransformer.yaml"), "-k",
+               f"data.data_dir={mat}", "model.encoder.embed_region=false",
+               "training.max_steps=4", "training.eval_every=4", *common]
+        pt = ["-c", trainer_yaml(tmp, "trainer_ctc_ndt1.yaml", "patchtst.yaml"), "-k",
+              f"data.data_dir={mat}", f"training.train_batch_size={PATCHTST_CTC_BATCH}",
+              f"training.test_batch_size={PATCHTST_CTC_BATCH}",
+              f"training.max_steps={MD_SP_PT_STEPS}", f"training.eval_every={MD_SP_PT_STEPS}",
+              *common]
+        report["S"] = sequence_parallel_legs(
+            tmp, {"flagship": flagship, "mlm": mlm, "bci": bci, "itr": itr, "pt": pt},
+            bci_ref, ck, launches)
         report = {**report, "A": {"step_ms": a["step_ms"], "in_process_step_ms": ms_a,
                         "peak_gib": a["peak_gib"], "in_process_peak_gib": peak_a, "rel": rel_a,
                         "collectives_a_step": a["step_collectives"], "wall_s": a["wall_s"]},
@@ -4581,40 +4645,50 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
     return launches
 
 
-def params_rel(trained: dict, model) -> tuple:
-    """``(|a - b| / |b|, max |a - b|)`` over every trainable parameter of
-    ``model`` against the whole tensors ``trained`` (one flattened vector)."""
-    import torch
+def trainer_trained(trainer) -> dict:
+    """The trainer's trainable parameters by name."""
+    return {n: p for n, p in trainer.model.named_parameters() if p.requires_grad}
 
+
+def params_rel(trained: dict, want: dict) -> tuple:
+    """``(|a - b| / |b|, max |a - b|)`` over every tensor of ``want`` against
+    the whole tensors ``trained`` (one flattened vector)."""
     num = den = 0.0
     worst = 0.0
-    for n, p in model.named_parameters():
-        if p.requires_grad:
-            d = trained[n].to(p.device).float() - p.detach().float()
-            num += float(d.square().sum())
-            den += float(p.detach().float().square().sum())
-            worst = max(worst, float(d.abs().max()))
+    for n, p in want.items():
+        d = trained[n].to(p.device).float() - p.detach().float()
+        num += float(d.square().sum())
+        den += float(p.detach().float().square().sum())
+        worst = max(worst, float(d.abs().max()))
     return math.sqrt(num / den), worst
 
 
-def sequence_parallel_legs(tmp: str, flagship: list, mlm: list, ck, launches: dict) -> dict:
-    """Leg S of phase 18: ``sp=2`` on two gloo ranks of the one card (S1 the
-    flagship, S2 the mlm at T=1024), each against one process in this one."""
+def sequence_parallel_legs(tmp: str, argv: dict, bci_ref: dict, ck, launches: dict) -> dict:
+    """Leg S of phase 18: ``sp=2`` on two gloo ranks of the one card, one
+    ``torchrun`` for all its legs: S1 the flagship, S2 the mlm at T=1024, S3
+    the BCI int8 LoRA fine-tune at Llama-2-7B width (leg C's model, held
+    against leg C's in-process reference), S4 iTransformer ``ctc`` and S5
+    PatchTST ``ctc`` at their phases' widths; each against one process in
+    this one."""
     import torch
 
     t0 = time.perf_counter()
     sp = ["parallelism.data=1", "parallelism.fsdp=1", "parallelism.sp=2"]
-    s2_args = [*mlm, f"model.encoder.transformer.n_layers={MD_SP_LAYERS}"]
-    trained_out = os.path.join(tmp, "S1_trained.pt")
+    s2_args = [*argv["mlm"], f"model.encoder.transformer.n_layers={MD_SP_LAYERS}"]
+    legs = {"S1": argv["flagship"], "S2": s2_args, "S3": argv["bci"], "S4": argv["itr"],
+            "S5": argv["pt"]}
+    trained_out = {name: os.path.join(tmp, f"{name}_trained.pt")
+                   for name in ("S1", "S3", "S4", "S5")}
     ranks = torchrun(tmp, "S", 2, {"backend": "gloo", "device": "cuda:0", "legs": [
-        {"name": "S1", "argv": [*flagship, ck("S1"), *sp, "--device", "cuda:0"],
-         "trained_out": trained_out},
-        {"name": "S2", "argv": [*s2_args, ck("S2"), *sp, "--device", "cuda:0"]}]}, timeout=600)
+        {"name": name, "argv": [*args, ck(name), *sp, "--device", "cuda:0"],
+         **({"trained_out": trained_out[name]} if name in trained_out else {})}
+        for name, args in legs.items()]}, timeout=900)
     flash = (FWD_WG, DQ_WG, DKV_WG, "flash_delta_kernel")
     for rank, rec in enumerate(ranks):
-        s1, s2 = rec["S1"], rec["S2"]
-        if s1["mesh"]["sp"] != 2 or s2["mesh"]["sp"] != 2:
-            raise AssertionError(f"leg S: rank {rank} meshes {s1['mesh']} / {s2['mesh']}")
+        s1, s2, s3 = rec["S1"], rec["S2"], rec["S3"]
+        if any(rec[name]["mesh"]["sp"] != 2 for name in legs):
+            raise AssertionError(f"leg S: rank {rank} meshes "
+                                 f"{ {name: rec[name]['mesh'] for name in legs} }")
         # one fused CTC launch a step on the gathered log-probs, one alpha
         # launch for the eval, on every rank
         if s1["launches"]["ctc_alpha_beta_kernel"] != 4 or \
@@ -4629,16 +4703,26 @@ def sequence_parallel_legs(tmp: str, flagship: list, mlm: list, ck, launches: di
         if any(got.values()) or "sequence-parallel" not in (s2["flash_fallback"] or ""):
             raise AssertionError(f"leg S2 rank {rank}: flash launches {got}, fallback "
                                  f"{s2['flash_fallback']!r}")
-        for rec in (s1, s2):
-            add_launches(launches, {k: v for k, v in rec["launches"].items() if v})
-    s1, s2 = ranks[0]["S1"], ranks[0]["S2"]
-    if losses(s1["steps"]) != losses(ranks[1]["S1"]["steps"]) or \
-            losses(s2["steps"]) != losses(ranks[1]["S2"]["steps"]):
-        raise AssertionError(f"leg S: the two sp ranks' losses differ: {losses(s1['steps'])} / "
-                             f"{losses(ranks[1]['S1']['steps'])}")
-    ref1, trainer, peak1, _ = in_process([*flagship, ck("S1_ref")])
+        # the whole Llama on every rank: each forward's int8 products
+        want3 = {INT8_CLUSTER: 0, INT8_TILED: 2 * INT8_PER_FORWARD}
+        if {k: s3["launches"][k] for k in want3} != want3:
+            raise AssertionError(f"leg S3 rank {rank}: int8 launches {s3['launches']}, want "
+                                 f"{want3}")
+        for name in legs:
+            add_launches(launches, {k: v for k, v in rec[name]["launches"].items() if v})
+    for name in legs:
+        if losses(ranks[0][name]["steps"]) != losses(ranks[1][name]["steps"]):
+            raise AssertionError(f"leg {name}: the two sp ranks' losses differ: "
+                                 f"{losses(ranks[0][name]['steps'])} / "
+                                 f"{losses(ranks[1][name]['steps'])}")
+    s1, s2, s3, s4, s5 = (ranks[0][name] for name in legs)
+    peaks = lambda name: " / ".join(f"{r[name]['peak_gib']:.2f}" for r in ranks)
+    report = {}
+
+    ref1, trainer, peak1, _ = in_process([*argv["flagship"], ck("S1_ref")])
     rel1 = check_losses("leg S1", losses(s1["steps"]), losses(ref1), MD_SP_RTOL)
-    rel_p, worst = params_rel(torch.load(trained_out, weights_only=True), trainer.model)
+    rel_p, worst = params_rel(torch.load(trained_out["S1"], weights_only=True),
+                              trainer_trained(trainer))
     if not rel_p <= MD_SP_RTOL:
         raise AssertionError(f"leg S1: trained parameters {rel_p:.3g} from one process's "
                              f"(> {MD_SP_RTOL})")
@@ -4652,8 +4736,13 @@ def sequence_parallel_legs(tmp: str, flagship: list, mlm: list, ck, launches: di
         f"parameters {rel_p:.3g} (relative L2; max |diff| {worst:.3g}) (<= {MD_SP_RTOL}); "
         f"ctc_alpha_beta_kernel 4 a rank on {s1['ctc_shapes'][0]}, ctc_alpha_kernel 1 a rank; "
         f"the CER fns read preds {s1['steps'][0]['preds_shape']}; collectives "
-        f"{s1['collectives']}; peak {s1['peak_gib']:.2f} / {ranks[1]['S1']['peak_gib']:.2f} "
-        f"GiB a rank against {peak1:.2f} in one process; {s1['wall_s']:.1f} s (gloo: no speed)")
+        f"{s1['collectives']}; peak {peaks('S1')} GiB a rank against {peak1:.2f} in one "
+        f"process; {s1['wall_s']:.1f} s (gloo: no speed)")
+    report["S1"] = {"rel": rel1, "params_rel": rel_p, "params_max_abs": worst,
+                    "peak_gib": [r["S1"]["peak_gib"] for r in ranks],
+                    "in_process_peak_gib": peak1, "collectives": s1["collectives"],
+                    "wall_s": s1["wall_s"]}
+
     ref2, trainer, peak2, _ = in_process(
         [*s2_args, ck("S2_ref"), "model.encoder.transformer.flash_attention=off"])
     del trainer
@@ -4661,20 +4750,91 @@ def sequence_parallel_legs(tmp: str, flagship: list, mlm: list, ck, launches: di
     say("multi", f"S2 mlm T=1024 sp=2 ({MD_SP_LAYERS} layers x 1024): losses "
         f"{[round(x, 4) for x in losses(s2['steps'])]} against one process on the dense path "
         f"{[round(x, 4) for x in losses(ref2)]}: max rel. difference {rel2:.3g}; flash launches "
-        f"0 a rank (dense under sp: {s2['flash_fallback']}); peak "
-        f"{s2['peak_gib']:.2f} / {ranks[1]['S2']['peak_gib']:.2f} GiB a rank against "
-        f"{peak2:.2f} in one process (dense); collectives {s2['collectives']}; "
+        f"0 a rank (dense under sp: {s2['flash_fallback']}); peak {peaks('S2')} GiB a rank "
+        f"against {peak2:.2f} in one process (dense); collectives {s2['collectives']}; "
         f"{s2['wall_s']:.1f} s (gloo: no speed)")
+    report["S2"] = {"rel": rel2, "peak_gib": [r["S2"]["peak_gib"] for r in ranks],
+                    "in_process_peak_gib": peak2, "collectives": s2["collectives"],
+                    "wall_s": s2["wall_s"]}
+
+    # S3: leg C's in-process run is one process of the same model and data
+    rel3 = check_losses("leg S3", losses(s3["steps"]), losses(bci_ref["steps"]), MD_SP_RTOL)
+    rel_p3, worst3 = params_rel(torch.load(trained_out["S3"], weights_only=True),
+                                bci_ref["trained"])
+    if not rel_p3 <= MD_SP_RTOL:
+        raise AssertionError(f"leg S3: trained parameters {rel_p3:.3g} from one process's "
+                             f"(> {MD_SP_RTOL})")
+    say("multi", f"S3 BCI int8 LoRA at 32 layers x Llama-2-7B width sp=2 (the flagship trunk "
+        f"on 61 / 60 frames, its 1024-wide output gathered; the projector, splice and Llama "
+        f"whole on each rank; LoRA dropout on): losses "
+        f"{[round(x, 4) for x in losses(s3['steps'])]} against one process (leg C's) "
+        f"{[round(x, 4) for x in losses(bci_ref['steps'])]}: max rel. difference {rel3:.3g}; "
+        f"trained parameters {rel_p3:.3g} (relative L2; max |diff| {worst3:.3g}) (<= "
+        f"{MD_SP_RTOL}); {INT8_TILED} {s3['launches'][INT8_TILED]} a rank "
+        f"({INT8_PER_FORWARD} a forward), {INT8_CLUSTER} 0; collectives {s3['collectives']}; "
+        f"peak {peaks('S3')} GiB a rank against {bci_ref['peak_gib']:.2f} in one process; "
+        f"{s3['wall_s']:.1f} s (gloo: no speed)")
+    report["S3"] = {"rel": rel3, "params_rel": rel_p3, "params_max_abs": worst3,
+                    "peak_gib": [r["S3"]["peak_gib"] for r in ranks],
+                    "in_process_peak_gib": bci_ref["peak_gib"],
+                    "launches": {k: s3["launches"][k] for k in (INT8_TILED, INT8_CLUSTER)},
+                    "collectives": s3["collectives"], "wall_s": s3["wall_s"]}
+
+    for name, label, steps, frames in (
+            ("S4", "iTransformer ctc (768 x 5, mlp embedder, max_n_bins 512: bins 256 / 256, "
+                   "the first Linear row-parallel)", 4, 512),
+            ("S5", f"PatchTST ctc (256 x 4, BatchNorm synced over sp, context 520: patches "
+                   f"26 / 26, B={PATCHTST_CTC_BATCH})", MD_SP_PT_STEPS, 52)):
+        rec = ranks[0][name]
+        reset_kernel_counters()
+        ref, trainer, peak, _ = in_process([*legs[name], ck(f"{name}_ref")])
+        ref_launches = {k: v for k, v in kernel_launches().items() if k in CTC_KERNELS}
+        rel = check_losses(f"leg {name}", losses(rec["steps"]), losses(ref), MD_SP_RTOL)
+        rel_p, worst = params_rel(torch.load(trained_out[name], weights_only=True),
+                                  trainer_trained(trainer))
+        running = running_averages(trainer.model)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not rel_p <= MD_SP_RTOL:
+            raise AssertionError(f"leg {name}: trained parameters {rel_p:.3g} from one "
+                                 f"process's (> {MD_SP_RTOL})")
+        for rank, r in enumerate(ranks):
+            got = {k: r[name]["launches"][k] for k in CTC_KERNELS}
+            # the CTC kernels on the whole log-probs on each rank, as often as
+            # one process launches them
+            if got != ref_launches or got["ctc_alpha_beta_kernel"] != steps or \
+                    r[name]["ctc_shapes"] != [[B, frames, V]] * steps:
+                raise AssertionError(f"leg {name} rank {rank}: CTC launches {got} on "
+                                     f"{r[name]['ctc_shapes']}, one process {ref_launches}")
+            # BatchNorm's running averages: the same on both ranks, one
+            # process's within the tolerance
+            if r[name]["running"] != rec["running"] or set(rec["running"]) != set(running):
+                raise AssertionError(f"leg {name}: rank {rank}'s running averages differ")
+        run_rel = params_rel({k: torch.tensor(v) for k, v in rec["running"].items()},
+                             {k: torch.tensor(v) for k, v in running.items()})[0] \
+            if running else 0.0
+        if not run_rel <= MD_SP_RTOL:
+            raise AssertionError(f"leg {name}: running averages {run_rel:.3g} from one "
+                                 f"process's (> {MD_SP_RTOL})")
+        stats = (f"{len(running)} running averages equal on both ranks, {run_rel:.3g} from "
+                 "one process's (relative L2); " if running else "")
+        say("multi", f"{name} {label} sp=2, {steps} steps + eval: losses "
+            f"{[round(x, 4) for x in losses(rec['steps'])]} against one process "
+            f"{[round(x, 4) for x in losses(ref)]}: max rel. difference {rel:.3g}; trained "
+            f"parameters {rel_p:.3g} (relative L2; max |diff| {worst:.3g}) (<= {MD_SP_RTOL}); "
+            f"{stats}CTC launches {ref_launches} a rank as in one process, the fused one "
+            f"on the whole {rec['ctc_shapes'][0]}; collectives {rec['collectives']}; peak "
+            f"{peaks(name)} GiB a rank against {peak:.2f} in one process; {rec['wall_s']:.1f} s "
+            "(gloo: no speed)")
+        report[name] = {"rel": rel, "params_rel": rel_p, "params_max_abs": worst,
+                        "running_rel": run_rel, "peak_gib": [r[name]["peak_gib"] for r in ranks],
+                        "in_process_peak_gib": peak, "launches": ref_launches,
+                        "collectives": rec["collectives"], "wall_s": rec["wall_s"]}
     wall = time.perf_counter() - t0
-    say("multi", f"S in {wall:.1f} s with the process start of its two ranks and the two "
+    say("multi", f"S in {wall:.1f} s with the process start of its two ranks and the "
         "in-process references")
-    return {"S1": {"rel": rel1, "params_rel": rel_p, "params_max_abs": worst,
-                   "peak_gib": [r["S1"]["peak_gib"] for r in ranks], "in_process_peak_gib": peak1,
-                   "collectives": s1["collectives"], "wall_s": s1["wall_s"]},
-            "S2": {"rel": rel2, "peak_gib": [r["S2"]["peak_gib"] for r in ranks],
-                   "in_process_peak_gib": peak2, "collectives": s2["collectives"],
-                   "wall_s": s2["wall_s"]},
-            "wall_s": wall}
+    return {**report, "wall_s": wall}
 
 
 KERNELS = {

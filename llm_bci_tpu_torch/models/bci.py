@@ -25,13 +25,20 @@ goes through the hand-written int8 kernel (``ops/quant.py``).
   by ``interop/torch_import.py``, the base weights put into this model's
   quantization layout first; ``interop/torch_export.py`` writes one.
 * Every leaf of the LLM is created on ``device`` in its storage dtype.
+* Sequence parallelism (``seq_shard``, :meth:`BCI.sequence_layout`): the
+  NDT1 trunk runs on the rank's frames as NDT1 does under ``sp``; its output
+  (the trunk's width, not the LLM's) and frame mask are gathered over the
+  group, and the projector, the splice, the Llama and its LoRA factors run
+  on the whole on every ``sp`` rank (the int8 base through its kernel on
+  each). The loss is then the whole one on every rank, and the gather's
+  backward sums the trunk's gradient over the group.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -56,6 +63,7 @@ from llm_bci_tpu_torch.models.llama import (
 )
 from llm_bci_tpu_torch.models.ndt1 import ACT2FN, NeuralEncoder
 from llm_bci_tpu_torch.ops.losses import cross_entropy_loss
+from llm_bci_tpu_torch.parallel.sequence import SequenceShard, all_gather_time, gather_time
 from llm_bci_tpu_torch.registry import register_model
 
 DEFAULT_CONFIG = "configs/bci.yaml"
@@ -186,15 +194,32 @@ class BCI(nn.Module):
             x = ACT2FN[self._proj_act](self.projector_in(x))
         return self.projector_out(x)
 
+    def sequence_layout(self, T: int, n_sp: int, index: int) -> SequenceShard:
+        """What ``sp`` rank ``index`` of ``n_sp`` computes of a batch of ``T``
+        bins: the NDT1 trunk's layout (its frames, halo and prefix tokens)."""
+        return self.ndt1_encoder.sequence_layout(T, n_sp, index)
+
+    def sequence_outputs(self) -> Tuple[Dict[str, int], bool]:
+        """Every output of a time-sharded forward is whole on every rank (the
+        LLM runs on the gathered frames), the loss too."""
+        return {}, False
+
     def prepare_embeds(self, input_ids, attention_mask, input_split, spikes, spikes_mask,
                        spikes_timestamp, block_idx=None, day_idx=None, targets=None,
-                       generator: Optional[torch.Generator] = None):
-        """The spliced ``(inputs_embeds float32, attention_mask, targets)``."""
+                       generator: Optional[torch.Generator] = None,
+                       seq_shard: Optional[SequenceShard] = None):
+        """The spliced ``(inputs_embeds float32, attention_mask, targets)``;
+        with ``seq_shard`` the trunk runs on the rank's frames and its output
+        is gathered before the projector."""
         text_embeds = self.llm.embed(input_ids)                     # (B, L, H)
         spikes_embeds, sp_mask, _ = self.ndt1_encoder(
             spikes, spikes_mask, spikes_timestamp, block_idx=block_idx, day_idx=day_idx,
-            generator=generator,
+            generator=generator, seq_shard=seq_shard,
         )                                                           # (B, T', h)
+        if seq_shard is not None:
+            frames = seq_shard.body()
+            spikes_embeds = gather_time(spikes_embeds, frames)
+            sp_mask = all_gather_time(sp_mask, frames)
         B, T, H = spikes_embeds.shape
         if T % self.stacking != 0:
             pad = -(-T // self.stacking) * self.stacking - T
@@ -227,10 +252,11 @@ class BCI(nn.Module):
         day_idx: Optional[torch.Tensor] = None,
         targets: Optional[torch.Tensor] = None,   # (B, L) token ids, -100 on the prompt
         generator: Optional[torch.Generator] = None,
+        seq_shard: Optional[SequenceShard] = None,
     ) -> BCIOutput:
         inputs_embeds, attention_mask, targets = self.prepare_embeds(
             input_ids, attention_mask, input_split, spikes, spikes_mask, spikes_timestamp,
-            block_idx, day_idx, targets, generator,
+            block_idx, day_idx, targets, generator, seq_shard,
         )
         logits, _ = self.llm(inputs_embeds=inputs_embeds, attention_mask=attention_mask,
                              generator=generator)
@@ -293,7 +319,11 @@ class BCI(nn.Module):
         card and replays it (``models/decode_graph.py``). The pieces are
         :meth:`prepare_generate`, :meth:`decode_step`, :meth:`embed_tokens`
         and :func:`~llm_bci_tpu_torch.models.generation.decode`, which a
-        serving archive exports and runs apart (``serving.py``)."""
+        serving archive exports and runs apart (``serving.py``). Under an
+        ``sp`` trainer (an eval metric fn's decode) every rank decodes the
+        whole batch that it is handed, time axis and all, as the JAX
+        trainer's decode takes the whole batch: nothing of a decode is
+        time-sharded."""
         check_generation_args(num_beams, num_return_sequences, num_beam_groups)
         was_training = self.training
         self.eval()

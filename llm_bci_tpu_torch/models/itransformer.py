@@ -14,6 +14,18 @@ The encoder returns float32; the heads run in float32 outside autocast, so
 the ``ctc`` head hands the CTC kernels float32 log-probs of its own. Maskers,
 dropout and noise draw from the ``generator`` passed in.
 
+Sequence parallelism (``seq_shard``, :meth:`iTransformer.sequence_layout`):
+a rank holds its bins of every channel. The ``mlp`` embedder's first Linear,
+which contracts the time axis, is row-parallel (the rank's columns of its
+weight, summed over ``sp``, the bias added once); the ``transformer``
+embedder attends the rank's bins to K / V gathered over ``sp``, its CLS is
+shard 0's prefix token and its output is broadcast from there. Everything
+after the embedder runs whole on every rank. The ``mlm`` head predicts the
+rank's bins (a partial loss); ``ctc``, ``dyn_behaviour`` and
+``stat_behaviour`` give the whole loss on every rank, ``ctc`` through the CTC
+kernels on the whole ``(B, max_n_bins, V)`` log-probs. The maskers draw at
+the whole sequence's shape and slice, as NDT1's.
+
 Checkpoints (``models/components.py``): ``encoder.pt``, ``decoder.pt`` (the
 tensors not under ``encoder``: ``decoder_hidden``, ``decoder_out``) and both
 components' configs; ``encoder.from_pt`` and ``decoder.from_pt`` each
@@ -25,7 +37,7 @@ imported by ``interop/torch_import.py``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,10 +50,16 @@ from llm_bci_tpu_torch.model_output import ModelOutput
 from llm_bci_tpu_torch.models.components import ComponentCheckpoints, remerge_saved_configs
 from llm_bci_tpu_torch.models.layers import LN_EPS, MLPStack, TorchEncoderStack
 from llm_bci_tpu_torch.models.masker import MaskerConfig, apply_maskers
-from llm_bci_tpu_torch.models.ndt1 import ACT2FN
+from llm_bci_tpu_torch.models.ndt1 import ACT2FN, sequence_layout
 from llm_bci_tpu_torch.ops.attention import dropout
 from llm_bci_tpu_torch.ops.ctc import ctc_loss
 from llm_bci_tpu_torch.ops.losses import cross_entropy_loss, mse_loss, poisson_nll_loss
+from llm_bci_tpu_torch.parallel.sequence import (
+    SequenceShard,
+    all_gather_time,
+    broadcast_first,
+    keep_in_graph,
+)
 from llm_bci_tpu_torch.registry import register_model
 
 DEFAULT_CONFIG = "configs/itransformer.yaml"
@@ -84,18 +102,26 @@ class UnivariateTransformer(nn.Module):
         self.transformer = TorchEncoderStack(hidden_size, n_heads, n_layers, self.act, dropout)
 
     def forward(self, spikes: torch.Tensor, spikes_timestamp: Optional[torch.Tensor],
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None) -> torch.Tensor:
+        """With ``seq_shard`` ``spikes`` holds the rank's bins and the CLS is
+        shard 0's prefix token; its output comes back on every rank."""
         B, T, N = spikes.shape
         H = self.embed_pos.shape[1]
         h = self.embed_out(self.act(self.embed_in(spikes[..., None])))      # (B, T, N, H)
         if spikes_timestamp is None:
-            spikes_timestamp = torch.arange(T, device=spikes.device).expand(B, T)
+            start = 0 if seq_shard is None else seq_shard.body().token_range[0]
+            spikes_timestamp = torch.arange(start, start + T, device=spikes.device).expand(B, T)
         h = h + self.embed_pos[spikes_timestamp.long()][:, :, None, :]
         h = h.permute(0, 2, 1, 3)                                           # (B, N, T, H)
-        cls = self.cls_embed.to(h.dtype).expand(B, N, 1, H)
-        h = torch.cat([cls, h], dim=2).reshape(B * N, T + 1, H)
-        h = self.transformer(h, generator=generator)
-        return h.reshape(B, N, T + 1, H)[:, :, 0, :]
+        if seq_shard is None or seq_shard.local_prefix:
+            cls = self.cls_embed.to(h.dtype).expand(B, N, 1, H)
+            h = torch.cat([cls, h], dim=2)
+        else:
+            h = keep_in_graph(h, self.cls_embed)
+        h = self.transformer(h.reshape(B * N, -1, H), generator=generator, seq_shard=seq_shard)
+        out = h.reshape(B, N, -1, H)[:, :, 0, :]
+        return out if seq_shard is None else broadcast_first(out, seq_shard)
 
 
 class iTransformerEncoder(nn.Module):
@@ -147,12 +173,14 @@ class iTransformerEncoder(nn.Module):
                 spikes_spacestamp: Optional[torch.Tensor],
                 neuron_regions_idx: Optional[torch.Tensor],
                 neuron_depths: Optional[torch.Tensor],
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None) -> torch.Tensor:
         B, T, N = spikes.shape
         if self.mode == "mlp":
-            tokens = self.embed_norm(self.embed_mlp(spikes.transpose(1, 2), generator))
+            tokens = self.embed_norm(self.embed_mlp(spikes.transpose(1, 2), generator,
+                                                    seq_shard))
         else:
-            u = self.embed_univariate(spikes, spikes_timestamp, generator)
+            u = self.embed_univariate(spikes, spikes_timestamp, generator, seq_shard)
             tokens = self.embed_proj_norm(self.embed_proj(u))
         if self.channel_embeddings is not None:
             if spikes_spacestamp is None:
@@ -229,15 +257,37 @@ class iTransformer(ComponentCheckpoints, nn.Module):
     def reference_state(self, load_dir, components):
         return itransformer_state_dict_from_reference(load_dir, self, components)
 
-    def _decode(self, x: torch.Tensor) -> torch.Tensor:
-        """The head, in float32 outside autocast."""
+    def sequence_layout(self, T: int, n_sp: int, index: int) -> SequenceShard:
+        """What ``sp`` rank ``index`` of ``n_sp`` computes of a batch of ``T``
+        bins (``max_n_bins``): an even share of them, the univariate
+        transformer's CLS before shard 0's."""
+        if T != self.max_n_bins:
+            raise ValueError(f"sequence parallelism: iTransformer takes max_n_bins="
+                             f"{self.max_n_bins} bins, not {T}")
+        return sequence_layout(T, n_sp, index, prefix=int(self.encoder.mode == "transformer"))
+
+    def sequence_outputs(self) -> Tuple[Dict[str, int], bool]:
+        """``mlm``: the rank's bins of ``preds`` / ``targets`` / ``mask``
+        (dim 1) and its part of the loss; the other heads: whole outputs and
+        the whole loss on every rank."""
+        if self.method_name == "mlm":
+            return {"preds": 1, "targets": 1, "mask": 1}, True
+        return {}, False
+
+    def _decode(self, x: torch.Tensor, bins: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+        """The head, in float32 outside autocast; ``mlm`` with ``bins``
+        predicts only those bins (the rank's)."""
         with torch.autocast(x.device.type, enabled=False):
             x = x.float()
             if self.method_name != "mlm" and not self.use_cls:
                 x = x.sum(dim=1)          # AverageTokens: the sum over channel tokens
             if self.decoder_hidden is not None:
                 x = self.decoder_act(self.decoder_hidden(x))
-            preds = self.decoder_out(x)
+            if bins is None:
+                preds = self.decoder_out(x)
+            else:
+                out = self.decoder_out
+                preds = F.linear(x, out.weight[bins[0]:bins[1]], out.bias[bins[0]:bins[1]])
             if self.method_name == "mlm" and not self.log_input:
                 preds = F.relu(preds)
             if self.method_name == "ctc":
@@ -258,19 +308,25 @@ class iTransformer(ComponentCheckpoints, nn.Module):
         neuron_depths: Optional[torch.Tensor] = None,       # (B, N)
         masker_overrides: Optional[dict] = None,
         generator: Optional[torch.Generator] = None,
+        seq_shard: Optional[SequenceShard] = None,
     ) -> iTransformerOutput:
         method = self.method_name
         if method == "mlm":
             targets = spikes
+        bins = None if seq_shard is None else seq_shard.body()
         spikes, targets_mask = apply_maskers(
             self.masker_cfgs, spikes, generator, self.training,
             neuron_regions_idx=neuron_regions_idx, overrides=masker_overrides,
+            time=None if bins is None else bins.bin_time,
+            reduce_max=None if bins is None else bins.all_max,
         )
         x = self.encoder(spikes, spikes_timestamp, spikes_spacestamp, neuron_regions_idx,
-                         neuron_depths, generator)
+                         neuron_depths, generator, seq_shard)
         if self.use_cls:
             x = x[:, 1:, :] if method == "mlm" else x[:, 0, :]
-        preds = self._decode(x)
+        preds = self._decode(x, None if bins is None or method != "mlm" else bins.token_range)
+        if bins is not None and method == "dyn_behaviour":
+            spikes_mask = all_gather_time(spikes_mask, bins)
 
         if method == "mlm":
             preds = preds.transpose(1, 2)                       # (B, T, N)

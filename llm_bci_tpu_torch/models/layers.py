@@ -11,6 +11,11 @@ port builds its own modules; torch's layer (and its eval fast path) is not
 used. Attention is :func:`llm_bci_tpu_torch.ops.attention.dot_product_attention`,
 the counterpart of the JAX package's default ``"xla"`` path. Dropout draws
 from the ``generator`` passed in.
+
+Under sequence parallelism (``seq_shard``) a layer holds the rank's tokens:
+its queries attend to K and V gathered over the ``sp`` group (the dense path
+without a mask, as the JAX stacks use it), and every dropout mask is drawn
+at the whole token axis's shape and sliced.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from llm_bci_tpu_torch.ops.attention import dot_product_attention, dropout
+from llm_bci_tpu_torch.parallel.sequence import SequenceShard, gather_time, row_parallel_linear
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon
 
@@ -39,12 +45,17 @@ class MultiHeadSelfAttention(nn.Module):
         self.out_proj = nn.Linear(hidden_size, hidden_size, bias=use_bias)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None) -> torch.Tensor:
         B, T, H = x.shape
         shape = (B, T, self.n_heads, H // self.n_heads)
         q, k, v = (t.reshape(shape) for t in self.qkv(x).chunk(3, dim=-1))
+        time = None
+        if seq_shard is not None:
+            k, v = gather_time(k, seq_shard), gather_time(v, seq_shard)
+            time = seq_shard.token_time
         out = dot_product_attention(q, k, v, mask=mask).reshape(B, T, H)
-        out = dropout(out, self.dropout, self.training, generator)
+        out = dropout(out, self.dropout, self.training, generator, time)
         return self.out_proj(out)
 
 
@@ -64,9 +75,11 @@ class TorchEncoderLayer(nn.Module):
         self.norm2 = nn.LayerNorm(hidden_size, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        drop = lambda t: dropout(t, self.dropout, self.training, generator)
-        x = self.norm1(x + drop(self.attn(x, mask, generator)))
+                generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None) -> torch.Tensor:
+        time = None if seq_shard is None else seq_shard.token_time
+        drop = lambda t: dropout(t, self.dropout, self.training, generator, time)
+        x = self.norm1(x + drop(self.attn(x, mask, generator, seq_shard)))
         h = self.linear2(drop(self.act(self.linear1(x))))
         return self.norm2(x + drop(h))
 
@@ -83,9 +96,10 @@ class TorchEncoderStack(nn.Module):
         self.norm = nn.LayerNorm(hidden_size, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x, mask, generator)
+            x = layer(x, mask, generator, seq_shard)
         return self.norm(x)
 
 
@@ -103,10 +117,16 @@ class MLPStack(nn.Module):
         self.act = act
         self.dropout = dropout
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None) -> torch.Tensor:
+        """With ``seq_shard`` the last dim of ``x`` is the rank's part of the
+        input features (its bins): the first Linear is row-parallel, the
+        rest runs on the whole."""
         for i, layer in enumerate(self.dense):
-            x = layer(x)
+            if i == 0 and seq_shard is not None:
+                x = row_parallel_linear(x, layer, seq_shard, *seq_shard.body().token_range)
+            else:
+                x = layer(x)
             if i < len(self.dense) - 1:
                 x = self.act(x)
             x = dropout(x, self.dropout, self.training, generator)

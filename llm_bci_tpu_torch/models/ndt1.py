@@ -42,7 +42,8 @@ attention runs dense on the rank's queries against K and V gathered over the
 group, the mlm and autoregressive losses sum over the rank's bins (the
 autoregressive head reads one raw bin past its part), and the ``ctc`` head
 gathers the log-probs and runs the CTC loss on the whole of T' on every rank.
-Day and block prefix tokens are refused under it (ROADMAP item 12c).
+The day and block prefix tokens are shard 0's: its query offsets, the other
+shards' and every K / V gather count them, and the trunk drops them there.
 """
 from __future__ import annotations
 
@@ -65,7 +66,6 @@ from llm_bci_tpu_torch.interop.torch_import import (
 )
 from llm_bci_tpu_torch.model_output import ModelOutput
 from llm_bci_tpu_torch.models.components import ComponentCheckpoints, remerge_saved_configs
-from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.ops.attention import dot_product_attention, dropout, make_attention_mask
 from llm_bci_tpu_torch.ops.context import create_context_mask
 from llm_bci_tpu_torch.models.masker import MaskerConfig, apply_maskers
@@ -80,7 +80,12 @@ from llm_bci_tpu_torch.ops.losses import mse_loss, poisson_nll_loss
 from llm_bci_tpu_torch.ops.rotary import apply_rotary_pos_emb, rope_cos_sin
 from llm_bci_tpu_torch.ops.smoothing import gaussian_kernel, smooth_spikes, smoothing_pads
 from llm_bci_tpu_torch.parallel.mesh import split_range, sequence_range
-from llm_bci_tpu_torch.parallel.sequence import SequenceShard, all_gather_time, gather_time
+from llm_bci_tpu_torch.parallel.sequence import (
+    SequenceShard,
+    all_gather_time,
+    gather_time,
+    keep_in_graph,
+)
 from llm_bci_tpu_torch.registry import register_model
 
 DEFAULT_CONFIG = "configs/ndt1.yaml"
@@ -200,7 +205,7 @@ def stacked_lengths(lengths: torch.Tensor, size: int, stride: int, active: bool)
 
 def sequence_layout(T: int, n_sp: int, index: int, smooth_width: int = 0,
                     stack: Optional[Dict[str, Any]] = None,
-                    next_bin: bool = False) -> SequenceShard:
+                    next_bin: bool = False, prefix: int = 0) -> SequenceShard:
     """What ``sp`` rank ``index`` of ``n_sp`` computes of a sequence of ``T``
     bins, and what it reads (a pure function; the group is added by the
     caller).
@@ -217,7 +222,8 @@ def sequence_layout(T: int, n_sp: int, index: int, smooth_width: int = 0,
     (``smooth_width``) and, with ``next_bin``, one raw bin past the tokens
     (the autoregressive target); ``spikes_mask`` the computed bins;
     ``spikes_timestamp`` the timestamps of the rank's real tokens (a stacked
-    frame ``l`` takes the timestamp of bin ``l``, as on one device)."""
+    frame ``l`` takes the timestamp of bin ``l``, as on one device). The
+    ``prefix`` tokens (day, block) go before shard 0's first token."""
     stack = stack or {}
     if stack.get("active"):
         size, stride = int(stack["size"]), int(stack["stride"])
@@ -244,10 +250,11 @@ def sequence_layout(T: int, n_sp: int, index: int, smooth_width: int = 0,
     raw = (max(0, lo - pad_lo), min(T, hi + pad_hi))
     if next_bin:
         raw = (raw[0], max(raw[1], min(T, t1 + 1)))
-    return SequenceShard(n_sp=n_sp, index=index, bins=T, tokens=tokens, real_tokens=real,
-                         bounds=bounds, computed=(lo, hi),
-                         slices={"spikes": raw, "spikes_mask": (lo, hi),
-                                 "spikes_timestamp": timestamps})
+    shard = SequenceShard(n_sp=n_sp, index=index, bins=T, tokens=tokens, real_tokens=real,
+                          bounds=bounds, computed=(lo, hi),
+                          slices={"spikes": raw, "spikes_mask": (lo, hi),
+                                  "spikes_timestamp": timestamps})
+    return shard.with_prefix(prefix) if prefix else shard
 
 
 class NeuralEmbeddingLayer(nn.Module):
@@ -314,8 +321,9 @@ class NeuralEmbeddingLayer(nn.Module):
             else:
                 # the computed bins start at the rank's first frame and may
                 # run past its last one; padding frames are the last rank's
-                t0, t1 = seq_shard.token_range
-                real = min(t1, seq_shard.real_tokens) - t0
+                frames = seq_shard.body()
+                t0, t1 = frames.token_range
+                real = min(t1, frames.real_tokens) - t0
                 x, spikes_mask = x[:, :real], spikes_mask[:, :real]
                 pad = t1 - t0 - real
             if pad:
@@ -328,11 +336,16 @@ class NeuralEmbeddingLayer(nn.Module):
         if self.embed_pos is not None:
             x = x + self.embed_pos(spikes_timestamp).to(x.dtype)
         ones = torch.ones_like(spikes_mask[:, :1])
-        if self.block_embedding is not None:
-            x = torch.cat([self.block_embedding(block_idx)[:, None, :].to(x.dtype), x], dim=1)
-            spikes_mask = torch.cat([ones, spikes_mask], dim=1)
-        if self.day_embedding is not None:
-            x = torch.cat([self.day_embedding(day_idx)[:, None, :].to(x.dtype), x], dim=1)
+        prefixes = [(table, idx) for table, idx in ((self.block_embedding, block_idx),
+                                                    (self.day_embedding, day_idx))
+                    if table is not None]
+        # the prefix tokens are shard 0's; another shard keeps the tables
+        # in its graph with a zero gradient
+        if seq_shard is not None and seq_shard.local_prefix == 0:
+            x = keep_in_graph(x, *(table(idx) for table, idx in prefixes))
+            prefixes = []
+        for table, idx in prefixes:
+            x = torch.cat([table(idx)[:, None, :].to(x.dtype), x], dim=1)
             spikes_mask = torch.cat([ones, spikes_mask], dim=1)
 
         x = dropout(x, self.dropout, self.training, generator,
@@ -604,10 +617,23 @@ class NeuralEncoder(nn.Module):
                 x = layer(x, attn_mask, spikes_mask, spikes_timestamp, generator, seq_shard)
         x = self.out_norm(x)
         # Drop the day / block prefix tokens, and their mask entries.
-        n_prefix = int(self.embedder.day_token) + int(self.embedder.block_token)
+        n_prefix = self.n_prefix if seq_shard is None else seq_shard.local_prefix
         x, spikes_mask = x[:, n_prefix:], spikes_mask[:, n_prefix:]
-        return (self.out_proj(x, generator, None if seq_shard is None else seq_shard.token_time
+        return (self.out_proj(x, generator,
+                              None if seq_shard is None else seq_shard.body().token_time
                               ).float(), spikes_mask, targets_mask)
+
+    @property
+    def n_prefix(self) -> int:
+        """Tokens before the time axis: the day and block tokens."""
+        return int(self.embedder.day_token) + int(self.embedder.block_token)
+
+    def sequence_layout(self, T: int, n_sp: int, index: int,
+                        next_bin: bool = False) -> SequenceShard:
+        """:func:`sequence_layout` with this trunk's smoothing window,
+        stacking and prefix tokens."""
+        return sequence_layout(T, n_sp, index, self.smooth_and_noise.width,
+                               self.config["embedder"]["stack"], next_bin, self.n_prefix)
 
 
 # ---------------------------------------------------------------------------
@@ -664,32 +690,22 @@ class NDT1(ComponentCheckpoints, nn.Module):
 
     # ----------------------------------------------------- sequence parallel
 
-    def check_sequence_parallel(self) -> None:
-        """Raise when this configuration cannot run time-sharded: the day and
-        block prefix tokens are refused (ROADMAP item 12c)."""
-        emb = self.config["encoder"]["embedder"]
-        if emb["day_token"] or emb["block_token"]:
-            raise not_ported("Sequence parallelism with NDT1's day / block prefix tokens",
-                             "Queue 1, slice 8, item 12c")
-
     def sequence_layout(self, T: int, n_sp: int, index: int) -> SequenceShard:
         """What ``sp`` rank ``index`` of ``n_sp`` computes of a batch of ``T``
-        bins (:func:`sequence_layout` with this model's smoothing window and
-        stacking, and the extra raw bin of the autoregressive head)."""
-        self.check_sequence_parallel()
-        emb = self.config["encoder"]["embedder"]
-        return sequence_layout(T, n_sp, index, self.encoder.smooth_and_noise.width,
-                               emb["stack"], next_bin=self.method_name == "autoregressive")
+        bins (the trunk's layout, with the extra raw bin of the
+        autoregressive head)."""
+        return self.encoder.sequence_layout(T, n_sp, index,
+                                            next_bin=self.method_name == "autoregressive")
 
-    def sequence_outputs(self) -> Tuple[Tuple[str, ...], bool]:
-        """Which outputs of a time-sharded forward hold the rank's tokens
-        (gathered along dim 1 for the metric fns), and whether ``loss`` and
-        ``n_examples`` are the rank's sums (summed over ``sp``) or, as for
-        the ``ctc`` head's loss on the gathered log-probs, the same whole
-        value on every rank."""
+    def sequence_outputs(self) -> Tuple[Dict[str, int], bool]:
+        """Which outputs of a time-sharded forward hold the rank's tokens,
+        by their time dim (gathered for the metric fns), and whether ``loss``
+        and ``n_examples`` are the rank's parts (summed over ``sp``, the loss
+        scaled by ``sp`` for the gradient) or, as for the ``ctc`` head's loss
+        on the gathered log-probs, the same whole value on every rank."""
         if self.method_name in ("mlm", "autoregressive"):
-            return ("preds", "targets", "mask"), True
-        return (), False
+            return {"preds": 1, "targets": 1, "mask": 1}, True
+        return {}, False
 
     def reference_state(self, load_dir, components):
         return ndt1_state_dict_from_reference(load_dir, self, components)
@@ -761,6 +777,7 @@ class NDT1(ComponentCheckpoints, nn.Module):
         preds = self._decode(x)
         T, t0, t1, raw_lo = spikes.shape[1], 0, spikes.shape[1], 0
         if seq_shard is not None:
+            seq_shard = seq_shard.body()
             T, (t0, t1), raw_lo = seq_shard.bins, seq_shard.token_range, \
                 seq_shard.slices["spikes"][0]
         if method in ("mlm", "autoregressive"):
@@ -790,9 +807,10 @@ class NDT1(ComponentCheckpoints, nn.Module):
         with torch.autocast(x.device.type, enabled=False):
             if seq_shard is not None:
                 # the recursion needs all of T': every rank runs the loss on
-                # the gathered log-probs, and its gradient goes back to each
-                # rank's frames only (not summed: the ranks' losses are one)
-                preds = gather_time(preds, seq_shard, sum_grads=False)
+                # the gathered log-probs (the whole loss: the trainer does
+                # not scale it), and the gradient summed over the ranks goes
+                # back to each rank's frames
+                preds = gather_time(preds, seq_shard)
             if stack["active"]:
                 # Frames past the unpadded stacked length exist only for
                 # pad_to_multiple; pin them to blank for decoding.

@@ -21,6 +21,19 @@ masked patches) and ``ctc`` heads (counterpart of
 
 Dropout and masking draw from the ``generator`` passed in.
 
+Sequence parallelism (``seq_shard``, :func:`patch_layout`): the patches are
+split over ``sp`` in near-even parts, and a rank reads the bins of its
+patches (at stride = length no bin twice). ``std`` / ``mean`` scaling takes
+each series' statistics over the bins the ranks own, summed over ``sp``;
+BatchNorm in training normalises by the batch statistics summed over the
+ranks that hold the global batch (``data x sp``), with a gradient through
+them, and its running averages move alike on every rank. The sincos rows are
+the rank's patches', attention reads K / V gathered over ``sp``, the masking
+noise and every dropout mask are drawn whole and sliced. The ``mlm`` head
+gives the rank's part of the loss, its outputs holding its patches on dim 2;
+``ctc`` gathers the log-probs over the patches and runs the CTC loss on all
+of them on every rank.
+
 Checkpoints (``models/components.py``): ``encoder.pt`` (with BatchNorm's
 running averages), ``decoder.pt`` and both components' configs;
 ``encoder.from_pt`` and ``decoder.from_pt`` each warm-start their component.
@@ -48,9 +61,17 @@ from llm_bci_tpu_torch.interop.torch_import import patchtst_state_dict_from_refe
 from llm_bci_tpu_torch.model_output import ModelOutput
 from llm_bci_tpu_torch.models.components import ComponentCheckpoints, remerge_saved_configs
 from llm_bci_tpu_torch.models.ndt1 import ACT2FN
-from llm_bci_tpu_torch.ops.attention import dot_product_attention, dropout
+from llm_bci_tpu_torch.ops.attention import TimeSlice, dot_product_attention, dropout
 from llm_bci_tpu_torch.ops.ctc import ctc_loss
 from llm_bci_tpu_torch.ops.losses import mse_loss, poisson_nll_loss
+from llm_bci_tpu_torch.parallel.mesh import split_range
+from llm_bci_tpu_torch.parallel.sequence import (
+    SequenceShard,
+    all_reduce_sum,
+    gather_time,
+    synced_batch_norm,
+    synced_mean_var,
+)
 from llm_bci_tpu_torch.registry import register_model
 
 DEFAULT_CONFIG = "configs/patchtst.yaml"
@@ -72,6 +93,28 @@ def num_patches(T: int, patch_length: int, patch_stride: int) -> int:
     return 1 + (T - patch_length) // patch_stride
 
 
+def patch_layout(T: int, n_sp: int, index: int, patch_length: int,
+                 patch_stride: int) -> SequenceShard:
+    """What ``sp`` rank ``index`` of ``n_sp`` computes of a sequence of ``T``
+    bins (a pure function; the group is added by the caller): its patches,
+    a near-even part of ``num_patches``; the bins it owns for the scaling
+    statistics (``computed``: from its first patch's first bin to the next
+    rank's, the last rank's to ``T``, so that the ranks' bins partition the
+    sequence); and the bins it reads of each time-dim key, its patches' and
+    its own."""
+    P = num_patches(T, patch_length, patch_stride)
+    if P < n_sp:
+        raise ValueError(f"sequence parallelism: sp={n_sp} leaves a rank no patch of the {P} "
+                         f"that T={T} bins give")
+    bounds = tuple(split_range(P, n_sp, r)[0] for r in range(n_sp)) + (P,)
+    p0, p1 = bounds[index], bounds[index + 1]
+    own = (p0 * patch_stride, T if index == n_sp - 1 else p1 * patch_stride)
+    read = (own[0], max(own[1], (p1 - 1) * patch_stride + patch_length))
+    return SequenceShard(n_sp=n_sp, index=index, bins=T, tokens=P, real_tokens=P,
+                         bounds=bounds, computed=own,
+                         slices={"spikes": read, "spikes_mask": read, "spikes_timestamp": read})
+
+
 def patch_noise(shape: Tuple[int, int, int], channel_consistent: bool,
                 generator: Optional[torch.Generator], device) -> torch.Tensor:
     """Uniform noise ``(B, C, P)`` that ranks the patches for masking, one row
@@ -83,14 +126,15 @@ def patch_noise(shape: Tuple[int, int, int], channel_consistent: bool,
 
 
 def random_patch_masking(patches: torch.Tensor, noise: torch.Tensor, mask_ratio: float,
-                         mask_value: float) -> Tuple[torch.Tensor, torch.Tensor]:
+                         mask_value: float, start: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mask the patches whose noise ranks at or past ``int(P * (1 - ratio))``
     among their (example, channel)'s; returns (masked patches, mask), the
-    mask True on masked patches."""
-    P = patches.shape[2]
+    mask True on masked patches. ``noise`` covers all P patches; ``patches``
+    may be a part of them that starts at patch ``start``."""
+    P = noise.shape[2]
     len_keep = int(P * (1 - mask_ratio))
     ranks = noise.argsort(dim=-1, stable=True).argsort(dim=-1, stable=True)
-    mask = ranks >= len_keep
+    mask = (ranks >= len_keep)[:, :, start:start + patches.shape[2]]
     masked = torch.where(mask[..., None], torch.full_like(patches, mask_value), patches)
     return masked, mask
 
@@ -124,20 +168,31 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_shard: Optional[SequenceShard] = None
+                ) -> torch.Tensor:
+        """With ``seq_shard`` in training, the batch statistics are those of
+        every rank's rows and patches (``seq_shard.batch_group``)."""
         shape = x.shape
         x2d = x.float().reshape(-1, shape[-1])
-        if self.training:
+        if self.training and seq_shard is not None:
+            out, mean, var = synced_batch_norm(x2d, self.weight, self.bias, self.eps,
+                                               seq_shard.batch_group)
+            self._move_averages(mean, var)
+        elif self.training:
             with torch.no_grad():
                 var, mean = torch.var_mean(x2d, dim=0, unbiased=False)
-                m = self.MOMENTUM
-                self.running_mean.mul_(m).add_(mean, alpha=1 - m)
-                self.running_var.mul_(m).add_(var, alpha=1 - m)
+            self._move_averages(mean, var)
             out = F.batch_norm(x2d, None, None, self.weight, self.bias, True, 0.0, self.eps)
         else:
             out = F.batch_norm(x2d, self.running_mean, self.running_var, self.weight,
                                self.bias, False, 0.0, self.eps)
         return out.reshape(shape)
+
+    @torch.no_grad()
+    def _move_averages(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.MOMENTUM
+        self.running_mean.mul_(m).add_(mean, alpha=1 - m)
+        self.running_var.mul_(m).add_(var, alpha=1 - m)
 
 
 class PatchTSTNorm(nn.Module):
@@ -151,9 +206,10 @@ class PatchTSTNorm(nn.Module):
         else:
             self.ln = nn.LayerNorm(d_model, eps=eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, seq_shard: Optional[SequenceShard] = None
+                ) -> torch.Tensor:
         with torch.autocast(x.device.type, enabled=False):
-            return self.bn(x) if hasattr(self, "bn") else self.ln(x.float())
+            return self.bn(x, seq_shard) if hasattr(self, "bn") else self.ln(x.float())
 
 
 class PatchTSTEncoderLayer(nn.Module):
@@ -177,14 +233,20 @@ class PatchTSTEncoderLayer(nn.Module):
         self.norm1 = PatchTSTNorm(*norm)
         self.norm2 = PatchTSTNorm(*norm)
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        drop = lambda t, rate: dropout(t, rate, self.training, generator)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None) -> torch.Tensor:
+        """With ``seq_shard`` ``x`` holds the rank's patches (dim 1)."""
+        time = None if seq_shard is None else seq_shard.token_time
+        drop = lambda t, rate: dropout(t, rate, self.training, generator, time)
+        norm1 = lambda h: self.norm1(h, seq_shard)
+        norm2 = lambda h: self.norm2(h, seq_shard)
 
         def attn_block(h):
             BC, P, D = h.shape
             shape = (BC, P, self.n_heads, D // self.n_heads)
             q, k, v = (t.reshape(shape) for t in self.qkv(h).chunk(3, dim=-1))
+            if seq_shard is not None:
+                k, v = gather_time(k, seq_shard), gather_time(v, seq_shard)
             out = dot_product_attention(q, k, v).reshape(BC, P, D)
             return self.attn_out(drop(out, self.attn_drop))
 
@@ -192,10 +254,10 @@ class PatchTSTEncoderLayer(nn.Module):
             return self.ff2(drop(self.act(self.ff1(h)), self.ff_drop))
 
         if self.pre_norm:
-            x = x + drop(attn_block(self.norm1(x)), self.path_drop)
-            return x + drop(ff_block(self.norm2(x)), self.path_drop)
-        x = self.norm1(x + drop(attn_block(x), self.path_drop))
-        return self.norm2(x + drop(ff_block(x), self.path_drop))
+            x = x + drop(attn_block(norm1(x)), self.path_drop)
+            return x + drop(ff_block(norm2(x)), self.path_drop)
+        x = norm1(x + drop(attn_block(x), self.path_drop))
+        return norm2(x + drop(ff_block(x), self.path_drop))
 
 
 class PatchTSTEncoder(nn.Module):
@@ -213,37 +275,59 @@ class PatchTSTEncoder(nn.Module):
         self.layers = nn.ModuleList(
             PatchTSTEncoderLayer(c) for _ in range(c["num_hidden_layers"]))
 
-    def forward(self, spikes: torch.Tensor, generator: Optional[torch.Generator] = None):
+    def _scale(self, spikes: torch.Tensor, seq_shard: Optional[SequenceShard]
+               ) -> torch.Tensor:
+        """``std`` / ``mean`` scaling over time; with ``seq_shard`` each
+        series' statistics over the bins the ranks own, summed over ``sp``."""
+        scaling = self.config.get("scaling")
+        if scaling not in ("std", "mean"):
+            return spikes
+        if seq_shard is None:
+            if scaling == "std":
+                std, mean = torch.std_mean(spikes, dim=1, keepdim=True, correction=0)
+                return (spikes - mean) / (std + 1e-5)
+            return spikes / (spikes.abs().mean(dim=1, keepdim=True) + 1e-5)
+        lo = seq_shard.slices["spikes"][0]
+        own = spikes[:, seq_shard.computed[0] - lo:seq_shard.computed[1] - lo]
+        if scaling == "std":
+            mean, var, _ = synced_mean_var(own, (1,), seq_shard.group)
+            return (spikes - mean) / (var.sqrt() + 1e-5)
+        total = all_reduce_sum(own.abs().sum(dim=1, keepdim=True), seq_shard.group)
+        return spikes / (total / seq_shard.bins + 1e-5)
+
+    def forward(self, spikes: torch.Tensor, generator: Optional[torch.Generator] = None,
+                seq_shard: Optional[SequenceShard] = None):
+        """With ``seq_shard`` ``spikes`` holds the bins of
+        ``seq_shard.slices["spikes"]``, and out come the rank's patches."""
         c = self.config
         B, T, C = spikes.shape
-        scaling = c.get("scaling")
-        if scaling == "std":
-            std, mean = torch.std_mean(spikes, dim=1, keepdim=True, correction=0)
-            spikes = (spikes - mean) / (std + 1e-5)
-        elif scaling == "mean":
-            spikes = spikes / (spikes.abs().mean(dim=1, keepdim=True) + 1e-5)
-
+        spikes = self._scale(spikes, seq_shard)
         patches = patchify(spikes, c["patch_length"], c["patch_stride"])   # (B, C, P, L)
+        P, p0 = patches.shape[2], 0
+        if seq_shard is not None:
+            (p0, p1), P = seq_shard.token_range, seq_shard.tokens
+            patches = patches[:, :, :p1 - p0]
         patch_input = patches
         mask = None
         if c.get("do_mask_input"):
             if self.training:
-                noise = patch_noise(patches.shape[:3],
-                                    bool(c.get("channel_consistent_masking", False)),
+                noise = patch_noise((B, C, P), bool(c.get("channel_consistent_masking", False)),
                                     generator, spikes.device)
                 patches, mask = random_patch_masking(
-                    patches, noise, float(c["random_mask_ratio"]), float(c.get("mask_value", 0)))
+                    patches, noise, float(c["random_mask_ratio"]), float(c.get("mask_value", 0)),
+                    start=p0)
             else:
                 mask = torch.zeros(patches.shape[:3], dtype=torch.bool, device=spikes.device)
 
         x = self.patch_embed(patches)
-        P, D = x.shape[2], x.shape[3]
-        pe = torch.tensor(sincos_position_encoding(P, D), device=x.device)
-        x = dropout(x + pe, float(c.get("positional_dropout", 0.0)), self.training, generator)
-        x = x.reshape(B * C, P, D)
+        Pr, D = x.shape[2], x.shape[3]
+        pe = torch.tensor(sincos_position_encoding(P, D)[p0:p0 + Pr], device=x.device)
+        x = dropout(x + pe, float(c.get("positional_dropout", 0.0)), self.training, generator,
+                    None if seq_shard is None else seq_shard.token_time, dim=2)
+        x = x.reshape(B * C, Pr, D)
         for layer in self.layers:
-            x = layer(x, generator)
-        return x.reshape(B, C, P, D).float(), mask, patch_input
+            x = layer(x, generator, seq_shard)
+        return x.reshape(B, C, Pr, D).float(), mask, patch_input
 
 
 def _per_channel(C: int, d_in: int, d_out: int) -> Tuple[nn.Parameter, nn.Parameter]:
@@ -275,9 +359,9 @@ class PretrainHead(nn.Module):
             self.proj_out_w, self.proj_out_b = _per_channel(
                 num_input_channels, d_model, patch_length)
 
-    def forward(self, embedding: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:                       # (B, C, P, patch_length)
-        x = dropout(embedding, self.head_dropout, self.training, generator)
+    def forward(self, embedding: torch.Tensor, generator: Optional[torch.Generator] = None,
+                time: Optional[TimeSlice] = None) -> torch.Tensor:   # (B, C, P, patch_length)
+        x = dropout(embedding, self.head_dropout, self.training, generator, time, dim=2)
         if self.share:
             if self.mlp:
                 x = self.act(self.proj_hidden(x))
@@ -314,17 +398,17 @@ class PredictHead(nn.Module):
             self.proj_out_w, self.proj_out_b = _per_channel(num_input_channels, d_model,
                                                             vocab_size)
 
-    def forward(self, embedding: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        drop = lambda t: dropout(t, self.head_dropout, self.training, generator)
+    def forward(self, embedding: torch.Tensor, generator: Optional[torch.Generator] = None,
+                time: Optional[TimeSlice] = None) -> torch.Tensor:
+        drop = lambda t, dim: dropout(t, self.head_dropout, self.training, generator, time, dim)
         if self.share:
             pooled = embedding.mean(dim=1) if self.pooling == "mean" else embedding.amax(dim=1)
-            x = drop(pooled)
+            x = drop(pooled, 1)
             if self.mlp:
                 x = self.act(self.proj_hidden(x))
             out = self.proj_out(x)
         else:
-            per_channel = (torch.einsum("bcpd,cdv->bcpv", drop(embedding), self.proj_out_w)
+            per_channel = (torch.einsum("bcpd,cdv->bcpv", drop(embedding, 2), self.proj_out_w)
                            + self.proj_out_b[None, :, None, :])
             out = per_channel.mean(dim=1)
         return F.log_softmax(out, dim=-1)
@@ -368,6 +452,20 @@ class PatchTSTForSpikingActivity(ComponentCheckpoints, nn.Module):
     def reference_state(self, load_dir, components):
         return patchtst_state_dict_from_reference(load_dir, self, components)
 
+    def sequence_layout(self, T: int, n_sp: int, index: int) -> SequenceShard:
+        """What ``sp`` rank ``index`` of ``n_sp`` computes of a batch of ``T``
+        bins (:func:`patch_layout` at this model's patch length and stride)."""
+        enc = self.config["encoder"]
+        return patch_layout(T, n_sp, index, enc["patch_length"], enc["patch_stride"])
+
+    def sequence_outputs(self) -> Tuple[Dict[str, int], bool]:
+        """``mlm``: the rank's patches of ``preds`` / ``targets`` / ``mask`` /
+        ``patch_input`` (dim 2) and its part of the loss; ``ctc``: the
+        gathered log-probs and the whole loss on every rank."""
+        if self.method_name == "mlm":
+            return {"preds": 2, "targets": 2, "mask": 2, "patch_input": 2}, True
+        return {}, False
+
     def forward(
         self,
         spikes: torch.Tensor,                    # (B, T, C)
@@ -376,16 +474,18 @@ class PatchTSTForSpikingActivity(ComponentCheckpoints, nn.Module):
         targets: Optional[torch.Tensor] = None,
         targets_lengths: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        seq_shard: Optional[SequenceShard] = None,
     ) -> PatchTSTOutput:
         enc = self.config["encoder"]
         pl, ps = enc["patch_length"], enc["patch_stride"]
-        embedding, mask, patch_input = self.encoder(spikes, generator)
+        embedding, mask, patch_input = self.encoder(spikes, generator, seq_shard)
         with torch.autocast(spikes.device.type, enabled=False):
-            preds = self.decoder(embedding, generator)
+            preds = self.decoder(embedding, generator,
+                                 None if seq_shard is None else seq_shard.token_time)
             if self.method_name == "mlm":
                 # a patch is valid when all its bins are
                 pm = patchify(spikes_mask[:, :, None].float(), pl, ps)[:, 0].prod(-1) > 0
-                full_mask = mask & pm[:, None, :]                      # (B, C, P)
+                full_mask = mask & pm[:, None, :embedding.shape[2]]    # (B, C, P)
                 if self.loss_name == "poisson_nll":
                     losses = poisson_nll_loss(preds, patch_input, log_input=self.log_input)
                 elif self.loss_name == "mse":
@@ -396,6 +496,8 @@ class PatchTSTForSpikingActivity(ComponentCheckpoints, nn.Module):
                     loss=(losses * full_mask[..., None]).sum(), n_examples=full_mask.sum(),
                     mask=full_mask.int(), preds=preds, targets=patch_input,
                     patch_input=patch_input)
+            if seq_shard is not None:
+                preds = gather_time(preds, seq_shard)
             lens = torch.div(spikes_lengths - pl, ps, rounding_mode="floor") + 1
             loss = ctc_loss(preds, targets, lens, targets_lengths, self.blank_id,
                             self.zero_infinity).sum()

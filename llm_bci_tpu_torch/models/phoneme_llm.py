@@ -17,6 +17,10 @@ into the LLM's embedding space and are spliced into the embedded prompt at
   one CUDA graph a decode on the card, as ``BCI.generate`` does.
 * Checkpoints are the port's own: ``llm.pt`` and ``coupler.pt``
   (``state_dict``s) beside ``coupler_config.yaml``.
+* Under sequence parallelism (``parallelism.sp > 1``) its batch has no
+  time-dim ``sp_keys`` (the posteriors are ``phoneme_probs``): every ``sp``
+  rank computes the whole batch, as the JAX trainer keeps it replicated, and
+  the trainer scales nothing.
 """
 from __future__ import annotations
 

@@ -16,9 +16,9 @@ names ``("data", "fsdp", "sp", "tp")``, the JAX package's axes in its order:
   ``parallel/tensor_parallel.py``).
 * ``sp``: sequence parallelism. Every rank of an ``sp`` group holds the same
   rows and its part of their time axis (:func:`sequence_range`); the model
-  says which bins, frames and halo each part needs (NDT1:
-  ``models/ndt1.py::sequence_layout``), attention gathers K and V over the
-  group (``parallel/sequence.py``), and FSDP2 sums the partial gradients with
+  says which bins, frames, patches and halo each part needs (its
+  ``sequence_layout``), its collectives make the wholes it needs over the
+  group (``parallel/sequence.py``), and FSDP2 averages the gradients with
   ``sp`` on the replicate side of its mesh (:func:`fsdp_mesh`).
 
 Where GSPMD gives the JAX package its collectives, the port's come from
@@ -78,17 +78,18 @@ def fsdp_mesh(mesh):
     """The 2-D mesh FSDP2 shards over: ``(data, fsdp)``, replicated over the
     first dim and sharded over the second. With ``sp > 1`` the first dim is
     ``data`` and ``sp`` flattened (``data_sp``): the ranks of a time shard
-    hold partial gradients of the same parameters, which FSDP2 then reduces
-    with the data replicas' (the trainer scales the loss by ``sp`` as by
-    ``data``), and the ``fsdp`` groups stay the ranks that share a ``data``
-    and an ``sp`` index. ``sp > 1`` with ``tp > 1`` is refused (no model that
-    takes ``tp`` runs sequence-parallel)."""
+    hold gradients of the same parameters, which FSDP2 then averages with
+    the data replicas' (``parallel/sequence.py`` gives the rule that makes
+    the average one process's gradient), and the ``fsdp`` groups stay the
+    ranks that share a ``data`` and an ``sp`` index. ``sp > 1`` with ``tp >
+    1`` is refused (ROADMAP item 12d)."""
     from torch.distributed.device_mesh import DeviceMesh
 
     if mesh["sp"].size() == 1:
         return mesh["data", "fsdp"]
     if mesh["tp"].size() > 1:
-        raise ValueError("parallelism.sp > 1 with tp > 1: no model takes both")
+        raise ValueError("parallelism.sp > 1 with tp > 1: the port does not combine them "
+                         "(ROADMAP item 12d)")
     ranks = mesh.mesh                                  # (data, fsdp, sp, tp)
     grid = ranks.permute(0, 2, 3, 1).reshape(-1, ranks.shape[1])
     return DeviceMesh(mesh.device_type, grid, mesh_dim_names=("data_sp", "fsdp"))

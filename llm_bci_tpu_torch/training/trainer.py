@@ -73,23 +73,29 @@ when metric fns run, the batch-dim outputs are gathered, so that the fns see
 the global batch as on one device. Only rank 0 prints, logs and writes; a
 checkpoint gathers the full state (``save_checkpoint``) and is written in
 the single-device format, which any world size resumes
-(:meth:`resume_from`). With ``sp > 1`` (sequence parallelism, NDT1 only)
-the ranks of an ``sp`` group hold the same rows and each a part of their
-time axis: ``to_device`` cuts each ``sp_keys`` column to the range the
-model's ``sequence_layout`` gives the rank (its tokens' bins and their halo;
-a time dim that ``sp`` does not divide stays whole, and the ranks then
-compute the same and scale nothing), the model gathers what it needs over
-the group (``parallel/sequence.py``), FSDP2 reduces over ``data x sp``
-(``parallel/mesh.py::fsdp_mesh``) with the loss scaled by ``sp`` as by
-``data``, a step's ``loss`` and ``n_examples`` are summed over ``sp`` where
-they are the rank's part (mlm, autoregressive) and taken once where every
-rank holds the whole (``ctc``), and the metric fns see the time-dim outputs
-gathered. Random draws on that path are made at the whole sequence's shape
-and sliced, so ``sp`` changes no result. The keys of the JAX trainer's
-``parallelism`` block: ``data`` / ``fsdp`` / ``sp`` / ``tp`` read (``sp >
-1`` refused for iTransformer, PatchTST, BCI and PhonemeLLM, and for NDT1's
-prefix tokens: ROADMAP item 12c); ``sp_keys`` read (the port splits exactly
-the JAX default's three spike keys, and refuses another list);
+(:meth:`resume_from`). With ``sp > 1`` (sequence parallelism, every
+family) the ranks of an ``sp`` group hold the same rows and each a part of
+their time axis: ``to_device`` cuts each ``sp_keys`` column to the range
+the model's ``sequence_layout`` gives the rank (its tokens' bins and their
+halo; a time dim that ``sp`` does not divide stays whole, and a batch with
+no ``spikes`` key, PhonemeLLM's, too: the ranks then compute the same and
+scale nothing, as the JAX trainer keeps such a key replicated), the model
+makes the wholes it needs over the group (``parallel/sequence.py``: K / V
+and log-prob gathers, row-parallel sums, synced statistics, shard 0's
+prefix outputs), and FSDP2 reduces over ``data x sp``
+(``parallel/mesh.py::fsdp_mesh``). The gradient rule: every such collective
+sums its backward over ``sp``, and the loss is scaled by ``sp`` (as by
+``data``) only where the model's ``sequence_outputs()`` says a rank's loss
+is its part of the whole (mlm, autoregressive); where every rank holds the
+whole loss (``ctc``, BCI, the behaviour heads) it is left as it is. A step's
+``loss`` and ``n_examples`` are summed over ``sp`` where they are the rank's
+part and taken once where every rank holds the whole, and the metric fns
+see the time-dim outputs gathered along each key's time dim. Random draws
+on that path are made at the whole sequence's shape and sliced, so ``sp``
+changes no result. The keys of the JAX trainer's ``parallelism`` block:
+``data`` / ``fsdp`` / ``sp`` / ``tp`` read; ``sp_keys`` read (the port
+splits exactly the JAX default's three spike keys, and refuses another
+list);
 ``multihost: true`` starts the process group from the launcher's
 environment (``torchrun`` sets ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``;
 the group is also started whenever those are set), the counterpart of
@@ -136,7 +142,6 @@ from llm_bci_tpu_torch.config import (
     update_config,
 )
 from llm_bci_tpu_torch.data.datasets import pad_collate_fn
-from llm_bci_tpu_torch import not_ported
 import llm_bci_tpu_torch.data  # noqa: F401  (fills NAME2DATASET)
 from llm_bci_tpu_torch.registry import NAME2DATASET, NAME2MODEL
 import llm_bci_tpu_torch.models  # noqa: F401  (fills NAME2MODEL)
@@ -329,7 +334,6 @@ class Trainer:
         sizes = {k: int(par.get(k, -1 if k == "data" else 1)) for k in pmesh.AXES}
         self.sp_keys = tuple(par.get("sp_keys") or SP_KEYS)
         if sizes["sp"] != 1:
-            self.check_sequence_parallel(NAME2MODEL.get(self.config.model.get("model_class")))
             if set(self.sp_keys) != set(SP_KEYS):
                 raise ValueError(f"parallelism.sp_keys={list(self.sp_keys)}: the port splits "
                                  f"the time dim of exactly {list(SP_KEYS)} (the JAX default)")
@@ -353,15 +357,26 @@ class Trainer:
         self.plan = tdist.Plan()
         self._batch_split = False
         self._seq_shard: Optional[SequenceShard] = None
+        self._stats_group = self._batch_group() if self.mesh_sizes["sp"] > 1 else None
 
-    @staticmethod
-    def check_sequence_parallel(model_class) -> None:
-        """Only NDT1 runs sequence-parallel (a model with a
-        ``sequence_layout``); iTransformer, PatchTST, BCI and PhonemeLLM are
-        ROADMAP item 12c."""
-        if model_class is not None and not hasattr(model_class, "sequence_layout"):
-            raise not_ported(f"Sequence parallelism for {model_class.__name__}",
-                             "Queue 1, slice 8, item 12c")
+    def _batch_group(self):
+        """The group of this rank's ``data x sp`` ranks, whose parts make up
+        the global batch (statistics over the batch, as BatchNorm's, sum
+        over it); ``None`` when ``data`` is 1 (the ``sp`` group serves). Every
+        rank makes every such group, in one order."""
+        import torch.distributed as dist
+
+        if self.mesh_sizes["data"] == 1:
+            return None
+        mine = None
+        ranks = self.mesh.mesh                     # (data, fsdp, sp, tp)
+        for f in range(ranks.shape[1]):
+            for t in range(ranks.shape[3]):
+                members = ranks[:, f, :, t].flatten().tolist()
+                group = dist.new_group(members)
+                if dist.get_rank() in members:
+                    mine = group
+        return mine
 
     def print_v(self, *args, verbosity: int = 3) -> None:
         if verbosity >= self.verbosity and self.is_main_process:
@@ -424,9 +439,6 @@ class Trainer:
         group, cut and sharded by the plan (``training/distributed.py``)."""
         if model is None:
             model = build_model(self.config, self.device)
-        if self.mesh_sizes["sp"] > 1:
-            self.check_sequence_parallel(type(model))
-            model.check_sequence_parallel()
         self.model = model.to(self.device)
         if self.distributed:
             par = self.config.get("parallelism") or {}
@@ -475,9 +487,9 @@ class Trainer:
         ``sp_keys`` column is cut to the range that the model's
         ``sequence_layout`` gives this rank (its tokens' bins and their halo,
         read from the host batch that every rank holds), and the layout goes
-        to the model as ``seq_shard``; an indivisible time dim stays whole and
-        the ``sp`` ranks compute the same, as the JAX trainer keeps such a key
-        whole."""
+        to the model as ``seq_shard``; an indivisible time dim (or a batch
+        without ``spikes``) stays whole and the ``sp`` ranks compute the same,
+        as the JAX trainer keeps such a key whole."""
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         n = next(iter(arrays.values())).shape[0] if arrays else 0
         start, stop = pmesh.batch_rows(n, self.mesh_sizes["data"], self.coords["data"])
@@ -487,7 +499,7 @@ class Trainer:
         spikes = arrays.get(SP_KEYS[0])
         if n_sp > 1 and spikes is not None and spikes.shape[1] % n_sp == 0:
             shard = self.model.sequence_layout(spikes.shape[1], n_sp, self.coords["sp"])
-            shard = shard.with_group(self.mesh["sp"].get_group())
+            shard = shard.with_group(self.mesh["sp"].get_group(), self._stats_group)
         self._seq_shard = shard
         out: Dict[str, Any] = {}
         for k, v in arrays.items():
@@ -531,13 +543,14 @@ class Trainer:
         # The gradient of the summed loss, as the JAX trainer takes it; the
         # micro-batch gradients of one update are averaged (optax.MultiSteps).
         # FSDP2 averages the gradients of the (data x sp, fsdp) ranks: a rank
-        # that holds 1/data of the rows scales its loss by data, and one that
-        # holds a time shard (its gradient is the part of its tokens) by sp,
-        # so that the average is the global batch's gradient.
+        # that holds 1/data of the rows scales its loss by data, and one whose
+        # loss is the part of its time shard by sp, so that the average is
+        # the global batch's gradient. Where every sp rank holds the whole
+        # loss, the collectives' backward sums make up the sp.
         loss = out.loss / self.grad_accum
         if split:
             loss = loss * self.mesh_sizes["data"]
-        if self._seq_shard is not None:
+        if self._seq_shard is not None and self.model.sequence_outputs()[1]:
             loss = loss * self.mesh_sizes["sp"]
         loss.backward()
         self.n_micro += 1
@@ -563,8 +576,8 @@ class Trainer:
         the time-dim outputs gathered over ``sp`` and the batch-dim tensors
         over ``data``, in rank order (what a metric fn reads)."""
         if self._seq_shard is not None:
-            time_keys, summed = self.model.sequence_outputs()
-            outputs = whole_sequence_outputs(outputs, self._seq_shard, time_keys, summed,
+            time_dims, summed = self.model.sequence_outputs()
+            outputs = whole_sequence_outputs(outputs, self._seq_shard, time_dims, summed,
                                              gather)
         if not split:
             return outputs

@@ -1,5 +1,5 @@
 """Ranks of the port's multi-rank CPU tests (``tests/test_torch_port_parallel*.py``,
-``tests/test_torch_port_sequence_parallel.py``).
+``tests/test_torch_port_sequence_parallel*.py``).
 
 ``python tests/_torch_parallel_worker.py <job.pt>`` is started as every rank
 of one gloo group (``llm_bci_tpu_torch.parallel.process.spawn``); it runs the
@@ -88,7 +88,10 @@ def train(plain, parallelism, dataset_path, weights_path, **training):
     lora = {n: (p.full_tensor() if hasattr(p, "full_tensor") else p).detach().clone()
             for n, p in trainer.model.named_parameters() if ".lora_" in n}
     encoder = getattr(trainer.model, "encoder", None)
+    buffers = {n: b.detach().clone() for n, b in trainer.model.named_buffers()
+               if n.endswith(("running_mean", "running_var"))}
     return {"losses": losses, "model": state["model"], "n_micro": trainer.n_micro,
+            "buffers": buffers, "first_moments": first_moments(state["optimizer"]),
             "pred_shapes": pred_shapes, "eval": trainer.eval_history,
             "flash_fallback": getattr(encoder, "flash_fallback", None),
             "shard": (None if getattr(trainer, "_seq_shard", None) is None else
@@ -96,6 +99,93 @@ def train(plain, parallelism, dataset_path, weights_path, **training):
             "shapes": {n: tuple(v.shape) for n, v in trainer.model.state_dict().items()},
             "local": local, "lora": lora, "flash": flash, "draws": draws,
             "coords": dict(trainer.coords), "groups": groups}
+
+
+def first_moments(optimizer_state) -> dict:
+    """AdamW's first moment of each parameter by name (empty off rank 0):
+    it scales with the gradients, which Adam's update does not."""
+    if not optimizer_state:
+        return {}
+    state = optimizer_state["state_dict"]["state"]
+    return {name: state[i]["exp_avg"] for i, name in enumerate(optimizer_state["names"])
+            if i in state}
+
+
+def assert_moments_close(got, want, what, rtol):
+    """The first moments of ``got`` within ``rtol`` of ``want``'s, as one
+    vector's relative L2 (the noise-only leaves left out): a gradient off by
+    a factor shows here where Adam's update hides it."""
+    keys = [k for k in want if not NOISE_ONLY.search(k) and not k.endswith("qkv.bias")]
+    assert keys and set(keys) <= set(got), (what, sorted(set(keys) - set(got))[:5])
+    num = sum(float((got[k].float() - want[k].float()).square().sum()) for k in keys)
+    den = sum(float(want[k].float().square().sum()) for k in keys)
+    rel = (num / den) ** 0.5
+    assert rel <= rtol, (what, rel)
+
+
+def fixed_uniform(shape):
+    """A fixed uniform array of ``shape``, the same for every row of dim 0
+    (a data rank's rows then get what one process gives them)."""
+    row = np.random.default_rng(int(np.prod(shape[1:]))).uniform(size=(1, *shape[1:]))
+    return np.broadcast_to(row, shape).astype(np.float32)
+
+
+def fixed_patch_noise(shape, consistent, generator, device):
+    """PatchTST's masking noise from :func:`fixed_uniform` (the JAX package's
+    ``jax.random.uniform`` replaced by the same array makes both packages
+    mask the same patches)."""
+    B, C, P = shape
+    return torch.from_numpy(fixed_uniform((B, 1 if consistent else C, P))).to(device).expand(
+        B, C, P)
+
+
+def train_fixed_noise(plain, parallelism, dataset_path, weights_path, **training):
+    """``train`` with PatchTST's masking noise fixed (:func:`fixed_patch_noise`)."""
+    from llm_bci_tpu_torch.models import patchtst
+
+    real = patchtst.patch_noise
+    patchtst.patch_noise = fixed_patch_noise
+    try:
+        return train(plain, parallelism, dataset_path, weights_path, **training)
+    finally:
+        patchtst.patch_noise = real
+
+
+def collectives(x, weight, bias, bn_x, bn_grad):
+    """The ``sp`` collectives on pairs of ranks (0 1, 2 3), each rank holding
+    the half of the time axis of its index in the pair: a row-parallel
+    Linear over the bins of ``x`` (B, N, T), BatchNorm with statistics synced
+    over the pair on its half of ``bn_x``'s rows (B, T, D), forward and the
+    backward of ``(out * bn_grad).sum()``, and a broadcast from the pair's
+    first rank. This rank's results."""
+    import torch.distributed as dist
+
+    from llm_bci_tpu_torch.models.patchtst import FlaxBatchNorm
+    from llm_bci_tpu_torch.parallel.sequence import broadcast_first, row_parallel_linear
+    from llm_bci_tpu_torch.models.ndt1 import sequence_layout
+
+    rank = dist.get_rank()
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    index = rank % 2
+    T = x.shape[-1]
+    shard = sequence_layout(T, 2, index).with_group(pairs[rank // 2])
+    t0, t1 = shard.token_range
+    layer = torch.nn.Linear(T, weight.shape[0])
+    with torch.no_grad():
+        layer.weight.copy_(weight)
+        layer.bias.copy_(bias)
+    linear = row_parallel_linear(x[..., t0:t1], layer, shard, t0, t1)
+    linear.sum().backward()
+    bn = FlaxBatchNorm(bn_x.shape[-1])
+    part = bn_x[:, t0:t1].clone().requires_grad_(True)
+    out = bn(part, shard)
+    (out * bn_grad[:, t0:t1]).sum().backward()
+    sent = broadcast_first(torch.full((3,), float(rank), requires_grad=True), shard)
+    return {"index": index, "linear": linear.detach(), "weight_grad": layer.weight.grad,
+            "bias_grad": layer.bias.grad, "bn": out.detach(), "bn_x_grad": part.grad,
+            "bn_weight_grad": bn.weight.grad, "bn_bias_grad": bn.bias.grad,
+            "running": (bn.running_mean.clone(), bn.running_var.clone()),
+            "broadcast": sent.detach()}
 
 
 def train_hooked_by_tree_flatten(plain, parallelism, dataset_path, weights_path, **training):
@@ -223,8 +313,8 @@ def dryrun(tmp):
     return {"report": report if _rank() == 0 else None}
 
 
-CASES = {f.__name__: f for f in (train, train_hooked_by_tree_flatten, resume, resume_train,
-                                  preempt, clip, decode, dryrun)}
+CASES = {f.__name__: f for f in (train, train_fixed_noise, train_hooked_by_tree_flatten, resume,
+                                  resume_train, preempt, clip, decode, dryrun, collectives)}
 
 
 def main(job_path: str) -> None:

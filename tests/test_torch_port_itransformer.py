@@ -185,7 +185,7 @@ def test_dropout_placement_matches_jax(monkeypatch):
             return x
         return x * jnp.asarray(_feature_mask(x.shape)) / (1.0 - self.rate)
 
-    def tdrop(x, p, training, generator=None):
+    def tdrop(x, p, training, generator=None, time=None):
         if not training or p == 0.0:
             return x
         return x * torch.from_numpy(_feature_mask(x.shape)) / (1.0 - p)

@@ -16,8 +16,8 @@
   preemption asked on rank 1 stops both ranks at one step; the flash keep
   mask and the training stream of data rank 0 equal the single process's,
   rank 1's differ (the pinned divergence);
-* ``sp=2`` raises the item-12c ``not_ported`` for every family but NDT1
-  (``tests/test_torch_port_sequence_parallel.py`` holds what ``sp`` does);
+* ``sp=2`` admits every family, refused only without a process group
+  (``tests/test_torch_port_sequence_parallel*.py`` hold what ``sp`` does);
   ``dryrun_multichip(2)``.
 """
 import os
@@ -125,12 +125,14 @@ def test_fsdp_groups_follow_fsdp_min_size():
 
 
 @pytest.mark.parametrize("family", ["iTransformer", "PatchTST", "BCI", "PhonemeLLM"])
-def test_sp_raises_the_item_12c_refusal(tmp_path, family):
-    # only NDT1 runs sequence-parallel (tests/test_torch_port_sequence_parallel.py)
+def test_sp_admits_every_family(tmp_path, family):
+    # every family runs sequence-parallel
+    # (tests/test_torch_port_sequence_parallel_{families,bci}.py): sp=2 is
+    # refused only for want of a process group
     cfg = port_cfg(trainer_config(tmp_path))
     cfg["parallelism"] = {"data": 1, "fsdp": 1, "sp": 2}
     cfg["model"]["model_class"] = family
-    with pytest.raises(NotImplementedError, match="Queue 1, slice 8, item 12c"):
+    with pytest.raises(ValueError, match="no process group is up"):
         PortTrainer(cfg, dataset={"train": [], "test": []}, device="cpu")
     cfg["model"]["model_class"] = "NDT1"
     cfg["parallelism"] = {"data": 1, "fsdp": 2}

@@ -177,14 +177,23 @@ def test_masker_draws_whole_and_slices(mode):
 
 
 @pytest.mark.parametrize("token", ["day_token", "block_token"])
-def test_prefix_tokens_are_refused_under_sp(tmp_path, token):
+def test_prefix_tokens_belong_to_shard_zero(tmp_path, token):
     from llm_bci_tpu_torch.training.trainer import build_model
 
     plain = _plain(trainer_config(tmp_path), tmp_path, "prefix")
     plain["model"]["encoder"]["embedder"][token] = True
     model = build_model(W._config(plain, ONE), torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="Queue 1, slice 8, item 12c"):
-        model.sequence_layout(40, 2, 0)
+    # 40 bins stack (4/2) to 19 frames, 10 / 9 a rank; the prefix token
+    # comes before shard 0's, and every bound after it counts it
+    shards = [model.sequence_layout(40, 2, i) for i in range(2)]
+    assert [s.token_range for s in shards] == [(0, 11), (11, 20)]
+    assert [s.tokens for s in shards] == [20, 20]
+    assert [s.local_prefix for s in shards] == [1, 0]
+    assert [s.body().token_range for s in shards] == [(0, 10), (10, 19)]
+    # the bins each rank reads are the layout's without the prefix
+    assert shards[1].slices == sequence_layout(
+        40, 2, 1, model.encoder.smooth_and_noise.width,
+        plain["model"]["encoder"]["embedder"]["stack"]).slices
 
 
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
