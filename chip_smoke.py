@@ -193,35 +193,36 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    steps: the encoder (and the running averages) carried bit-equal, the
    PatchTST fine-tune on the CTC pair;
 17. serving export (``serve-export``, ``llm_bci_tpu_torch.serving``), the
-   card's name and power limit first: A. the BCI of phase 8 (32 layers, int8
-   base, B=8, prompt 185, 32 new tokens) exported by ``export_decode`` under
-   bf16 autocast, greedy and diverse beam 5: each archive under 1% of the
-   weights' bytes, loaded by ``load_decode`` in a fresh process (a
-   ``multiprocessing`` spawn child given the paths, ``params_of``'s tensors,
-   shared with it on the card, and the batch; the model class made
-   unbuildable there): greedy ids equal in-process ``generate``'s, diverse
-   sequences equal and scores within atol 1e-4, the int8 launches of each
-   decode {tiled 225 (the prefill), cluster 450 (an eager step and a
-   capture)} with 30 replays; export, load and decode seconds, tokens/s and
-   sequences/s of the loaded archives beside in-process ``generate`` in this
-   process (loaded, in-process, in-process, loaded), the device time of 16
-   replayed token steps of the loaded archive; B. a 2-layer copy exported on
-   the CPU, moved to the card by ``move_to_device_pass``: its greedy ids
-   equal the card's in-process decode and the int8 kernels run; C. the
-   NDT1-CTC flagship at phase 5's shape (B=64, T'=121, bf16 autocast)
-   exported by ``export_forward`` with ``outputs=("preds",)`` (no
-   ``llm_bci.ctc_*`` node, no CTC launch) and ``("loss", "preds")`` (one
-   ``ctc_alpha_kernel`` launch a call), log-probs within atol 2e-2 of the
-   in-process eval forward, the loss against the plain CTC on the archive's
-   own log-probs (rtol 1e-5, atol 1e-3) and phase 3's gates there; D. the
-   real-time loop: the ``preds`` forward at B=1 over a window of 128 bins,
-   8 windows of a synthetic utterance streamed into ``CTCPrefixDecoder``
-   (beam 16): the live transcript's labels equal ``ctc_prefix_beam_search``
-   over all the frames; device ms a window and host ms a frame; E. NDT1-mlm
-   at phase 6's shape (B=32, T=1024, flash): 5 flash forward launches a call,
-   preds within atol 2e-2 of the in-process eval forward; F.
-   ``torch.library.opcheck`` of every ``llm_bci`` op on the card at small
-   shapes (the launches of F are not counted).
+   card's name and power limit first: A. the BCI of phase 8 at 4 layers
+   (``SERVE_LAYERS``; width kept: export and load take host time by the
+   layer), int8 base, B=8, prompt 185, 32 new tokens, exported by
+   ``export_decode`` under bf16 autocast, greedy and diverse beam 5: each
+   archive under 1% of the weights' bytes, loaded by ``load_decode`` in a
+   fresh process (a ``multiprocessing`` spawn child given the paths,
+   ``params_of``'s tensors, shared with it on the card, and the batch; the
+   model class made unbuildable there): greedy ids equal in-process
+   ``generate``'s, diverse sequences equal and scores within atol 1e-4, the
+   int8 launches of each decode {tiled 29 (the prefill), cluster 58 (an
+   eager step and a capture)} with 30 replays; export, load and decode
+   seconds, tokens/s and sequences/s of the loaded archives beside
+   in-process ``generate`` in this process (loaded, in-process, in-process,
+   loaded), the device time of 16 replayed token steps of the loaded
+   archive; B. a 2-layer copy exported on the CPU, moved to the card by
+   ``move_to_device_pass``: its greedy ids equal the card's in-process
+   decode and the int8 kernels run; C. the NDT1-CTC flagship at phase 5's
+   shape (B=64, T'=121, bf16 autocast) exported by ``export_forward`` with
+   ``outputs=("preds",)`` (no ``llm_bci.ctc_*`` node, no CTC launch) and
+   ``("loss", "preds")`` (one ``ctc_alpha_kernel`` launch a call), log-probs
+   within atol 2e-2 of the in-process eval forward, the loss against the
+   plain CTC on the archive's own log-probs (rtol 1e-5, atol 1e-3) and phase
+   3's gates there; D. the real-time loop: the ``preds`` forward at B=1 over
+   a window of 128 bins, 8 windows of a synthetic utterance streamed into
+   ``CTCPrefixDecoder`` (beam 16): the live transcript's labels equal
+   ``ctc_prefix_beam_search`` over all the frames; device ms a window and
+   host ms a frame; E. NDT1-mlm at phase 6's shape (B=32, T=1024, flash): 5
+   flash forward launches a call, preds within atol 2e-2 of the in-process
+   eval forward; F. ``torch.library.opcheck`` of every ``llm_bci`` op on the
+   card at small shapes (the launches of F are not counted).
 
 18. multi-device training (``multi-device``, ``llm_bci_tpu_torch.parallel``), each
    leg through ``python -m torch.distributed.run ... chip_smoke.py --md-rank``,
@@ -242,7 +243,14 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    carrying the rank's trained leaves; D. two ranks on the one card (gloo
    with CUDA tensors: NCCL refuses two ranks on one device), the flagship with
    ``data=2`` and its stochastic parts off, 4 steps, losses against one
-   process at B=64 (rtol 1e-3: bf16 products of 32 rows against 64); E. D's
+   process at B=64 (rtol 1e-3: bf16 products of 32 rows against 64); D2. in
+   D's run of the two ranks, PatchTST ``ctc`` at the patchtst phase's widths
+   with ``data=2`` and its stochastic parts off, B=64, 2 steps + eval: losses
+   and trained parameters against one process (rtol 1e-3), the 16 BatchNorm
+   running averages equal on both ranks and within 1e-5 of one process's
+   (the statistics synced over ``data``), one ``ctc_alpha_beta_kernel`` a
+   step on each rank's (32, 52, 41) and the eval's ``ctc_alpha_kernel`` as
+   in one process; E. D's
    rank-0 checkpoint resumed in one process, every leaf bit-equal to the two
    ranks' final state; F. ``entry.dryrun_multichip(1)`` at its default, one
    NCCL rank on the card; S. sequence parallelism, two gloo ranks on the one
@@ -265,9 +273,16 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    eval; S4 and S5 against one process (rtol 1e-3), the fused CTC kernel once
    a step on each rank on the whole (64, 512 | 52, 41) log-probs and the
    eval's CTC launches as in one process, S5's running averages equal on
-   both ranks. Steps' ms beside the in-process trainer's, collective calls
-   and peak memory in a JSON line of its own; no time of D or S is a
-   speed.
+   both ranks, S4's three leaves farthest from one process's named; T.
+   sequence with tensor parallelism, four gloo ranks on the one card at
+   ``sp=2 x tp=2``: the BCI of leg C (LoRA dropout on), 2 steps, the trunk
+   under ``sp``, the Llama cut over ``tp``: 450 ``tiled`` launches on each
+   rank at the ``tp=2`` shares and 0 ``cluster``, losses and trained
+   parameters against leg C's in-process run (rtol 1e-3), the LoRA factors
+   the same on every rank, each rank's peak memory, ``sp`` and ``tp``
+   collective calls and wall time in a JSON line of its own. Steps' ms
+   beside the in-process trainer's, collective calls and peak memory in a
+   JSON line of its own; no time of D, S or T is a speed.
 
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train|cosmooth|
 phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state|warm-start|serve-export|
@@ -286,6 +301,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -3751,6 +3767,8 @@ def warm_start_phase(power_line: str, profile=None) -> dict:
 # ---------------------------------------------------------------------------
 
 SERVE_NEW, SERVE_BEAMS = 32, 5
+SERVE_LAYERS = 4          # A's depth at Llama-2-7B width: torch.export and the
+                          # archive's load take host time by the layer
 SERVE_WINDOW, SERVE_WINDOWS = 128, 8     # spike bins a window of the real-time loop, windows
 BIN_MS = 20                              # a bin of the competition data
 
@@ -3813,8 +3831,8 @@ def archive_step(fn, params: dict, batch: dict):
 
 
 def serve_bci_decode(tmp: str, power_line: str, profile, device: str = "cuda") -> dict:
-    """A: the 7B-width int8 BCI of phase 8 exported (greedy and diverse beam
-    5), loaded in a fresh process, held against in-process ``generate``.
+    """A: the 7B-width int8 BCI of phase 8, cut to ``SERVE_LAYERS`` layers,
+    exported (greedy and diverse beam 5), loaded in a fresh process, held against in-process ``generate``.
     ``device="cpu"`` rehearses it (the card's timings then mean nothing)."""
     import multiprocessing
 
@@ -3825,7 +3843,8 @@ def serve_bci_decode(tmp: str, power_line: str, profile, device: str = "cuda") -
 
     dev = torch.device(device)
     batch = bci_serving_batch(dev)
-    model, build_s = build_bci(write_llama_config(tmp, 32), "int8", dev)
+    model, build_s = build_bci(write_llama_config(tmp, SERVE_LAYERS), "int8", dev)
+    per_forward = 7 * SERVE_LAYERS + 1                 # 7 projections a layer + lm_head
     params = serving.params_of(model)
     weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
     autocast = lambda: torch.autocast(dev.type, dtype=torch.bfloat16)
@@ -3844,7 +3863,7 @@ def serve_bci_decode(tmp: str, power_line: str, profile, device: str = "cuda") -
                               autocast=torch.bfloat16, **gen)
         export_s = time.perf_counter() - t0
         size = os.path.getsize(paths[name])
-        say("serve", f"A. {name} decode archive exported in {export_s:.1f} s: "
+        say("serve", f"A. {name} decode archive ({SERVE_LAYERS} layers) exported in {export_s:.1f} s: "
             f"{size / 2 ** 20:.2f} MiB against {weight_bytes / 2 ** 30:.2f} GiB of weights "
             f"({size / weight_bytes:.3%}), 4 programs")
         if size >= 0.01 * weight_bytes:
@@ -3885,15 +3904,15 @@ def serve_bci_decode(tmp: str, power_line: str, profile, device: str = "cuda") -
     for name in gens:
         r = res[name]
         graphs = r["graphs"]
-        want = {INT8_TILED: INT8_PER_FORWARD,
-                INT8_CLUSTER: (graphs[0] + graphs[1]) * INT8_PER_FORWARD}
+        want = {INT8_TILED: per_forward,
+                INT8_CLUSTER: (graphs[0] + graphs[1]) * per_forward}
         if graphs != want_graphs or r["launches"] != want:
             raise AssertionError(f"A. {name}: int8 launches {r['launches']} with (eager steps, "
                                  f"captures, replays) {graphs}, want {want} with {want_graphs}")
         add_launches(launches, r["launches"])
         say("serve", f"A. {name} in the fresh process: loaded in {r['load_s']:.2f} s, decoded "
             f"in {r['run_s']:.2f} s (its capture included); int8 launches {r['launches']} = "
-            f"{INT8_PER_FORWARD} a model call x (1 prefill | 1 eager step + 1 capture), "
+            f"{per_forward} a model call x (1 prefill | 1 eager step + 1 capture), "
             f"{SERVE_NEW - 2} replays")
     say("serve", f"A. loaded greedy ids equal generate's ({greedy.numel()} ids); diverse beam "
         f"sequences equal, scores max|err| {err:.2e}")
@@ -4211,7 +4230,13 @@ MD_SP_RTOL = 1e-3              # leg S: sp=2 against one process, bf16 (K / V gr
                                # from two ranks' partials)
 MD_SP_LAYERS = 3               # leg S2: the mlm's depth (width kept)
 MD_SP_PT_STEPS = 2             # leg S5: PatchTST ctc steps (each gathers K / V of 64 x 256
-                               # sequences through the host)
+                               # sequences through the host); leg D2's too
+MD_RUNNING_RTOL = 1e-5         # leg D2: BatchNorm's running averages against one process's
+MD_T_MESH = {"data": 1, "fsdp": 1, "sp": 2, "tp": 2}     # leg T: four gloo ranks on the card
+# leg D2: PatchTST ctc at data=2 without its stochastic parts (a data rank
+# other than 0 draws a stream of its own, so one process could not match)
+MD_PT_QUIET = ["model.encoder.attention_dropout=0.0", "model.encoder.ff_dropout=0.0",
+               "model.encoder.do_mask_input=false"]
 
 
 def kernel_launches() -> dict:
@@ -4237,25 +4262,38 @@ def reset_kernel_counters() -> None:
 
 class CollectiveCounter:
     """Counts the calls of ``torch.distributed``'s collectives (FSDP2's and the
-    tensor-parallel products' go through the same functions)."""
+    tensor-parallel products' go through the same functions), in all and by
+    the process group they name (``by_group``: ``(name, the group's
+    group_name)``)."""
 
     def __init__(self):
         import torch.distributed as dist
 
         names = [n for n in MD_COLLECTIVES if hasattr(dist, n)]
         self.counts = dict.fromkeys(names, 0)
+        self.by_group: dict = {}
         for name in names:
             real = getattr(dist, name)
 
             def spy(*args, _real=real, _name=name, **kwargs):
                 self.counts[_name] += 1
+                key = (_name, (kwargs.get("group") or dist.group.WORLD).group_name)
+                self.by_group[key] = self.by_group.get(key, 0) + 1
                 return _real(*args, **kwargs)
 
             setattr(dist, name, spy)
 
     def take(self) -> dict:
         counts, self.counts = self.counts, dict.fromkeys(self.counts, 0)
+        self.by_group = {}
         return {k: v for k, v in counts.items() if v}
+
+    def on_axes(self, mesh, axes=("sp", "tp")) -> dict:
+        """The calls since the last ``take`` on each of ``axes``' groups of
+        ``mesh`` (``"<axis> <collective>": calls``)."""
+        ids = {mesh[a].get_group().group_name: a for a in axes}
+        return {f"{ids[g]} {name}": n for (name, g), n in sorted(self.by_group.items())
+                if g in ids}
 
 
 def md_rank(spec_path: str) -> None:
@@ -4286,9 +4324,20 @@ def md_rank(spec_path: str) -> None:
         return real_fused(log_probs, *args)
 
     ctc_cuda.ctc_alpha_beta_cuda = fused
+    from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
+
+    int8_shapes: dict = {}      # "M x K x N" of each int8 product: launches
+    real_int8 = ic.int8_matmul_cuda
+
+    def int8(x, q, *args):
+        key = f"{x.shape[0]}x{q.shape[0]}x{q.shape[1]}"
+        int8_shapes[key] = int8_shapes.get(key, 0) + 1
+        return real_int8(x, q, *args)
+
+    ic.int8_matmul_cuda = int8
     records = {}
     try:
-        md_legs(spec, records, counter, ctc_shapes)
+        md_legs(spec, records, counter, ctc_shapes, int8_shapes)
     except BaseException:
         # the traceback for torchrun()'s report (the launcher keeps only the
         # tail of the ranks' output), then the failure goes on
@@ -4300,7 +4349,7 @@ def md_rank(spec_path: str) -> None:
     dist.destroy_process_group()
 
 
-def md_legs(spec: dict, records: dict, counter, ctc_shapes: list) -> None:
+def md_legs(spec: dict, records: dict, counter, ctc_shapes: list, int8_shapes: dict) -> None:
     """``md_rank``'s legs, in order, each recorded into ``records``."""
     import runpy
 
@@ -4313,6 +4362,7 @@ def md_legs(spec: dict, records: dict, counter, ctc_shapes: list) -> None:
     for leg in spec["legs"]:
         log: list = []
         ctc_shapes.clear()
+        int8_shapes.clear()
         reset_kernel_counters()
         counter.take()
         torch.cuda.reset_peak_memory_stats()
@@ -4322,15 +4372,18 @@ def md_legs(spec: dict, records: dict, counter, ctc_shapes: list) -> None:
             runpy.run_module("llm_bci_tpu_torch.main", run_name="__main__", alter_sys=True)
         torch.cuda.synchronize()
         trainer = spy.trainers[-1]
+        axes = counter.on_axes(trainer.mesh) if trainer.mesh is not None else {}
         rec = {"wall_s": time.perf_counter() - t0, "steps": log, "launches": kernel_launches(),
-               "collectives": counter.take(), "rank": dist.get_rank(),
+               "axis_collectives": axes, "collectives": counter.take(), "rank": dist.get_rank(),
                "world": dist.get_world_size(), "backend": dist.get_backend(),
                "mesh": {k: int(v) for k, v in trainer.mesh_sizes.items()},
                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
                "eval": trainer.eval_history, "ctc_shapes": list(ctc_shapes),
+               "int8_shapes": dict(int8_shapes),
                "flash_fallback": getattr(getattr(trainer.model, "encoder", None),
                                          "flash_fallback", None),
                "running": running_averages(trainer.model),
+               "coords": dict(trainer.coords),
                "fsdp_groups": len(fsdp_groups(trainer.model, int(
                    (trainer.config.get("parallelism") or {}).get("fsdp_min_size", 1 << 20))))}
         if leg.get("step_reps"):
@@ -4347,6 +4400,12 @@ def md_legs(spec: dict, records: dict, counter, ctc_shapes: list) -> None:
             rec["decode"] = {"ids": ids.cpu().tolist(), "launches": kernel_launches(),
                              "captures": decode_graph.CAPTURES, "replays": decode_graph.REPLAYS,
                              "collectives": counter.take()}
+        if leg.get("lora"):
+            # the LoRA factors this rank holds (each whole on every tp
+            # rank) by their bytes' digest, to hold against the other ranks'
+            rec["lora"] = {n: hashlib.sha1((p.to_local() if hasattr(p, "to_local") else p)
+                                           .detach().cpu().numpy().tobytes()).hexdigest()
+                           for n, p in trainer.model.named_parameters() if ".lora_" in n}
         if leg.get("trained_out"):
             trained = {}
             for n, p in trainer.model.named_parameters():
@@ -4568,15 +4627,24 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
+        pt = ["-c", trainer_yaml(tmp, "trainer_ctc_ndt1.yaml", "patchtst.yaml"), "-k",
+              f"data.data_dir={mat}", f"training.train_batch_size={PATCHTST_CTC_BATCH}",
+              f"training.test_batch_size={PATCHTST_CTC_BATCH}",
+              f"training.max_steps={MD_SP_PT_STEPS}", f"training.eval_every={MD_SP_PT_STEPS}",
+              *common]
         # D: two ranks on the one card (gloo: NCCL refuses two ranks on one
-        # device), data=2, stochastic parts off so that one process can match
+        # device), data=2, stochastic parts off so that one process can match;
+        # D2 PatchTST ctc at data=2 in the same two ranks
         quiet = ["model.encoder.embedder.dropout=0.0", "model.encoder.transformer.dropout=0.0",
                  "model.encoder.smooth_and_noise.noise=false"]
         d_args = [*flagship, *quiet, "training.save_every=4"]
+        d2_args = [*pt, *MD_PT_QUIET]
+        data2 = ["parallelism.data=2", "parallelism.fsdp=1", "--device", "cuda:0"]
         state_out = os.path.join(tmp, "D_state.pt")
+        d2_trained = os.path.join(tmp, "D2_trained.pt")
         ranks_d = torchrun(tmp, "D", 2, {"backend": "gloo", "device": "cuda:0", "legs": [
-            {"name": "D", "argv": [*d_args, ck("D"), "parallelism.data=2", "parallelism.fsdp=1",
-                                   "--device", "cuda:0"], "state_out": state_out}]},
+            {"name": "D", "argv": [*d_args, ck("D"), *data2], "state_out": state_out},
+            {"name": "D2", "argv": [*d2_args, ck("D2"), *data2], "trained_out": d2_trained}]},
             timeout=600)
         d0, d1 = ranks_d[0]["D"], ranks_d[1]["D"]
         if losses(d0["steps"]) != losses(d1["steps"]) or d0["mesh"]["data"] != 2:
@@ -4585,7 +4653,9 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
         for rec in (d0, d1):
             if rec["launches"]["ctc_alpha_beta_kernel"] != 4:
                 raise AssertionError(f"leg D: CTC launches {rec['launches']}")
-            add_launches(launches, {k: v for k, v in rec["launches"].items() if v})
+        for rank in ranks_d:
+            for rec in rank.values():
+                add_launches(launches, {k: v for k, v in rec["launches"].items() if v})
         ref_d, trainer, _, _ = in_process([*d_args, ck("D_ref")])
         rel_d = check_losses("leg D", losses(d0["steps"]), losses(ref_d), MD_DATA2_RTOL)
         say("multi", f"D flagship data=2 on two gloo ranks of the one card: losses "
@@ -4607,6 +4677,9 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
             f"{len(saved)} leaves bit-equal to the two ranks' final state "
             f"({time.perf_counter() - t0:.1f} s)")
         del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["D2"] = patchtst_data_parallel_leg(ranks_d, d2_args, d2_trained, ck)
 
         # F: the port's dry run entry point at its default, one rank a card
         from llm_bci_tpu_torch.entry import dryrun_multichip
@@ -4620,14 +4693,10 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
         itr = ["-c", trainer_yaml(tmp, "trainer_ctc_ndt1.yaml", "itransformer.yaml"), "-k",
                f"data.data_dir={mat}", "model.encoder.embed_region=false",
                "training.max_steps=4", "training.eval_every=4", *common]
-        pt = ["-c", trainer_yaml(tmp, "trainer_ctc_ndt1.yaml", "patchtst.yaml"), "-k",
-              f"data.data_dir={mat}", f"training.train_batch_size={PATCHTST_CTC_BATCH}",
-              f"training.test_batch_size={PATCHTST_CTC_BATCH}",
-              f"training.max_steps={MD_SP_PT_STEPS}", f"training.eval_every={MD_SP_PT_STEPS}",
-              *common]
         report["S"] = sequence_parallel_legs(
             tmp, {"flagship": flagship, "mlm": mlm, "bci": bci, "itr": itr, "pt": pt},
             bci_ref, ck, launches)
+        report["T"] = sequence_tensor_parallel_leg(tmp, bci, bci_ref, ck, launches, power_line)
         report = {**report, "A": {"step_ms": a["step_ms"], "in_process_step_ms": ms_a,
                         "peak_gib": a["peak_gib"], "in_process_peak_gib": peak_a, "rel": rel_a,
                         "collectives_a_step": a["step_collectives"], "wall_s": a["wall_s"]},
@@ -4648,6 +4717,17 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
 def trainer_trained(trainer) -> dict:
     """The trainer's trainable parameters by name."""
     return {n: p for n, p in trainer.model.named_parameters() if p.requires_grad}
+
+
+def worst_leaves(trained: dict, want: dict, n: int = 3) -> list:
+    """The ``n`` leaves of ``want`` farthest from ``trained``'s by relative
+    L2, ``[(name, relative L2), ...]``, the farthest first."""
+    rel = []
+    for name, p in want.items():
+        w = p.detach().float()
+        d = float((trained[name].to(w.device).float() - w).norm())
+        rel.append((name, d / max(float(w.norm()), 1e-30)))
+    return sorted(rel, key=lambda item: -item[1])[:n]
 
 
 def params_rel(trained: dict, want: dict) -> tuple:
@@ -4790,8 +4870,9 @@ def sequence_parallel_legs(tmp: str, argv: dict, bci_ref: dict, ck, launches: di
         ref, trainer, peak, _ = in_process([*legs[name], ck(f"{name}_ref")])
         ref_launches = {k: v for k, v in kernel_launches().items() if k in CTC_KERNELS}
         rel = check_losses(f"leg {name}", losses(rec["steps"]), losses(ref), MD_SP_RTOL)
-        rel_p, worst = params_rel(torch.load(trained_out[name], weights_only=True),
-                                  trainer_trained(trainer))
+        rank0_trained = torch.load(trained_out[name], weights_only=True)
+        rel_p, worst = params_rel(rank0_trained, trainer_trained(trainer))
+        farthest = worst_leaves(rank0_trained, trainer_trained(trainer))
         running = running_averages(trainer.model)
         del trainer
         gc.collect()
@@ -4819,22 +4900,169 @@ def sequence_parallel_legs(tmp: str, argv: dict, bci_ref: dict, ck, launches: di
                                  f"process's (> {MD_SP_RTOL})")
         stats = (f"{len(running)} running averages equal on both ranks, {run_rel:.3g} from "
                  "one process's (relative L2); " if running else "")
+        leaves = ", ".join(f"{n} {r:.3g}" for n, r in farthest)
         say("multi", f"{name} {label} sp=2, {steps} steps + eval: losses "
             f"{[round(x, 4) for x in losses(rec['steps'])]} against one process "
             f"{[round(x, 4) for x in losses(ref)]}: max rel. difference {rel:.3g}; trained "
-            f"parameters {rel_p:.3g} (relative L2; max |diff| {worst:.3g}) (<= {MD_SP_RTOL}); "
+            f"parameters {rel_p:.3g} (relative L2; max |diff| {worst:.3g}) (<= {MD_SP_RTOL}), "
+            f"the farthest leaves (relative L2) {leaves}; "
             f"{stats}CTC launches {ref_launches} a rank as in one process, the fused one "
             f"on the whole {rec['ctc_shapes'][0]}; collectives {rec['collectives']}; peak "
             f"{peaks(name)} GiB a rank against {peak:.2f} in one process; {rec['wall_s']:.1f} s "
             "(gloo: no speed)")
         report[name] = {"rel": rel, "params_rel": rel_p, "params_max_abs": worst,
-                        "running_rel": run_rel, "peak_gib": [r[name]["peak_gib"] for r in ranks],
+                        "farthest_leaves": farthest, "running_rel": run_rel,
+                        "peak_gib": [r[name]["peak_gib"] for r in ranks],
                         "in_process_peak_gib": peak, "launches": ref_launches,
                         "collectives": rec["collectives"], "wall_s": rec["wall_s"]}
     wall = time.perf_counter() - t0
     say("multi", f"S in {wall:.1f} s with the process start of its two ranks and the "
         "in-process references")
     return {**report, "wall_s": wall}
+
+
+def patchtst_data_parallel_leg(ranks: list, argv: list, trained_out: str, ck) -> dict:
+    """Leg D2 of phase 18: PatchTST ``ctc`` at ``data=2`` (the two ranks'
+    records of leg D's run) against one process in this one: losses, trained
+    parameters, BatchNorm's running averages (the same on both ranks: the
+    statistics are the global batch's) and the CTC launches on each rank's
+    rows."""
+    import torch
+
+    recs = [r["D2"] for r in ranks]
+    reset_kernel_counters()
+    ref, trainer, peak, _ = in_process([*argv, ck("D2_ref")])
+    ref_launches = {k: v for k, v in kernel_launches().items() if k in CTC_KERNELS}
+    running = running_averages(trainer.model)
+    rel_p, worst = params_rel(torch.load(trained_out, weights_only=True),
+                              trainer_trained(trainer))
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    rel = check_losses("leg D2", losses(recs[0]["steps"]), losses(ref), MD_DATA2_RTOL)
+    if not rel_p <= MD_DATA2_RTOL:
+        raise AssertionError(f"leg D2: trained parameters {rel_p:.3g} from one process's "
+                             f"(> {MD_DATA2_RTOL})")
+    rows = [[PATCHTST_CTC_BATCH // 2, 52, V]] * MD_SP_PT_STEPS     # 52 patches of 520 bins
+    for rank, rec in enumerate(recs):
+        got = {k: rec["launches"][k] for k in CTC_KERNELS}
+        if rec["mesh"]["data"] != 2 or losses(rec["steps"]) != losses(recs[0]["steps"]):
+            raise AssertionError(f"leg D2 rank {rank}: mesh {rec['mesh']}, losses "
+                                 f"{losses(rec['steps'])} / {losses(recs[0]['steps'])}")
+        # one fused launch a step on the rank's rows; the eval's as often as
+        # one process launches them
+        if got["ctc_alpha_beta_kernel"] != MD_SP_PT_STEPS or rec["ctc_shapes"] != rows or \
+                not 1 <= got["ctc_alpha_kernel"] == ref_launches["ctc_alpha_kernel"]:
+            raise AssertionError(f"leg D2 rank {rank}: CTC launches {got} on "
+                                 f"{rec['ctc_shapes']}, one process {ref_launches}")
+        if rec["running"] != recs[0]["running"] or set(rec["running"]) != set(running) or \
+                len(running) != 16:
+            raise AssertionError(f"leg D2: rank {rank}'s {len(rec['running'])} running "
+                                 "averages differ from rank 0's or one process's set")
+    run_rel = params_rel({k: torch.tensor(v) for k, v in recs[0]["running"].items()},
+                         {k: torch.tensor(v) for k, v in running.items()})[0]
+    if not run_rel <= MD_RUNNING_RTOL:
+        raise AssertionError(f"leg D2: running averages {run_rel:.3g} from one process's "
+                             f"(> {MD_RUNNING_RTOL})")
+    say("multi", f"D2 PatchTST ctc data=2 on the two gloo ranks of D (256 x 4, context 520, "
+        f"52 patches, B={PATCHTST_CTC_BATCH}: 32 rows a rank, dropout and patch masking off), "
+        f"{MD_SP_PT_STEPS} steps + eval: losses {[round(x, 4) for x in losses(recs[0]['steps'])]}"
+        f" against one process {[round(x, 4) for x in losses(ref)]}: max rel. difference "
+        f"{rel:.3g}; trained parameters {rel_p:.3g} (relative L2; max |diff| {worst:.3g}) (<= "
+        f"{MD_DATA2_RTOL}); the 16 running averages equal on both ranks, {run_rel:.3g} from "
+        f"one process's (<= {MD_RUNNING_RTOL}); ctc_alpha_beta_kernel {MD_SP_PT_STEPS} a rank "
+        f"on {rows[0]}, ctc_alpha_kernel {ref_launches['ctc_alpha_kernel']} a rank as in one "
+        f"process; collectives {recs[0]['collectives']}; peak "
+        f"{' / '.join(format(r['peak_gib'], '.2f') for r in recs)} "
+        f"GiB a rank against {peak:.2f} in one process; {recs[0]['wall_s']:.1f} s (gloo: no "
+        "speed)")
+    return {"rel": rel, "params_rel": rel_p, "params_max_abs": worst, "running_rel": run_rel,
+            "launches": {k: recs[0]["launches"][k] for k in CTC_KERNELS},
+            "peak_gib": [r["peak_gib"] for r in recs], "in_process_peak_gib": peak,
+            "collectives": recs[0]["collectives"], "wall_s": recs[0]["wall_s"]}
+
+
+def tp2_int8_shares(n_layers: int, steps: int) -> dict:
+    """The int8 products of the BCI's Llama-2-7B-width forwards on a rank of
+    ``tp=2`` at M = 8 x 185, ``"M x K x N": launches`` over ``steps``
+    forwards: the column-parallel q / k / v and gate / up keep half their
+    output features, the row-parallel o and down half their input features,
+    ``lm_head`` stays whole."""
+    H, I, V_ = (LLAMA2_7B[k] for k in ("hidden_size", "intermediate_size", "vocab_size"))
+    M = BCI_B * BCI_PROMPT
+    out: dict = {}
+    for (k, n), per_forward in (((H, H // 2), 3 * n_layers), ((H // 2, H), n_layers),
+                                ((H, I // 2), 2 * n_layers), ((I // 2, H), n_layers),
+                                ((H, V_), 1)):
+        key = f"{M}x{k}x{n}"          # at small widths two products can share a shape
+        out[key] = out.get(key, 0) + per_forward * steps
+    return out
+
+
+def sequence_tensor_parallel_leg(tmp: str, bci: list, bci_ref: dict, ck, launches: dict,
+                                 power_line: str) -> dict:
+    """Leg T of phase 18: the BCI of leg C (32 layers x Llama-2-7B width,
+    int8 base, LoRA dropout on) at ``sp=2 x tp=2`` on four gloo ranks of the
+    one card, 2 steps, against leg C's in-process run: the trunk under
+    ``sp``, the Llama cut over ``tp``, each rank's int8 products at the
+    ``tp=2`` shares. Prints each rank's peak memory, ``sp`` and ``tp``
+    collective calls and wall time in a JSON line of its own."""
+    import torch
+
+    mesh = [f"parallelism.{k}={v}" for k, v in MD_T_MESH.items()]
+    trained_out = os.path.join(tmp, "T_trained.pt")
+    t0 = time.perf_counter()
+    ranks = [r["T"] for r in torchrun(tmp, "T", 4, {"backend": "gloo", "device": "cuda:0", "legs": [
+        {"name": "T", "argv": [*bci, ck("T"), *mesh, "--device", "cuda:0"],
+         "trained_out": trained_out, "lora": True}]}, timeout=900)]
+    wall = time.perf_counter() - t0
+    want = {INT8_CLUSTER: 0, INT8_TILED: 2 * INT8_PER_FORWARD}
+    shares = tp2_int8_shares(LLAMA2_7B["num_hidden_layers"], 2)
+    cells = set()
+    for rank, rec in enumerate(ranks):
+        got = {k: rec["launches"][k] for k in want}
+        if rec["mesh"] != MD_T_MESH or got != want or rec["int8_shapes"] != shares:
+            raise AssertionError(f"leg T rank {rank}: mesh {rec['mesh']}, int8 launches {got} "
+                                 f"(want {want}) on {rec['int8_shapes']} (want {shares})")
+        if losses(rec["steps"]) != losses(ranks[0]["steps"]):
+            raise AssertionError(f"leg T: rank {rank}'s losses {losses(rec['steps'])} differ "
+                                 f"from rank 0's {losses(ranks[0]['steps'])}")
+        # every LoRA factor whole and the same on every rank (the two tp
+        # ranks of each sp index, and the sp ranks)
+        if not rec["lora"] or rec["lora"] != ranks[0]["lora"]:
+            raise AssertionError(f"leg T: rank {rank}'s LoRA factors differ from rank 0's")
+        if not rec["axis_collectives"].get("tp all_reduce") or \
+                not rec["axis_collectives"].get("sp all_gather"):
+            raise AssertionError(f"leg T rank {rank}: collectives on the axes "
+                                 f"{rec['axis_collectives']}")
+        cells.add((rec["coords"]["sp"], rec["coords"]["tp"]))
+        add_launches(launches, {k: v for k, v in rec["launches"].items() if v})
+    if cells != {(0, 0), (0, 1), (1, 0), (1, 1)}:
+        raise AssertionError(f"leg T: the ranks' (sp, tp) {sorted(cells)}")
+    rel = check_losses("leg T", losses(ranks[0]["steps"]), losses(bci_ref["steps"]), MD_SP_RTOL)
+    rel_p, worst = params_rel(torch.load(trained_out, weights_only=True), bci_ref["trained"])
+    if not rel_p <= MD_SP_RTOL:
+        raise AssertionError(f"leg T: trained parameters {rel_p:.3g} from one process's "
+                             f"(> {MD_SP_RTOL})")
+    per_rank = [{"rank": r["rank"], "coords": r["coords"], "peak_gib": r["peak_gib"],
+                 "axis_collectives": r["axis_collectives"], "wall_s": r["wall_s"]}
+                for r in ranks]
+    print(json.dumps({"leg_T_ranks": per_rank, "card": power_line}), flush=True)
+    say("multi", f"T BCI int8 LoRA at 32 layers x Llama-2-7B width sp=2 x tp=2 on four gloo "
+        f"ranks of the one card (the trunk on 61 / 60 frames, its output gathered over sp; q / "
+        f"k / v / gate / up / o / down cut over tp, lm_head whole; LoRA dropout on), 2 steps: "
+        f"losses {[round(x, 4) for x in losses(ranks[0]['steps'])]} against one process (leg "
+        f"C's) {[round(x, 4) for x in losses(bci_ref['steps'])]}: max rel. difference "
+        f"{rel:.3g}; trained parameters {rel_p:.3g} (relative L2; max |diff| {worst:.3g}) (<= "
+        f"{MD_SP_RTOL}); {INT8_TILED} {2 * INT8_PER_FORWARD} a rank at the tp=2 shares "
+        f"{shares}, {INT8_CLUSTER} 0; the LoRA factors equal on all four ranks; peak "
+        f"{' / '.join(format(r['peak_gib'], '.2f') for r in ranks)} GiB a rank against "
+        f"{bci_ref['peak_gib']:.2f} in one process; {wall:.1f} s with the ranks' start (gloo: "
+        "no speed)")
+    return {"rel": rel, "params_rel": rel_p, "params_max_abs": worst,
+            "launches": {k: ranks[0]["launches"][k] for k in want},
+            "peak_gib": [r["peak_gib"] for r in ranks], "in_process_peak_gib": bci_ref["peak_gib"],
+            "collectives": ranks[0]["collectives"], "wall_s": wall}
 
 
 KERNELS = {
@@ -4896,16 +5124,24 @@ def main(only=None, profile=None) -> int:
         open(os.path.abspath(profile), "w").close()     # the phases append their tables
     results: dict = {}
     launches: dict = {}
-    if only in (None, "ctc"):
-        kernel_phase(results)
-    if only in (None, "flash"):
-        flash_kernel_phase(results)
-    if only in (None, "int8"):
-        int8_kernel_phase(results, power_line)
-    if only in (None, "ctc-main"):
-        launches.update(main_path_phase(power_line, profile))
-    if only in (None, "mlm-main"):
-        launches.update(mlm_main_path_phase(power_line, profile))
+    start = time.perf_counter()
+
+    def clock(phase: str, t0: float) -> None:
+        """The phase's wall clock and the run's so far (host clock, with
+        its processes' start): where the time limit goes."""
+        now = time.perf_counter()
+        say("time", f"{phase} {now - t0:.1f} s, {now - start:.1f} s since the builds")
+
+    for phase, run in (("ctc", lambda: kernel_phase(results)),
+                       ("flash", lambda: flash_kernel_phase(results)),
+                       ("int8", lambda: int8_kernel_phase(results, power_line)),
+                       ("ctc-main", lambda: launches.update(main_path_phase(power_line, profile))),
+                       ("mlm-main",
+                        lambda: launches.update(mlm_main_path_phase(power_line, profile)))):
+        if only in (None, phase):
+            t0 = time.perf_counter()
+            run()
+            clock(phase, t0)
     for phase, run in (("bci-serve", bci_serve_phase), ("bci-train", bci_train_phase),
                        ("cosmooth", cosmooth_phase),
                        ("phoneme-llm", lambda p, _: phoneme_llm_phase(p)),
@@ -4916,7 +5152,9 @@ def main(only=None, profile=None) -> int:
                        ("serve-export", serve_export_phase),
                        ("multi-device", multi_device_phase)):
         if only in (None, phase):
+            t0 = time.perf_counter()
             add_launches(launches, run(power_line, profile))
+            clock(phase, t0)
             # a trainer holds reference cycles: free what the phase left, so
             # that the next phase's peak memory is its own
             gc.collect()

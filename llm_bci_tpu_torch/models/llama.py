@@ -46,7 +46,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from llm_bci_tpu_torch.models.remat import remat_call
-from llm_bci_tpu_torch.ops.attention import dot_product_attention, dropout
+from llm_bci_tpu_torch.ops.attention import TimeSlice, dot_product_attention, dropout
 from llm_bci_tpu_torch.ops.quant import (
     QUANT_MODES,
     dequantize_int8,
@@ -198,7 +198,10 @@ class LoRADense(nn.Module):
                 if self.copy_deferred:
                     a, b = a.clone(), b.clone()
                 return y, a, b
-            h = dropout(x, self.lora_dropout, self.training, generator)
+            # a row-parallel share of the input features takes its part of
+            # the whole input's keep mask, as one device draws it
+            part = TimeSlice(self.in_features, self.tp.start) if row else None
+            h = dropout(x, self.lora_dropout, self.training, generator, part, dim=-1)
             y = y + (self.alpha / self.r) * ((h @ a) @ b)
         if row:
             # the partial products of the rank's input features, summed

@@ -26,8 +26,9 @@ split over ``sp`` in near-even parts, and a rank reads the bins of its
 patches (at stride = length no bin twice). ``std`` / ``mean`` scaling takes
 each series' statistics over the bins the ranks own, summed over ``sp``;
 BatchNorm in training normalises by the batch statistics summed over the
-ranks that hold the global batch (``data x sp``), with a gradient through
-them, and its running averages move alike on every rank. The sincos rows are
+ranks that hold the global batch (``batch_group``: ``data x sp``, ``sp`` or,
+without a time shard, ``data``), with a gradient through them, and its
+running averages move alike on every rank. The sincos rows are
 the rank's patches', attention reads K / V gathered over ``sp``, the masking
 noise and every dropout mask are drawn whole and sliced. The ``mlm`` head
 gives the rank's part of the loss, its outputs holding its patches on dim 2;
@@ -168,15 +169,15 @@ class FlaxBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor, seq_shard: Optional[SequenceShard] = None
-                ) -> torch.Tensor:
-        """With ``seq_shard`` in training, the batch statistics are those of
-        every rank's rows and patches (``seq_shard.batch_group``)."""
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
+        """With ``group`` in training, the batch statistics are those of the
+        rows of every rank of the group (their rows and patches make up the
+        global batch); the running averages move by them alike on every
+        rank."""
         shape = x.shape
         x2d = x.float().reshape(-1, shape[-1])
-        if self.training and seq_shard is not None:
-            out, mean, var = synced_batch_norm(x2d, self.weight, self.bias, self.eps,
-                                               seq_shard.batch_group)
+        if self.training and group is not None:
+            out, mean, var = synced_batch_norm(x2d, self.weight, self.bias, self.eps, group)
             self._move_averages(mean, var)
         elif self.training:
             with torch.no_grad():
@@ -206,10 +207,9 @@ class PatchTSTNorm(nn.Module):
         else:
             self.ln = nn.LayerNorm(d_model, eps=eps)
 
-    def forward(self, x: torch.Tensor, seq_shard: Optional[SequenceShard] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         with torch.autocast(x.device.type, enabled=False):
-            return self.bn(x, seq_shard) if hasattr(self, "bn") else self.ln(x.float())
+            return self.bn(x, group) if hasattr(self, "bn") else self.ln(x.float())
 
 
 class PatchTSTEncoderLayer(nn.Module):
@@ -234,12 +234,13 @@ class PatchTSTEncoderLayer(nn.Module):
         self.norm2 = PatchTSTNorm(*norm)
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None,
-                seq_shard: Optional[SequenceShard] = None) -> torch.Tensor:
-        """With ``seq_shard`` ``x`` holds the rank's patches (dim 1)."""
+                seq_shard: Optional[SequenceShard] = None, batch_group=None) -> torch.Tensor:
+        """With ``seq_shard`` ``x`` holds the rank's patches (dim 1); the
+        norms' batch statistics are taken over ``batch_group``."""
         time = None if seq_shard is None else seq_shard.token_time
         drop = lambda t, rate: dropout(t, rate, self.training, generator, time)
-        norm1 = lambda h: self.norm1(h, seq_shard)
-        norm2 = lambda h: self.norm2(h, seq_shard)
+        norm1 = lambda h: self.norm1(h, batch_group)
+        norm2 = lambda h: self.norm2(h, batch_group)
 
         def attn_block(h):
             BC, P, D = h.shape
@@ -296,9 +297,10 @@ class PatchTSTEncoder(nn.Module):
         return spikes / (total / seq_shard.bins + 1e-5)
 
     def forward(self, spikes: torch.Tensor, generator: Optional[torch.Generator] = None,
-                seq_shard: Optional[SequenceShard] = None):
+                seq_shard: Optional[SequenceShard] = None, batch_group=None):
         """With ``seq_shard`` ``spikes`` holds the bins of
-        ``seq_shard.slices["spikes"]``, and out come the rank's patches."""
+        ``seq_shard.slices["spikes"]``, and out come the rank's patches;
+        ``batch_group``: see :meth:`PatchTSTForSpikingActivity.forward`."""
         c = self.config
         B, T, C = spikes.shape
         spikes = self._scale(spikes, seq_shard)
@@ -326,7 +328,7 @@ class PatchTSTEncoder(nn.Module):
                     None if seq_shard is None else seq_shard.token_time, dim=2)
         x = x.reshape(B * C, Pr, D)
         for layer in self.layers:
-            x = layer(x, generator, seq_shard)
+            x = layer(x, generator, seq_shard, batch_group)
         return x.reshape(B, C, Pr, D).float(), mask, patch_input
 
 
@@ -475,10 +477,16 @@ class PatchTSTForSpikingActivity(ComponentCheckpoints, nn.Module):
         targets_lengths: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         seq_shard: Optional[SequenceShard] = None,
+        batch_group=None,
     ) -> PatchTSTOutput:
+        """``batch_group``: the process group whose ranks' rows (and, with
+        ``seq_shard``, time parts) make up the global batch; BatchNorm's
+        training statistics are taken over it, as the JAX trainer's program
+        takes them over the global batch (``None``: this rank holds it
+        whole)."""
         enc = self.config["encoder"]
         pl, ps = enc["patch_length"], enc["patch_stride"]
-        embedding, mask, patch_input = self.encoder(spikes, generator, seq_shard)
+        embedding, mask, patch_input = self.encoder(spikes, generator, seq_shard, batch_group)
         with torch.autocast(spikes.device.type, enabled=False):
             preds = self.decoder(embedding, generator,
                                  None if seq_shard is None else seq_shard.token_time)

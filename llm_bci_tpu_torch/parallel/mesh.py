@@ -81,18 +81,29 @@ def fsdp_mesh(mesh):
     hold gradients of the same parameters, which FSDP2 then averages with
     the data replicas' (``parallel/sequence.py`` gives the rule that makes
     the average one process's gradient), and the ``fsdp`` groups stay the
-    ranks that share a ``data`` and an ``sp`` index. ``sp > 1`` with ``tp >
-    1`` is refused (ROADMAP item 12d)."""
+    ranks that share a ``data`` and an ``sp`` index. Either way a rank's
+    mesh holds only the ranks of its ``tp`` index, whose tensors are the
+    same shares of the Llama. The ``data_sp`` mesh is made from process
+    groups (every rank makes the group of each ``(fsdp, tp)`` index, in one
+    order), not by slicing: a ``DeviceMesh`` slice must keep its dims'
+    order in the world's ranks, which ``data x sp`` across ``fsdp`` does
+    not."""
+    import torch.distributed as dist
     from torch.distributed.device_mesh import DeviceMesh
 
     if mesh["sp"].size() == 1:
         return mesh["data", "fsdp"]
-    if mesh["tp"].size() > 1:
-        raise ValueError("parallelism.sp > 1 with tp > 1: the port does not combine them "
-                         "(ROADMAP item 12d)")
     ranks = mesh.mesh                                  # (data, fsdp, sp, tp)
-    grid = ranks.permute(0, 2, 3, 1).reshape(-1, ranks.shape[1])
-    return DeviceMesh(mesh.device_type, grid, mesh_dim_names=("data_sp", "fsdp"))
+    mine = tp_index = None
+    for f in range(ranks.shape[1]):
+        for t in range(ranks.shape[3]):
+            members = ranks[:, f, :, t].flatten().tolist()
+            group = dist.new_group(members)
+            if dist.get_rank() in members:
+                mine, tp_index = group, t
+    grid = ranks[:, :, :, tp_index].permute(0, 2, 1).reshape(-1, ranks.shape[1])
+    return DeviceMesh.from_group([mine, mesh["fsdp"].get_group()], mesh.device_type,
+                                 mesh=grid, mesh_dim_names=("data_sp", "fsdp"))
 
 
 def coordinates(rank: int, sizes: Dict[str, int]) -> Dict[str, int]:

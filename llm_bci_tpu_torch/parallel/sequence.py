@@ -61,8 +61,7 @@ class SequenceShard:
     axis and are shard 0's (``tokens``, ``real_tokens`` and ``bounds``
     count them; :meth:`body` is the shard without them). ``group`` is the
     ``sp`` process group (``None`` in a pure function's test, where nothing
-    is gathered); ``stats_group`` the ranks whose parts make up the global
-    batch, for statistics over it (``None``: ``group``)."""
+    is gathered)."""
 
     n_sp: int
     index: int
@@ -74,7 +73,6 @@ class SequenceShard:
     slices: Dict[str, Tuple[int, int]]
     group: Optional[object] = None
     prefix: int = 0
-    stats_group: Optional[object] = None
 
     @property
     def token_range(self) -> Tuple[int, int]:
@@ -90,12 +88,6 @@ class SequenceShard:
         """The bins the rank computes as a part of the bin axis (noise and
         masker draws)."""
         return TimeSlice(self.bins, self.computed[0])
-
-    @property
-    def batch_group(self):
-        """The group whose ranks' parts make up the global batch (statistics
-        over the batch and the time axis sum over it)."""
-        return self.group if self.stats_group is None else self.stats_group
 
     @property
     def local_prefix(self) -> int:
@@ -117,8 +109,8 @@ class SequenceShard:
                                    real_tokens=self.real_tokens + prefix,
                                    bounds=(0,) + tuple(b + prefix for b in self.bounds[1:]))
 
-    def with_group(self, group, stats_group=None) -> "SequenceShard":
-        return dataclasses.replace(self, group=group, stats_group=stats_group)
+    def with_group(self, group) -> "SequenceShard":
+        return dataclasses.replace(self, group=group)
 
     def all_max(self, t: torch.Tensor) -> torch.Tensor:
         """The maximum of ``t`` over the group (a 0-dim tensor); the ranks'

@@ -23,13 +23,15 @@ from llm_bci_tpu_torch.parallel.tensor_parallel import apply_tp_plan
 
 class Plan:
     """What the plan did to a model: ``tp_dims`` (state_dict name -> the dim
-    split over ``tp``), the ``tp`` and ``fsdp`` groups and this rank's place
-    in ``tp``. The empty plan (one device) has no groups."""
+    split over ``tp``), the ``tp`` and ``fsdp`` groups, this rank's place in
+    ``tp`` and the 2-D mesh FSDP2 shards over (``dp_mesh``, whose first dim's
+    group holds the ranks of the global batch's rows and time parts). The
+    empty plan (one device) has no groups."""
 
     def __init__(self, tp_dims: Optional[Dict[str, int]] = None, tp_group=None,
-                 fsdp_group=None):
+                 fsdp_group=None, dp_mesh=None):
         self.tp_dims = tp_dims or {}
-        self.tp_group, self.fsdp_group = tp_group, fsdp_group
+        self.tp_group, self.fsdp_group, self.dp_mesh = tp_group, fsdp_group, dp_mesh
         self.tp_size = dist.get_world_size(tp_group) if tp_group is not None else 1
         self.tp_rank = dist.get_rank(tp_group) if tp_group is not None else 0
 
@@ -75,7 +77,7 @@ def apply_plan(model: torch.nn.Module, mesh, fsdp_min_size: int) -> Plan:
             module.copy_deferred = True
         fully_shard(module, mesh=dp_mesh, reshard_after_forward=reshard)
     fully_shard(model, mesh=dp_mesh, reshard_after_forward=reshard)
-    return Plan(tp_dims, tp_group, mesh["fsdp"].get_group())
+    return Plan(tp_dims, tp_group, mesh["fsdp"].get_group(), dp_mesh)
 
 
 def global_outputs(outputs: Dict[str, Any], group, gather: bool) -> Dict[str, Any]:

@@ -73,10 +73,12 @@ when metric fns run, the batch-dim outputs are gathered, so that the fns see
 the global batch as on one device. Only rank 0 prints, logs and writes; a
 checkpoint gathers the full state (``save_checkpoint``) and is written in
 the single-device format, which any world size resumes
-(:meth:`resume_from`). With ``sp > 1`` (sequence parallelism, every
-family) the ranks of an ``sp`` group hold the same rows and each a part of
-their time axis: ``to_device`` cuts each ``sp_keys`` column to the range
-the model's ``sequence_layout`` gives the rank (its tokens' bins and their
+(:meth:`resume_from`). Statistics over the batch (PatchTST's BatchNorm) are
+those of the global batch: a model whose ``forward`` takes ``batch_group``
+gets the group of the ranks whose rows (and time parts) make it up. With
+``sp > 1`` (sequence parallelism, every family) the ranks of an ``sp`` group
+hold the same rows and each a part of their time axis: ``to_device`` cuts each time-dim key to the range the
+model's ``sequence_layout`` gives the rank (its tokens' bins and their
 halo; a time dim that ``sp`` does not divide stays whole, and a batch with
 no ``spikes`` key, PhonemeLLM's, too: the ranks then compute the same and
 scale nothing, as the JAX trainer keeps such a key replicated), the model
@@ -93,9 +95,17 @@ part and taken once where every rank holds the whole, and the metric fns
 see the time-dim outputs gathered along each key's time dim. Random draws
 on that path are made at the whole sequence's shape and sliced, so ``sp``
 changes no result. The keys of the JAX trainer's ``parallelism`` block:
-``data`` / ``fsdp`` / ``sp`` / ``tp`` read; ``sp_keys`` read (the port
-splits exactly the JAX default's three spike keys, and refuses another
-list);
+``data`` / ``fsdp`` / ``sp`` / ``tp`` read; ``sp_keys`` accepted, any
+list, and changing no result: in the JAX trainer the list only places the
+data, and GSPMD gives every placement the same values, while the port's
+model needs its own time keys cut by its ``sequence_layout``. So the port
+cuts the keys the layout gives a range (``spikes``, ``spikes_mask``,
+``spikes_timestamp``) whether they are listed or not, and keeps every other
+key whole on every rank, listed or not (``phoneme_probs``, ``targets``, a
+key without a time dim): a run's results equal the default list's;
+``sp`` with ``tp`` (the BCI and PhonemeLLM): FSDP2's replicate dim is
+``data x sp`` at each ``tp`` index, the ``tp`` ranks holding their shares of
+the Llama (``parallel/mesh.py::fsdp_mesh``);
 ``multihost: true`` starts the process group from the launcher's
 environment (``torchrun`` sets ``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK``;
 the group is also started whenever those are set), the counterpart of
@@ -332,11 +342,6 @@ class Trainer:
 
         par = self.config.get("parallelism") or {}
         sizes = {k: int(par.get(k, -1 if k == "data" else 1)) for k in pmesh.AXES}
-        self.sp_keys = tuple(par.get("sp_keys") or SP_KEYS)
-        if sizes["sp"] != 1:
-            if set(self.sp_keys) != set(SP_KEYS):
-                raise ValueError(f"parallelism.sp_keys={list(self.sp_keys)}: the port splits "
-                                 f"the time dim of exactly {list(SP_KEYS)} (the JAX default)")
         if (par.get("multihost") or process.launcher_env()) and not dist.is_initialized():
             process.init_process(device)
         self.distributed = dist.is_available() and dist.is_initialized()
@@ -357,26 +362,6 @@ class Trainer:
         self.plan = tdist.Plan()
         self._batch_split = False
         self._seq_shard: Optional[SequenceShard] = None
-        self._stats_group = self._batch_group() if self.mesh_sizes["sp"] > 1 else None
-
-    def _batch_group(self):
-        """The group of this rank's ``data x sp`` ranks, whose parts make up
-        the global batch (statistics over the batch, as BatchNorm's, sum
-        over it); ``None`` when ``data`` is 1 (the ``sp`` group serves). Every
-        rank makes every such group, in one order."""
-        import torch.distributed as dist
-
-        if self.mesh_sizes["data"] == 1:
-            return None
-        mine = None
-        ranks = self.mesh.mesh                     # (data, fsdp, sp, tp)
-        for f in range(ranks.shape[1]):
-            for t in range(ranks.shape[3]):
-                members = ranks[:, f, :, t].flatten().tolist()
-                group = dist.new_group(members)
-                if dist.get_rank() in members:
-                    mine = group
-        return mine
 
     def print_v(self, *args, verbosity: int = 3) -> None:
         if verbosity >= self.verbosity and self.is_main_process:
@@ -449,8 +434,9 @@ class Trainer:
         """Batch columns that go to the model: the parameters of its
         ``forward``."""
         sig = inspect.signature(type(self.model).forward)
-        skip = {"self", "generator", "masker_overrides", "seq_shard"}
+        skip = {"self", "generator", "masker_overrides", "seq_shard", "batch_group"}
         self.model_inputs = [p for p in sig.parameters if p not in skip]
+        self._takes_batch_group = "batch_group" in sig.parameters
 
     def build_dataloaders(self) -> None:
         self.print_v("Building dataloaders", verbosity=0)
@@ -483,33 +469,41 @@ class Trainer:
         float64 columns (a JSON dataset's lists) arrive as float32, as JAX
         without 64-bit mode places them. With several ``data`` ranks, the
         rank's rows of the global batch (``parallel/mesh.py::batch_rows``).
-        With several ``sp`` ranks and a time dim that ``sp`` divides, each
-        ``sp_keys`` column is cut to the range that the model's
-        ``sequence_layout`` gives this rank (its tokens' bins and their halo,
-        read from the host batch that every rank holds), and the layout goes
-        to the model as ``seq_shard``; an indivisible time dim (or a batch
-        without ``spikes``) stays whole and the ``sp`` ranks compute the same,
-        as the JAX trainer keeps such a key whole."""
+        With several ``sp`` ranks and a time dim that ``sp`` divides, each key
+        that the model's ``sequence_layout`` gives a range is cut to this
+        rank's (its tokens' bins and their halo, read from the host batch
+        that every rank holds), and the layout goes to the model as
+        ``seq_shard``; an indivisible time dim (or a batch without
+        ``spikes``) stays whole and the ``sp`` ranks compute the same, as the
+        JAX trainer keeps such a key whole. A model that takes
+        ``batch_group`` gets the group whose ranks' parts make up the global
+        batch: ``data x sp``, ``sp`` or ``data``, whichever cut this batch
+        (``None`` when none did: the rank holds it whole)."""
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         n = next(iter(arrays.values())).shape[0] if arrays else 0
         start, stop = pmesh.batch_rows(n, self.mesh_sizes["data"], self.coords["data"])
-        self._batch_split = stop - start < n
+        split = self._batch_split = stop - start < n
         shard = None
         n_sp = self.mesh_sizes["sp"]
         spikes = arrays.get(SP_KEYS[0])
         if n_sp > 1 and spikes is not None and spikes.shape[1] % n_sp == 0:
             shard = self.model.sequence_layout(spikes.shape[1], n_sp, self.coords["sp"])
-            shard = shard.with_group(self.mesh["sp"].get_group(), self._stats_group)
+            shard = shard.with_group(self.mesh["sp"].get_group())
         self._seq_shard = shard
+        # FSDP2's replicate dim is data x sp (parallel/mesh.py::fsdp_mesh)
+        batch_group = (self.plan.dp_mesh.get_group(0) if split
+                       else None if shard is None else shard.group)
         out: Dict[str, Any] = {}
         for k, v in arrays.items():
             v = (v.astype(np.float32) if v.dtype == np.float64 else v)[start:stop]
-            if shard is not None and k in self.sp_keys:
+            if shard is not None and k in shard.slices:
                 lo, hi = shard.slices[k]
                 v = v[:, lo:hi]
             out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
         if shard is not None:
             out["seq_shard"] = shard
+        if self._takes_batch_group:
+            out["batch_group"] = batch_group
         return out
 
     def autocast(self):

@@ -1,5 +1,7 @@
 """Ranks of the port's multi-rank CPU tests (``tests/test_torch_port_parallel*.py``,
-``tests/test_torch_port_sequence_parallel*.py``).
+``tests/test_torch_port_sequence_parallel*.py``,
+``tests/test_torch_port_sequence_tensor_parallel.py``,
+``tests/test_torch_port_patchtst_data_parallel.py``).
 
 ``python tests/_torch_parallel_worker.py <job.pt>`` is started as every rank
 of one gloo group (``llm_bci_tpu_torch.parallel.process.spawn``); it runs the
@@ -178,7 +180,7 @@ def collectives(x, weight, bias, bn_x, bn_grad):
     linear.sum().backward()
     bn = FlaxBatchNorm(bn_x.shape[-1])
     part = bn_x[:, t0:t1].clone().requires_grad_(True)
-    out = bn(part, shard)
+    out = bn(part, shard.group)
     (out * bn_grad[:, t0:t1]).sum().backward()
     sent = broadcast_first(torch.full((3,), float(rank), requires_grad=True), shard)
     return {"index": index, "linear": linear.detach(), "weight_grad": layer.weight.grad,
@@ -313,8 +315,28 @@ def dryrun(tmp):
     return {"report": report if _rank() == 0 else None}
 
 
+def mesh_groups(meshes):
+    """For each ``(data, fsdp, sp, tp)`` of ``meshes``: the ranks of this
+    rank's groups on the two dims of ``parallel/mesh.py::fsdp_mesh``
+    (replicate, shard) and of its ``tp`` group, each in group order."""
+    import torch.distributed as dist
+
+    from llm_bci_tpu_torch.parallel import mesh as pmesh
+
+    out = {}
+    for data, fsdp, sp, tp in meshes:
+        mesh = pmesh.make_mesh(data=data, fsdp=fsdp, sp=sp, tp=tp)
+        dp = pmesh.fsdp_mesh(mesh)
+        out[(data, fsdp, sp, tp)] = {
+            "replicate": dist.get_process_group_ranks(dp.get_group(0)),
+            "shard": dist.get_process_group_ranks(dp.get_group(1)),
+            "tp": dist.get_process_group_ranks(mesh["tp"].get_group())}
+    return out
+
+
 CASES = {f.__name__: f for f in (train, train_fixed_noise, train_hooked_by_tree_flatten, resume,
-                                  resume_train, preempt, clip, decode, dryrun, collectives)}
+                                  resume_train, preempt, clip, decode, dryrun, collectives,
+                                  mesh_groups)}
 
 
 def main(job_path: str) -> None:
