@@ -284,9 +284,40 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    beside the in-process trainer's, collective calls and peak memory in a
    JSON line of its own; no time of D, S or T is a speed.
 
+19. ``training.chain_steps`` and ``training.cache_device_batches`` (``chain``,
+   run right after phase 9, whose trainer leg B reuses; ``training/step_graph.py``,
+   ``training/batch_cache.py``), cuDNN deterministic: A. the flagship of phase
+   5 on 256 trials (4 steps of B=64 an epoch) with ``chain_steps: 4`` for 8
+   steps (two chains, one graph: an eager step, a capture, 7 replays) against
+   ``chain_steps: 1``: losses within rtol 1e-5, trainable leaves within rtol
+   2e-4 / atol 1e-6 (the attention key biases, whose gradient is rounding
+   noise, within 2 * lr * steps), ``ctc_alpha_beta_kernel``'s host launches =
+   eager steps + captures; one replayed step against the same step run
+   eagerly from the same state, batch and generator state under
+   ``torch.use_deterministic_algorithms``: loss, parameters, AdamW moments and
+   steps and the generator's state bit-equal; ms a step, the device-busy
+   share and the host's launch calls a step, eager and replayed; D. the same
+   flagship chained over 3 epochs (12 steps) with ``cache_device_batches``
+   against streaming: the same examples in the same order, losses within rtol
+   1e-5, 4 batches copied from the host (epoch 1) against 12; C. NDT1-mlm at
+   phase 6's shape with ``CHAIN_MLM_LAYERS`` layers (widths kept), flash with
+   dropout 0.4 and remat, ``chain_steps: 2`` for 4 steps against
+   ``chain_steps: 1``: each step's flash dropout seeds (logged on the device by
+   a wrapper of ``draw_seed``, so that a replay writes its own) and masker
+   masks equal the unchained run's and differ from the other steps', every
+   recompute drew its forward's seed, the flash launches = (eager steps +
+   captures) x (4 forward, 2 dQ, dK/dV, delta); B. the BCI of phase 9 (32
+   layers x Llama-2-7B width, int8 base), ``chain_steps: 2`` for 4 steps
+   against ``chain_steps: 1`` from the same trainable leaves: losses within
+   rtol 1e-5, LoRA leaves within rtol 2e-4 / atol 1e-6, the frozen leaves
+   bit-identical, 225 ``tiled::int8_wgmma_kernel`` host launches a captured or
+   eager step; ms a step, host launch calls and device kernels a step, the
+   device-busy share and peak memory, eager and replayed, in a JSON line
+   ``chain_bci`` of its own.
+
 ``--only ctc|flash|int8|ctc-main|mlm-main|bci-serve|bci-train|cosmooth|
 phoneme-llm|eval-phonemes|itransformer|patchtst|trainer-state|warm-start|serve-export|
-multi-device`` runs
+multi-device|chain`` runs
 one phase (for development); ``--profile PATH`` writes ``torch.profiler`` tables of the
 NDT1-CTC and mlm train steps, the replayed BCI greedy token steps, the
 fine-tune step, one folded co-smoothing pass at each shape and the
@@ -1449,11 +1480,16 @@ def device_profile(fn, label: str, power_line: str, path=None, wall_ms_unprofile
         name = next((g for g, pats in groups.items() if any(p in key for p in pats)), other)
         shares[name] += us
         n_launches += count
+    # the host's launch calls (a replayed graph is one cudaGraphLaunch)
+    host_launches = sum(ev.count for ev in prof.key_averages()
+                        if ev.device_type == DeviceType.CPU
+                        and ev.key.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch")))
     busy = (f"{total / 1e3 / wall_ms_unprofiled:.3f} of the {wall_ms_unprofiled:.1f} ms the call "
             f"takes without the profiler, " if wall_ms_unprofiled else "")
     say(phase, f"{label}: device busy {total / 1e3:.1f} ms ({busy}"
         f"{total / 1e3 / wall_ms:.3f} of the {wall_ms:.1f} ms under the profiler), "
-        f"{n_launches} kernel launches; card {power_line}")
+        f"{n_launches} kernel launches on the device, {host_launches} launch calls on the "
+        f"host; card {power_line}")
     for name, us in shares.items():
         say(phase, f"  {us / 1e3:9.3f} ms {us / max(total, 1):7.3%} {name}")
     if path:
@@ -1467,7 +1503,8 @@ def device_profile(fn, label: str, power_line: str, path=None, wall_ms_unprofile
                 f.write(f"{us / 1e3:10.3f} ms {us / max(total, 1):7.3%} {name}\n")
             for us, count, key in rows[:30]:
                 f.write(f"{us / 1e3:10.3f} ms {us / total:7.3%} x{count:<6d} {key[:110]}\n")
-    return {"wall_ms": wall_ms, "busy_ms": total / 1e3, "launches": n_launches}
+    return {"wall_ms": wall_ms, "busy_ms": total / 1e3, "launches": n_launches,
+            "host_launches": host_launches}
 
 
 def build_bci(llm_path: str, quant, device):
@@ -1706,13 +1743,35 @@ def bci_serve_phase(power_line: str, profile) -> dict:
     return launches
 
 
+def build_bci_trainer(tmp: str, steps: int):
+    """The BCI LoRA fine-tune's trainer (``configs/trainer_bci.yaml``, 32
+    layers at Llama-2-7B width, int8 base) on pre-tokenized synthetic trials:
+    ``steps`` steps and an eval at the last."""
+    from llm_bci_tpu_torch import main as port_main
+
+    dataset = {"train": bci_rows(32, seed=1), "test": bci_rows(BCI_B, seed=2)}
+    args = port_main.parse_args([
+        "-c", os.path.join(REPO, "configs", "trainer_bci.yaml"),
+        "-k", f"method.model_kwargs.llm_path={write_llama_config(tmp, 32)}",
+        "method.model_kwargs.quantize=int8", f"training.train_batch_size={BCI_B}",
+        f"training.test_batch_size={BCI_B}", f"training.max_steps={steps}",
+        f"training.eval_every={steps}", "training.save_every=null",
+        f"dirs.checkpoint_dir={os.path.join(tmp, 'ckpt')}", "dirs.log_dir=null",
+        "verbosity=1",
+    ])
+    return port_main.build_trainer(args, dataset=dataset)
+
+
+# The BCI fine-tune's trainer, kept by phase 9 for the chain phase (leg B)
+# when both run: the 7B-width model is built once.
+KEPT: dict = {}
+
+
 def bci_train_phase(power_line: str, profile) -> dict:
     import torch
-    from llm_bci_tpu_torch import main as port_main
     from llm_bci_tpu_torch.ops import int8_matmul_cuda as ic
 
     steps = 4
-    dataset = {"train": bci_rows(32, seed=1), "test": bci_rows(BCI_B, seed=2)}
     losses = []
 
     def record(model, model_inputs, unused_inputs, outputs, **kwargs):
@@ -1720,18 +1779,9 @@ def bci_train_phase(power_line: str, profile) -> dict:
         return losses[-1]
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        args = port_main.parse_args([
-            "-c", os.path.join(REPO, "configs", "trainer_bci.yaml"),
-            "-k", f"method.model_kwargs.llm_path={write_llama_config(tmp, 32)}",
-            "method.model_kwargs.quantize=int8", f"training.train_batch_size={BCI_B}",
-            f"training.test_batch_size={BCI_B}", f"training.max_steps={steps}",
-            f"training.eval_every={steps}", "training.save_every=null",
-            f"dirs.checkpoint_dir={os.path.join(tmp, 'ckpt')}", "dirs.log_dir=null",
-            "verbosity=1",
-        ])
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        trainer = port_main.build_trainer(args, dataset=dataset)
+        trainer = build_bci_trainer(tmp, steps)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         model = trainer.model
@@ -1814,6 +1864,8 @@ def bci_train_phase(power_line: str, profile) -> dict:
     device_profile(lambda: [trainer.train_step(batch) for _ in range(2)],
                    "2 fine-tune steps, int8 base, 32 layers", power_line, profile,
                    2 * step_s * 1e3)
+    if "keep_bci" in KEPT:
+        KEPT["bci"] = trainer
     del trainer, model
     torch.cuda.empty_cache()
     return launches
@@ -5065,6 +5117,569 @@ def sequence_tensor_parallel_leg(tmp: str, bci: list, bci_ref: dict, ck, launche
             "collectives": ranks[0]["collectives"], "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# training.chain_steps and training.cache_device_batches (phase 19)
+# ---------------------------------------------------------------------------
+
+CHAIN_TRAIN = 256        # legs A / D: flagship trials, 4 steps of B=64 an epoch
+CHAIN_LOSS_RTOL = 1e-5   # the JAX test's tolerance (tests/test_trainer_ndt1.py, chain_steps)
+CHAIN_PARAM_TOL = {"rtol": 2e-4, "atol": 1e-6}
+CHAIN_MLM_LAYERS = 2     # leg C's depth (widths kept)
+
+
+def graph_counts() -> tuple:
+    from llm_bci_tpu_torch.training import step_graph
+
+    return step_graph.EAGER_STEPS, step_graph.CAPTURES, step_graph.REPLAYS
+
+
+def reset_chain_counters() -> None:
+    from llm_bci_tpu_torch.training import step_graph
+
+    reset_kernel_counters()
+    step_graph.reset_counters()
+
+
+def record_steps(trainer, log: list, extra=None) -> None:
+    """Replace the trainer's metric fns by one that appends each train step's
+    loss (and ``extra(model_inputs)``) to ``log``."""
+    def record(model, model_inputs, unused_inputs, outputs, **kwargs):
+        log.append((float(outputs["loss"]), extra(model_inputs) if extra else None))
+        return 0.0
+
+    trainer.metric_fns = {"record": record}
+    trainer.eval_metric_fns = {}
+
+
+# An attention key bias's gradient is rounding noise (0 in exact arithmetic):
+# Adam moves such a leaf by up to lr a step whatever the gradient's size, so
+# it is held to 2 * lr * steps (the rule of the multi-device phase's tests).
+NOISE_ONLY = re.compile(r"attn\.key\.bias$")
+
+
+def check_params(label: str, got: dict, want: dict, names=None, noise_atol: float = 0.0
+                 ) -> float:
+    """Every leaf of ``want`` (or those in ``names``) within
+    ``CHAIN_PARAM_TOL`` of ``got``'s, a noise-only leaf within
+    ``noise_atol``; returns the largest difference of the others."""
+    import torch
+
+    worst = 0.0
+    for name in names or want:
+        a, b = got[name].float(), want[name].float()
+        diff = float((a - b).abs().max())
+        if NOISE_ONLY.search(name):
+            ok = diff <= noise_atol
+        else:
+            ok = bool(torch.allclose(a, b, **CHAIN_PARAM_TOL))
+            worst = max(worst, diff)
+        if not ok:
+            raise AssertionError(f"{label}: {name} differs by {diff:.3g}")
+    return worst
+
+
+def flagship_chain_trainer(mat: str, ckpt: str, chain: int, steps: int, epochs: int,
+                           dataset=None, *extra):
+    """The flagship of phase 5 (``configs/trainer_ctc_ndt1.yaml``, 5 x 1024,
+    bf16) on the ``CHAIN_TRAIN`` trials, ``chain_steps`` = ``chain``."""
+    from llm_bci_tpu_torch import main as port_main
+
+    args = port_main.parse_args([
+        "-c", os.path.join(REPO, "configs", "trainer_ctc_ndt1.yaml"),
+        "-k", f"data.data_dir={mat}", f"dirs.checkpoint_dir={ckpt}", "dirs.log_dir=null",
+        "verbosity=1", f"training.max_steps={steps}", f"training.num_epochs={epochs}",
+        "training.eval_every=null", "training.save_every=null",
+        f"training.chain_steps={chain}", *extra])
+    return port_main.build_trainer(args, dataset=dataset)
+
+
+def trainer_snapshot(trainer) -> dict:
+    """Parameters, AdamW state, gradients, generator state and step counts,
+    copied."""
+    opt = trainer.optimizer.state
+    return {
+        "params": {n: p.detach().clone() for n, p in zip(trainer.trainable_names,
+                                                          trainer.trainable)},
+        "opt": {n: {k: v.clone() for k, v in opt[p].items()}
+                for n, p in zip(trainer.trainable_names, trainer.trainable) if p in opt},
+        "grads": {n: p.grad.clone() for n, p in zip(trainer.trainable_names, trainer.trainable)
+                  if p.grad is not None},
+        "generator": trainer.generator.get_state(),
+        "counts": (trainer.n_micro, trainer.n_updates),
+    }
+
+
+def restore_snapshot(trainer, snap: dict) -> None:
+    """Write ``snap`` back in place (a step graph holds these addresses)."""
+    import torch
+
+    with torch.no_grad():
+        for n, p in zip(trainer.trainable_names, trainer.trainable):
+            p.copy_(snap["params"][n])
+            if n in snap["grads"]:
+                p.grad.copy_(snap["grads"][n])
+            for k, v in snap["opt"].get(n, {}).items():
+                trainer.optimizer.state[p][k].copy_(v)
+    trainer.generator.set_state(snap["generator"])
+    trainer.n_micro, trainer.n_updates = snap["counts"]
+
+
+def replay_against_eager(trainer, items: list) -> list:
+    """One step replayed from the graph of its signature against the same
+    step run eagerly from the same state, batch and generator state (the
+    graph's eager first step and its capture run first): the names of what
+    differs in any bit among the loss, the parameters, the AdamW moments and
+    steps, and the generator's state after the step."""
+    import torch
+
+    list(trainer.chain(items[:2]))
+    snap = trainer_snapshot(trainer)
+    replayed = next(trainer.chain(items[2:3]))
+    after = trainer_snapshot(trainer)
+    restore_snapshot(trainer, snap)
+    update = (trainer.n_micro + 1) % trainer.grad_accum == 0
+    eager = trainer.backward(trainer.to_device(items[2][1]), update)
+    trainer._advance(update)
+    torch.cuda.synchronize()
+    now = trainer_snapshot(trainer)
+    differ = [] if torch.equal(replayed["loss"], eager["loss"]) else ["loss"]
+    differ += [f"param {n}" for n, v in after["params"].items()
+               if not torch.equal(v, now["params"][n])]
+    differ += [f"AdamW {k} of {n}" for n, state in after["opt"].items() for k, v in state.items()
+               if not torch.equal(v, now["opt"][n][k])]
+    if not torch.equal(after["generator"], now["generator"]):
+        differ.append("generator state")
+    trainer.free_graphs()
+    return differ
+
+
+def steady_chain_ms(trainer, items: list, reps: int) -> float:
+    """ms a step of chains over ``items`` (their graph made first)."""
+    import torch
+
+    list(trainer.chain(items))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        list(trainer.chain(items))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / (reps * len(items)) * 1e3
+
+
+def chain_flagship_leg(tmp: str, mat: str, power_line: str) -> tuple:
+    """Leg A: the flagship with ``chain_steps: 4`` for 8 steps (2 epochs of
+    one chain) against ``chain_steps: 1``; a replayed step against the same
+    step run eagerly, bit for bit; the fused CTC kernel's launches
+    reconciled; step times and the device-busy share of both."""
+    import torch
+    from llm_bci_tpu_torch.ops import ctc_cuda
+    from llm_bci_tpu_torch.training import step_graph
+
+    steps, K = 8, 4
+    runs, dataset, launches = {}, None, {}
+    for chain in (1, K):
+        trainer = flagship_chain_trainer(mat, os.path.join(tmp, f"a{chain}"), chain, steps, 2,
+                                         dataset)
+        dataset = trainer.dataset
+        log: list = []
+        record_steps(trainer, log)
+        reset_chain_counters()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        runs[chain] = {"trainer": trainer, "losses": [l for l, _ in log],
+                       "trained": {n: p.detach().clone() for n, p in
+                                   trainer_trained(trainer).items()},
+                       "fused": ctc_cuda.FUSED_LAUNCHES, "alpha": ctc_cuda.FWD_LAUNCHES,
+                       "graph": graph_counts(), "wall": time.perf_counter() - t0,
+                       "capture_s": step_graph.CAPTURE_SECONDS}
+        add_launches(launches, kernel_launches())
+    one, chained = runs[1], runs[K]
+    eager_steps, captures, replays = chained["graph"]
+    if (eager_steps, captures, replays) != (1, 1, steps - 1):
+        raise AssertionError(f"leg A: eager steps, captures, replays {chained['graph']}, want "
+                             f"(1, 1, {steps - 1}): two chains of {K}, one graph")
+    if chained["fused"] != eager_steps + captures or one["fused"] != steps or chained["alpha"]:
+        raise AssertionError(f"leg A: ctc_alpha_beta_kernel host launches {chained['fused']} "
+                             f"(want eager steps + captures = {eager_steps + captures}), "
+                             f"{one['fused']} unchained (want {steps})")
+    rel = check_losses("leg A chained against chain_steps: 1", chained["losses"], one["losses"],
+                       CHAIN_LOSS_RTOL)
+    lr = float(chained["trainer"].config.optimizer.lr)
+    worst = check_params("leg A chained against chain_steps: 1", chained["trained"],
+                         one["trained"], noise_atol=2 * lr * steps)
+    trainer = chained["trainer"]
+    say("chain", f"A. flagship, chain_steps {K}, {steps} steps (two chains) in "
+        f"{chained['wall']:.1f} s against {one['wall']:.1f} s unchained: losses within "
+        f"{rel:.3g} (bit-equal: {chained['losses'] == one['losses']}), trained leaves within "
+        f"{worst:.3g} of chain_steps: 1 (the attention key biases, rounding noise, within "
+        f"2 * lr * steps); "
+        f"ctc_alpha_beta_kernel {chained['fused']} host launches = eager steps {eager_steps} + "
+        f"captures {captures}, {eager_steps + replays} on the device = eager steps + replays "
+        f"{replays}; the capture took {chained['capture_s']:.2f} s of the host")
+
+    items = [(None, mi, ui) for mi, ui in trainer.train_dataloader][:3]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        differ = replay_against_eager(trainer, items)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if differ:
+        raise AssertionError(f"leg A: the replayed step differs from the eager one in "
+                             f"{differ[:8]} ({len(differ)} in all)")
+    say("chain", f"A. one replayed step against the same step run eagerly (deterministic "
+        f"algorithms): loss, {len(trainer.trainable)} parameters, their AdamW moments and "
+        "steps and the generator's state bit-equal")
+
+    # both timed on one batch on the device: the chained steps copy it into
+    # the graph's slots, the eager ones read it where it lies
+    eager_trainer = one["trainer"]
+    batch = eager_trainer.to_device(items[0][1])
+    batch_items = [(batch, items[0][1], items[0][2])] * K
+    eager_ms = steady_step_ms_on(eager_trainer, batch, 10)
+    eager_prof = device_profile(lambda: [eager_trainer.train_step(batch) for _ in range(K)],
+                                f"{K} eager flagship steps", power_line, None, K * eager_ms,
+                                phase="chain")
+    chain_ms = steady_chain_ms(trainer, batch_items, 5)
+    chain_prof = device_profile(lambda: list(trainer.chain(batch_items)),
+                                f"{K} replayed flagship steps (one chain)", power_line, None,
+                                K * chain_ms, phase="chain")
+    trainer.free_graphs()
+    say("chain", f"A. flagship step (B=64, T'=121, 5x1024, bf16): {eager_ms:.2f} ms eager, "
+        f"{chain_ms:.2f} ms replayed; device busy {eager_prof['busy_ms'] / K / eager_ms:.3f} "
+        f"against {chain_prof['busy_ms'] / K / chain_ms:.3f}; host launch calls a step "
+        f"{eager_prof['host_launches'] / K:.0f} against {chain_prof['host_launches'] / K:.0f}; "
+        f"card {power_line}")
+    del runs, trainer, eager_trainer
+    return launches, dataset
+
+
+def steady_step_ms_on(trainer, batch, reps: int) -> float:
+    import torch
+
+    for _ in range(2):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        trainer.train_step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def chain_cache_leg(tmp: str, mat: str, dataset, power_line: str) -> dict:
+    """Leg D: the flagship chained (``chain_steps: 4``) for 3 epochs with
+    ``cache_device_batches`` against the same run streaming: the same
+    examples in the same order and the same losses; the cached run copies
+    its first epoch's batches from the host and none after."""
+    import torch
+
+    steps, launches, runs = 12, {}, {}
+    fingerprint = lambda mi: np.asarray(mi["spikes"], np.float64).sum(axis=(1, 2)).tolist()
+    for cache in (False, True):
+        trainer = flagship_chain_trainer(mat, os.path.join(tmp, f"d{cache}"), 4, steps, 3,
+                                         dataset, f"training.cache_device_batches={cache}")
+        log: list = []
+        record_steps(trainer, log, fingerprint)
+        reset_chain_counters()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        runs[cache] = {"log": log, "host": trainer.host_batches, "graph": graph_counts(),
+                       "wall": time.perf_counter() - t0}
+        add_launches(launches, kernel_launches())
+        del trainer
+    stream, cached = runs[False], runs[True]
+    per_epoch = CHAIN_TRAIN // 64
+    if [o for _, o in cached["log"]] != [o for _, o in stream["log"]]:
+        raise AssertionError("leg D: the cached epochs visit other examples than streaming")
+    if stream["host"] != steps or cached["host"] != per_epoch:
+        raise AssertionError(f"leg D: {cached['host']} batches copied from the host with the "
+                             f"cache (want {per_epoch}, the first epoch's), {stream['host']} "
+                             f"streaming (want {steps})")
+    rel = check_losses("leg D cached against streaming", [l for l, _ in cached["log"]],
+                       [l for l, _ in stream["log"]], CHAIN_LOSS_RTOL)
+    say("chain", f"D. cache_device_batches, flagship chained over 3 epochs ({steps} steps, "
+        f"graph eager / captures / replays {cached['graph']}): epochs 2-3 visit the streaming "
+        f"order; batches copied from the host {cached['host']} (epoch 1) against "
+        f"{stream['host']}; losses within {rel:.3g} of the streaming run (bit-equal: "
+        f"{[l for l, _ in cached['log']] == [l for l, _ in stream['log']]}); "
+        f"{cached['wall']:.1f} s against {stream['wall']:.1f} s")
+    return launches
+
+
+class SeedLog:
+    """Every flash dropout seed a step draws (``draw_seed`` in NDT1), copied
+    on the device into ``buf`` in the order drawn: a copy that a capture
+    holds, so that a replay writes its own seeds there."""
+
+    def __init__(self, n: int):
+        import torch
+        from llm_bci_tpu_torch.models import ndt1
+
+        self.ndt1, self.real, self.n = ndt1, ndt1.draw_seed, n
+        self.buf = torch.zeros(n, dtype=torch.int32, device="cuda")
+        self.pos = 0
+
+        def logged(generator, device):
+            seed = self.real(generator, device)
+            self.buf[self.pos:self.pos + 1].copy_(seed)
+            self.pos += 1
+            return seed
+
+        ndt1.draw_seed = logged
+
+    def restore(self) -> None:
+        self.ndt1.draw_seed = self.real
+
+
+def trace_steps(trainer, log: SeedLog, seeds: list, masks: list) -> None:
+    """After each train step of ``trainer`` (chained or single), its seeds and
+    its masker's mask."""
+    chain, single = trainer.chain, trainer.train_step
+
+    def traced_chain(items):
+        steps = chain(items)
+        while True:
+            log.pos = 0
+            out = next(steps, None)
+            if out is None:
+                return
+            seeds.append(log.buf.clone())
+            masks.append(out["mask"])
+            yield out
+
+    def traced_single(batch):
+        log.pos = 0
+        out = single(batch)
+        if log.pos != log.n:
+            raise AssertionError(f"leg C: {log.pos} flash seeds drawn in a step, want {log.n}")
+        seeds.append(log.buf.clone())
+        masks.append(out["mask"].clone())
+        return out
+
+    trainer.chain, trainer.train_step = traced_chain, traced_single
+
+
+def chain_mlm_leg(tmp: str, power_line: str) -> dict:
+    """Leg C: NDT1-mlm at T=1024 (``CHAIN_MLM_LAYERS`` layers, widths kept)
+    through the flash kernels with dropout 0.4 and remat, ``chain_steps: 2``
+    over 4 steps against ``chain_steps: 1``: each step's flash seeds (its
+    forward's and its recompute's) and masker mask differ from the other
+    steps' and equal the unchained run's; the flash launches reconciled."""
+    import torch
+    from llm_bci_tpu_torch import main as port_main
+    from llm_bci_tpu_torch.ops import flash_attention_cuda as fc
+
+    steps, K, L = 4, 2, CHAIN_MLM_LAYERS
+    write_spike_pickle(os.path.join(tmp, "spikes.pkl"))
+    log = SeedLog(2 * L)         # a forward's seed and its recompute's, a layer
+    runs, dataset, launches = {}, None, {}
+    try:
+        for chain in (1, K):
+            args = port_main.parse_args([
+                "-c", os.path.join(REPO, "configs", "trainer_ssl_ndt1.yaml"),
+                "-k", *MLM_OVERRIDES, f"data.data_dir={tmp}", "data.data_file=spikes.pkl",
+                f"model.encoder.transformer.n_layers={L}", "model.encoder.remat=true",
+                f"training.max_steps={steps}", "training.num_epochs=2",
+                "training.eval_every=null", "training.save_every=null",
+                f"training.chain_steps={chain}",
+                f"dirs.checkpoint_dir={os.path.join(tmp, f'c{chain}')}", "dirs.log_dir=null",
+                "verbosity=1"])
+            trainer = port_main.build_trainer(args, dataset=dataset)
+            dataset = trainer.dataset
+            losses_log: list = []
+            record_steps(trainer, losses_log)
+            seeds, masks = [], []
+            trace_steps(trainer, log, seeds, masks)
+            reset_chain_counters()
+            trainer.train()
+            torch.cuda.synchronize()
+            runs[chain] = {"seeds": [s.cpu() for s in seeds], "masks": masks,
+                           "losses": [l for l, _ in losses_log], "graph": graph_counts(),
+                           "flash": {FWD_WG: fc.FWD_LAUNCHES, DQ_WG: fc.BWD_DQ_LAUNCHES,
+                                     DKV_WG: fc.BWD_DKV_LAUNCHES,
+                                     "flash_delta_kernel": fc.BWD_DELTA_LAUNCHES}}
+            add_launches(launches, kernel_launches())
+            del trainer
+    finally:
+        log.restore()
+    one, chained = runs[1], runs[K]
+    eager_steps, captures, replays = chained["graph"]
+    if eager_steps + replays != steps or captures != 1:
+        raise AssertionError(f"leg C: eager steps, captures, replays {chained['graph']}")
+    host = eager_steps + captures
+    want = {FWD_WG: 2 * L * host, DQ_WG: L * host, DKV_WG: L * host,
+            "flash_delta_kernel": L * host}
+    if chained["flash"] != want or one["flash"][FWD_WG] != 2 * L * steps:
+        raise AssertionError(f"leg C: flash host launches {chained['flash']}, want {want} "
+                             f"(a forward and a recompute a layer); unchained {one['flash']}")
+    for i in range(steps):
+        s, e = chained["seeds"][i], one["seeds"][i]
+        if not torch.equal(s, e) or not torch.equal(chained["masks"][i], one["masks"][i]):
+            raise AssertionError(f"leg C: step {i + 1}'s seeds {s.tolist()} / mask differ from "
+                                 f"the unchained run's {e.tolist()}")
+        if not torch.equal(s[L:], s[:L].flip(0)):
+            raise AssertionError(f"leg C: step {i + 1}'s recompute drew seeds {s[L:].tolist()}, "
+                                 f"its forward {s[:L].tolist()}")
+    firsts = [tuple(s[:L].tolist()) for s in chained["seeds"]]
+    if len(set(firsts)) != steps or any(torch.equal(chained["masks"][i], chained["masks"][i + 1])
+                                        for i in range(steps - 1)):
+        raise AssertionError(f"leg C: replays repeat their seeds {firsts} or masks")
+    rel = float(np.max(np.abs(np.subtract(chained["losses"], one["losses"]))
+                       / np.abs(one["losses"])))
+    say("chain", f"C. NDT1-mlm T=1024, {L} x 1024, flash with dropout 0.4 and remat, chain_steps "
+        f"{K}, {steps} steps (graph eager / captures / replays {chained['graph']}): every "
+        f"step's flash seeds (forward = recompute) and masks differ from the others' and equal "
+        f"the unchained run's; flash host launches {chained['flash']} = (eager steps + "
+        f"captures) x (forward {2 * L}, dQ / dK/dV / delta {L}); losses within {rel:.3g} of "
+        "the unchained run's")
+    return launches
+
+
+def chain_bci_leg(tmp: str, power_line: str, base) -> dict:
+    """Leg B: the BCI LoRA fine-tune (32 layers at Llama-2-7B width, int8
+    base) of phase 9's trainer ``base``, ``chain_steps: 2`` for 4 steps
+    against ``chain_steps: 1`` from the same trainable leaves: losses and LoRA
+    leaves within the chain tolerance, the frozen leaves bit-identical, the
+    int8 launches reconciled; host launch calls, step ms, device-busy share
+    and peak memory of both."""
+    import torch
+    from llm_bci_tpu_torch.config import update_config
+    from llm_bci_tpu_torch.training.trainer import Trainer
+
+    steps, K = 4, 2
+    model = base.model
+    trains = trainer_trained(base)
+    start = {n: p.detach().clone() for n, p in trains.items()}
+    frozen = {k: v.clone() for k, v in model.state_dict().items() if k not in trains}
+    runs, launches = {}, {}
+    for chain in (1, K):
+        with torch.no_grad():
+            for n, p in trains.items():
+                p.copy_(start[n])
+        cfg = update_config(base.config, {
+            "training": {"chain_steps": chain, "max_steps": steps, "eval_every": None},
+            "dirs": {"checkpoint_dir": os.path.join(tmp, f"b{chain}")}})
+        trainer = Trainer(cfg, model=model, dataset=base.dataset, device=base.device)
+        log: list = []
+        record_steps(trainer, log)
+        reset_chain_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        runs[chain] = {"trainer": trainer, "losses": [l for l, _ in log],
+                       "trained": {n: p.detach().clone() for n, p in trains.items()},
+                       "int8": int8_launches(), "graph": graph_counts(),
+                       "wall": time.perf_counter() - t0,
+                       "peak": torch.cuda.max_memory_allocated() / 2 ** 30}
+        add_launches(launches, kernel_launches())
+    one, chained = runs[1], runs[K]
+    eager_steps, captures, replays = chained["graph"]
+    if (eager_steps, captures, replays) != (1, 1, steps - 1):
+        raise AssertionError(f"leg B: eager steps, captures, replays {chained['graph']}")
+    want = {INT8_CLUSTER: 0, INT8_TILED: INT8_PER_FORWARD * (eager_steps + captures)}
+    if chained["int8"] != want or one["int8"][INT8_TILED] != INT8_PER_FORWARD * steps:
+        raise AssertionError(f"leg B: int8 host launches {chained['int8']}, want {want}; "
+                             f"unchained {one['int8']}")
+    rel = check_losses("leg B chained against chain_steps: 1", chained["losses"], one["losses"],
+                       CHAIN_LOSS_RTOL)
+    lora = [n for n in one["trained"] if ".lora_" in n]
+    worst = check_params("leg B LoRA leaves", chained["trained"], one["trained"], lora)
+    others = max(float((chained["trained"][n] - one["trained"][n]).abs().max())
+                 for n in one["trained"] if n not in lora)
+    state = model.state_dict()
+    changed = [k for k, v in frozen.items() if not torch.equal(state[k], v)]
+    if changed:
+        raise AssertionError(f"leg B: frozen leaves changed: {changed[:5]}")
+    del frozen, state
+    say("chain", f"B. BCI fine-tune, 32 layers x Llama-2-7B width, int8 base, chain_steps {K}, "
+        f"{steps} steps: losses within {rel:.3g} of chain_steps: 1, {len(lora)} LoRA leaves "
+        f"within {worst:.3g} (encoder and projector within {others:.3g}), the frozen leaves "
+        f"bit-identical; {INT8_TILED} {chained['int8'][INT8_TILED]} host launches = "
+        f"{INT8_PER_FORWARD} x (eager steps {eager_steps} + captures {captures}), "
+        f"{INT8_PER_FORWARD * (eager_steps + replays)} on the device; peak memory "
+        f"{chained['peak']:.2f} GiB chained against {one['peak']:.2f} GiB")
+
+    # the two trainers share the model: the eager one's steps first, then
+    # the chained one's, each path timed on one batch on the device
+    eager, chained_trainer = one["trainer"], chained["trainer"]
+    _, mi, ui = next(iter(chained_trainer.batches(chained_trainer.train_dataloader)))
+    batch = eager.to_device(mi)
+    items = [(batch, mi, ui)] * K
+    torch.cuda.reset_peak_memory_stats()
+    eager_ms = steady_step_ms_on(eager, batch, 5)
+    eager_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    eager_prof = device_profile(lambda: [eager.train_step(batch) for _ in range(K)],
+                                f"{K} eager fine-tune steps", power_line, None, K * eager_ms,
+                                phase="chain")
+    torch.cuda.reset_peak_memory_stats()
+    chain_ms = steady_chain_ms(chained_trainer, items, 3)
+    chain_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved = torch.cuda.memory_reserved() / 2 ** 30
+    chain_prof = device_profile(lambda: list(chained_trainer.chain(items)),
+                                f"{K} replayed fine-tune steps (one chain)", power_line, None,
+                                K * chain_ms, phase="chain")
+    chained_trainer.free_graphs()
+    say("chain", f"B. fine-tune step (B={BCI_B} x {BCI_PROMPT} tokens): {eager_ms:.1f} ms eager, "
+        f"{chain_ms:.1f} ms replayed; host launch calls a step "
+        f"{eager_prof['host_launches'] / K:.0f} against {chain_prof['host_launches'] / K:.0f}, "
+        f"device kernels a step {eager_prof['launches'] / K:.0f} against "
+        f"{chain_prof['launches'] / K:.0f}; device busy "
+        f"{eager_prof['busy_ms'] / K / eager_ms:.3f} against "
+        f"{chain_prof['busy_ms'] / K / chain_ms:.3f}; peak memory of steady steps "
+        f"{eager_peak:.2f} GiB eager, {chain_peak:.2f} GiB with the graph ({reserved:.2f} GiB "
+        f"reserved); card {power_line}")
+    print(json.dumps({"chain_bci": {
+        "eager_ms": eager_ms, "chain_ms": chain_ms,
+        "host_launches": [eager_prof["host_launches"] / K, chain_prof["host_launches"] / K],
+        "device_kernels": [eager_prof["launches"] / K, chain_prof["launches"] / K],
+        "busy": [eager_prof["busy_ms"] / K / eager_ms, chain_prof["busy_ms"] / K / chain_ms],
+        "peak_gib": [eager_peak, chain_peak], "reserved_gib": reserved,
+        "run_peak_gib": [one["peak"], chained["peak"]]}}), flush=True)
+    del runs, eager, chained_trainer
+    return launches
+
+
+def chain_phase(power_line: str, profile=None) -> dict:
+    """Phase 19, ``training.chain_steps`` and ``training.cache_device_batches``:
+    legs A, D, C, then B on phase 9's trainer (built here under ``--only
+    chain``). cuDNN picks deterministic algorithms in the legs, as in the
+    runs they are held against."""
+    import torch
+
+    launches: dict = {}
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            t0 = time.perf_counter()
+            mat = write_mat_dataset(os.path.join(tmp, "mat"), n_train=CHAIN_TRAIN, n_test=4)
+            say("chain", f"{CHAIN_TRAIN} synthetic speechbci trials written in "
+                f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            counts, dataset = chain_flagship_leg(tmp, mat, power_line)
+            add_launches(launches, counts)
+            say("time", f"chain leg A {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            add_launches(launches, chain_cache_leg(tmp, mat, dataset, power_line))
+            say("time", f"chain leg D {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            add_launches(launches, chain_mlm_leg(tmp, power_line))
+            say("time", f"chain leg C {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            base = KEPT.pop("bci", None)
+            if base is None:
+                base = build_bci_trainer(tmp, 4)
+            add_launches(launches, chain_bci_leg(tmp, power_line, base))
+            del base
+            say("time", f"chain leg B {time.perf_counter() - t0:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        KEPT.clear()
+    return launches
+
+
 KERNELS = {
     # name of the kernel that runs at the timed shape: (source, the TPU kernel
     # it replaces). Float32 and head sizes without a wgmma plan take other
@@ -5142,8 +5757,10 @@ def main(only=None, profile=None) -> int:
             t0 = time.perf_counter()
             run()
             clock(phase, t0)
+    if only is None:
+        KEPT["keep_bci"] = True       # phase 9's trainer for the chain phase's leg B
     for phase, run in (("bci-serve", bci_serve_phase), ("bci-train", bci_train_phase),
-                       ("cosmooth", cosmooth_phase),
+                       ("chain", chain_phase), ("cosmooth", cosmooth_phase),
                        ("phoneme-llm", lambda p, _: phoneme_llm_phase(p)),
                        ("eval-phonemes", lambda p, _: eval_phonemes_phase(p)),
                        ("itransformer", itransformer_phase), ("patchtst", patchtst_phase),
@@ -5180,7 +5797,7 @@ if __name__ == "__main__":
                         choices=["ctc", "flash", "int8", "ctc-main", "mlm-main", "bci-serve",
                                  "bci-train", "cosmooth", "phoneme-llm", "eval-phonemes",
                                  "itransformer", "patchtst", "trainer-state", "warm-start",
-                                 "serve-export", "multi-device"])
+                                 "serve-export", "multi-device", "chain"])
     parser.add_argument("--profile", metavar="PATH", default=None,
                         help="write the torch.profiler tables of the CTC and mlm train steps, "
                              "the BCI greedy decode, the BCI fine-tune step, a folded "

@@ -31,7 +31,7 @@ passes ``neuron_regions_idx`` ``(B, N)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -136,11 +136,23 @@ def _isin(x: torch.Tensor, ids) -> torch.Tensor:
     return out
 
 
-def _pick_regions(cand: Sequence[int], n: int, generator, device) -> torch.Tensor:
-    """``n`` of the candidate ids, without replacement."""
-    cand = torch.as_tensor(list(cand), device=device)
-    perm = torch.randperm(len(cand), generator=generator, device=device)
-    return cand[perm[:n]]
+_IDS_ON_DEVICE: Dict[tuple, torch.Tensor] = {}
+
+
+def _pick_regions(cand: Sequence[int], n: int, generator, like: torch.Tensor) -> torch.Tensor:
+    """``n`` of the candidate ids, without replacement, on ``like``'s
+    device. The ids go there once (a train step that a CUDA graph holds
+    copies nothing from the host); a trace (fake tensors) makes its own."""
+    device = like.device
+    if type(like) is not torch.Tensor:
+        ids = torch.as_tensor(list(cand), device=device)
+    else:
+        key = (tuple(cand), str(device))
+        if key not in _IDS_ON_DEVICE:
+            _IDS_ON_DEVICE[key] = torch.as_tensor(list(cand), device=device)
+        ids = _IDS_ON_DEVICE[key]
+    perm = torch.randperm(len(ids), generator=generator, device=device)
+    return ids[perm[:n]]
 
 
 def apply_masker(
@@ -176,7 +188,11 @@ def apply_masker(
     if mode == "temporal":
         # The per-bin ratio shrinks by the span, so that the expected masked
         # fraction stays about ``ratio``.
-        expand = bool(_bernoulli(cfg.expand_prob, (), generator, dev))
+        flip = _bernoulli(cfg.expand_prob, (), generator, dev)
+        # a probability of 0 or 1 decides without reading the draw back, so
+        # that a CUDA graph can hold the step (training.chain_steps)
+        sure = cfg.expand_prob <= 0.0 or cfg.expand_prob >= 1.0
+        expand = cfg.expand_prob >= 1.0 if sure else bool(flip)
         timespan = (
             int(torch.randint(1, cfg.max_timespan + 1, (), generator=generator, device=dev))
             if expand else 1
@@ -224,7 +240,7 @@ def apply_masker(
             sel = override.bool()
         else:
             cand = cfg.target_region_ids if intra else cfg.mask_region_ids
-            picked = _pick_regions(cand, cfg.n_mask_regions, generator, dev)
+            picked = _pick_regions(cand, cfg.n_mask_regions, generator, spikes)
             sel = (neuron_regions_idx[..., None] == picked).any(-1)
         # inter: a ``ratio`` fraction of the picked regions' channels.
         # intra: everything outside the target region, and a ``ratio``

@@ -502,6 +502,7 @@ class NeuralEncoder(nn.Module):
         )
         self.remat = bool(config.get("remat", False))
         self.context_mask_np = create_context_mask(ctx["forward"], ctx["backward"], emb["max_F"])
+        self._context_on_device: Dict[tuple, torch.Tensor] = {}
         mode = tr.get("flash_attention", "auto")
         self.flash_mode = {True: "on", False: "off"}.get(mode, str(mode))
         self.flash_possible = (
@@ -540,6 +541,19 @@ class NeuralEncoder(nn.Module):
     def out_size(self) -> int:
         """Width of what :meth:`forward` returns."""
         return self.out_proj.out_size
+
+    def _context_rows(self, context_np, t0: int, t1: int, like: torch.Tensor) -> torch.Tensor:
+        """Rows ``t0:t1`` of the context mask on ``like``'s device, copied
+        there once a shape: a train step that a CUDA graph holds copies
+        nothing from the host. A trace (``torch.export``'s fake tensors)
+        makes its own copy."""
+        rows = lambda: torch.from_numpy(np.ascontiguousarray(context_np[t0:t1])).to(like.device)
+        if type(like) is not torch.Tensor:
+            return rows()
+        key = (context_np.shape, t0, t1, str(like.device))
+        if key not in self._context_on_device:
+            self._context_on_device[key] = rows()
+        return self._context_on_device[key]
 
     def _use_flash_now(self, T: int, sequence_sharded: bool = False) -> bool:
         """Per-call flash decision (``_use_flash_now`` of the JAX package):
@@ -601,13 +615,13 @@ class NeuralEncoder(nn.Module):
                 context_np = create_context_mask(c["forward"], c["backward"], Tn)
             if seq_shard is None:
                 attn_mask = make_attention_mask(
-                    spikes_mask, torch.from_numpy(context_np).to(x.device))
+                    spikes_mask, self._context_rows(context_np, 0, Tn, x))
             else:
                 # the rank's query rows against the whole sequence's keys
                 t0, t1 = seq_shard.token_range
                 attn_mask = make_attention_mask(
                     all_gather_time(spikes_mask, seq_shard),
-                    torch.from_numpy(np.ascontiguousarray(context_np[t0:t1])).to(x.device),
+                    self._context_rows(context_np, t0, t1, x),
                     n_queries=t1 - t0, query_offset=t0)
         for layer in self.layers:
             if self.remat:

@@ -272,6 +272,7 @@ class PatchTSTEncoder(nn.Module):
         if c.get("do_mask_input") and c.get("mask_type", "random") != "random":
             raise ValueError("Only random patch masking is implemented")
         self.config = c
+        self._pe_on_device: Dict[tuple, torch.Tensor] = {}
         self.patch_embed = nn.Linear(c["patch_length"], c["d_model"], bias=c.get("bias", True))
         self.layers = nn.ModuleList(
             PatchTSTEncoderLayer(c) for _ in range(c["num_hidden_layers"]))
@@ -295,6 +296,21 @@ class PatchTSTEncoder(nn.Module):
             return (spikes - mean) / (var.sqrt() + 1e-5)
         total = all_reduce_sum(own.abs().sum(dim=1, keepdim=True), seq_shard.group)
         return spikes / (total / seq_shard.bins + 1e-5)
+
+    def _position_encoding(self, P: int, D: int, p0: int, Pr: int, like: torch.Tensor
+                           ) -> torch.Tensor:
+        """Rows ``p0:p0 + Pr`` of the sincos table on ``like``'s device,
+        copied there once a shape: a train step that a CUDA graph holds
+        copies nothing from the host. A trace (``torch.export``'s fake
+        tensors) makes its own copy."""
+        table = lambda: torch.tensor(sincos_position_encoding(P, D)[p0:p0 + Pr],
+                                     device=like.device)
+        if type(like) is not torch.Tensor:
+            return table()
+        key = (P, D, p0, Pr, str(like.device))
+        if key not in self._pe_on_device:
+            self._pe_on_device[key] = table()
+        return self._pe_on_device[key]
 
     def forward(self, spikes: torch.Tensor, generator: Optional[torch.Generator] = None,
                 seq_shard: Optional[SequenceShard] = None, batch_group=None):
@@ -323,7 +339,7 @@ class PatchTSTEncoder(nn.Module):
 
         x = self.patch_embed(patches)
         Pr, D = x.shape[2], x.shape[3]
-        pe = torch.tensor(sincos_position_encoding(P, D)[p0:p0 + Pr], device=x.device)
+        pe = self._position_encoding(P, D, p0, Pr, x)
         x = dropout(x + pe, float(c.get("positional_dropout", 0.0)), self.training, generator,
                     None if seq_shard is None else seq_shard.token_time, dim=2)
         x = x.reshape(B * C, Pr, D)

@@ -23,7 +23,7 @@ and so change which examples share a batch.
 from __future__ import annotations
 
 import copy
-from typing import Any, Callable, Dict, Iterator, List, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -98,6 +98,7 @@ class HostDataLoader:
         self.seed = int(seed)
         self._next_epoch = 0
         self._skip_batches = 0
+        self.last_epoch: Optional[int] = None     # the epoch the last iter() walked
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -116,7 +117,7 @@ class HostDataLoader:
         return np.arange(n)
 
     def __iter__(self) -> Iterator[Tuple[Dict, Dict]]:
-        epoch = self._next_epoch
+        epoch = self.last_epoch = self._next_epoch
         self._next_epoch = epoch + 1
         skip, self._skip_batches = self._skip_batches, 0
         if hasattr(self.dataset, "set_epoch"):

@@ -126,8 +126,36 @@ their own, where one process would draw the rest of one stream (the JAX
 package folds the data index into the flash key instead,
 ``llm_bci_tpu/ops/flash_attention.py:558``).
 
-The TPU-only performance knobs ``chain_steps`` and ``cache_device_batches``
-change no result and are ignored.
+``training.chain_steps: K > 1`` runs K train steps of one batch signature in
+a row, as the JAX trainer runs them in one ``lax.scan`` program: a chain is
+taken when K batches of one signature (keys, shapes, dtypes) wait and no
+eval, save, profile or budget boundary falls inside it (one may be its last
+step); shorter runs (near a boundary, a shape change, an epoch's tail, the
+profiled steps) take the single step. Each step of a chain keeps its own
+bookkeeping: its outputs reach the readback with their own step label, the
+eval / save / budget logic runs for each, and a preemption is honoured at
+the chain's end, saved under the true step. On the card, in one process,
+each step of a chain replays the forward and backward (and at an update the
+clip) of one captured step of its signature and of its place in
+``gradient_accumulation_steps`` (closing an update or not) from a CUDA graph
+(``training/step_graph.py``): the batch is copied into the graph's slots,
+the outputs are copied out of the graph's before the readback holds them,
+and the AdamW update then runs eagerly, as a single step's does (its
+learning rate and bias corrections are host floats; an AdamW captured with
+them on the device moved the flagship's bf16 losses by up to 1.3e-4 in 8
+steps on an NVIDIA H100 80GB HBM3 at 700 W). Such a run keeps its gradients
+at fixed addresses (zeroed after an update instead of freed), which changes
+no value. The graphs, and the activations their pools hold, are freed at the
+end of :meth:`train`. On the CPU a chain's steps run eagerly on the graph's
+slots; under a process group they run eagerly through :meth:`train_step`
+(FSDP2's hooks and gloo's collectives are not captured: ROADMAP item 14b).
+Either way a chained run equals the unchained one.
+``training.cache_device_batches: true`` keeps a loader's collated columns on
+the device after its first complete pass and re-batches later epochs by a
+device gather in the streaming order (``training/batch_cache.py``); with
+chains the gather writes into the step graph's slots, so such an epoch
+copies no batch from the host. One process only (``not_ported`` under a
+process group: ROADMAP item 14b).
 """
 from __future__ import annotations
 
@@ -144,6 +172,7 @@ import numpy as np
 import torch
 import yaml
 
+from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.config import (
     DictConfig,
     config_from_kwargs,
@@ -160,8 +189,11 @@ from llm_bci_tpu_torch.parallel import process
 from llm_bci_tpu_torch.parallel.sequence import SP_KEYS, SequenceShard, whole_sequence_outputs
 from llm_bci_tpu_torch.training import checkpoint
 from llm_bci_tpu_torch.training import distributed as tdist
+from llm_bci_tpu_torch.training import step_graph
+from llm_bci_tpu_torch.training.batch_cache import DeviceBatchCache, PoolRows
 from llm_bci_tpu_torch.training.dataloader import HostDataLoader, freeze_pad_lengths
 from llm_bci_tpu_torch.training.optim import build_optimizer, clip_by_global_norm
+from llm_bci_tpu_torch.training.step_graph import TrainStepGraph, batch_signature
 
 DEFAULT_TRAINER_CONFIG = "configs/trainer.yaml"
 DTYPES = {None: torch.float32, "float32": torch.float32, "fp32": torch.float32,
@@ -282,6 +314,9 @@ class Trainer:
         self.config = update_config(default_trainer_config(), config)
         cfg = self.config
         self.setup_parallel(device)
+        if cfg.training.get("cache_device_batches") and self.distributed:
+            raise not_ported("training.cache_device_batches with several ranks",
+                             "Queue 1 item 14b")
         prec = cfg.get("precision") or {}
         if DTYPES[prec.get("param_dtype")] != torch.float32:
             raise ValueError("precision.param_dtype must be float32 (master weights)")
@@ -321,6 +356,12 @@ class Trainer:
             steps_per_epoch=len(self.train_dataloader),
             num_epochs=int(cfg.training.num_epochs),
         )
+        # training.chain_steps on the card in one process: captured steps,
+        # whose gradients stay at fixed addresses
+        self.chain_steps = max(1, int(cfg.training.get("chain_steps", 1) or 1))
+        self.captured = (self.chain_steps > 1 and self.device.type == "cuda"
+                         and not self.distributed)
+        self.graphs: Dict[tuple, TrainStepGraph] = {}
         self.n_updates = 0      # optimizer updates (the schedule's count)
         self.n_micro = 0        # train steps (micro-batches)
         self.metric_kwargs = dict(cfg.method.metric_kwargs)
@@ -328,6 +369,11 @@ class Trainer:
         self.metric_fns = metric_fns or {}
         self.eval_metric_fns = eval_metric_fns or {}
         self.eval_history: List[Dict[str, Any]] = []
+        self.host_batches = 0   # batches copied from the host (to_device)
+        self.batch_cache: Optional[DeviceBatchCache] = None
+        if cfg.training.get("cache_device_batches"):
+            self.batch_cache = DeviceBatchCache(
+                self.seed, self.to_device, lambda msg: self.print_v(msg, verbosity=1))
         n_params = sum(p.numel() for p in trainable)
         self.print_v(f"Model number of trainable parameters: {n_params:,}", verbosity=0)
 
@@ -464,7 +510,8 @@ class Trainer:
             seed=self.seed + 1,
         )
 
-    def to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+    def to_device(self, batch: Dict[str, Any], out: Optional[Dict[str, Any]] = None
+                  ) -> Dict[str, Any]:
         """Numpy columns -> tensors on the device (other columns stay out).
         float64 columns (a JSON dataset's lists) arrive as float32, as JAX
         without 64-bit mode places them. With several ``data`` ranks, the
@@ -478,7 +525,9 @@ class Trainer:
         JAX trainer keeps such a key whole. A model that takes
         ``batch_group`` gets the group whose ranks' parts make up the global
         batch: ``data x sp``, ``sp`` or ``data``, whichever cut this batch
-        (``None`` when none did: the rank holds it whole)."""
+        (``None`` when none did: the rank holds it whole). With ``out`` (a
+        step graph's slots) each tensor is copied into ``out``'s."""
+        self.host_batches += 1
         arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
         n = next(iter(arrays.values())).shape[0] if arrays else 0
         start, stop = pmesh.batch_rows(n, self.mesh_sizes["data"], self.coords["data"])
@@ -493,18 +542,20 @@ class Trainer:
         # FSDP2's replicate dim is data x sp (parallel/mesh.py::fsdp_mesh)
         batch_group = (self.plan.dp_mesh.get_group(0) if split
                        else None if shard is None else shard.group)
-        out: Dict[str, Any] = {}
+        dev: Dict[str, Any] = {}
         for k, v in arrays.items():
             v = (v.astype(np.float32) if v.dtype == np.float64 else v)[start:stop]
             if shard is not None and k in shard.slices:
                 lo, hi = shard.slices[k]
                 v = v[:, lo:hi]
-            out[k] = torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
+            v = torch.from_numpy(np.ascontiguousarray(v))
+            dev[k] = (v.to(self.device, non_blocking=True) if out is None
+                      else out[k].copy_(v, non_blocking=True))
         if shard is not None:
-            out["seq_shard"] = shard
+            dev["seq_shard"] = shard
         if self._takes_batch_group:
-            out["batch_group"] = batch_group
-        return out
+            dev["batch_group"] = batch_group
+        return dev
 
     def autocast(self):
         """``torch.autocast`` to ``precision.compute_dtype`` (off for float32)."""
@@ -512,6 +563,41 @@ class Trainer:
             self.device.type, dtype=self.compute_dtype,
             enabled=self.compute_dtype != torch.float32,
         )
+
+    def batches(self, loader, epoch: Optional[int] = None):
+        """``(source, model_inputs, unused_inputs)`` for each batch of a pass
+        over ``loader``: through the device-resident pool with
+        ``training.cache_device_batches`` (``training/batch_cache.py``),
+        else ``source`` is ``None`` (the host arrays are copied at the step)."""
+        if self.batch_cache is not None:
+            yield from self.batch_cache.batches(loader, epoch)
+            return
+        for model_inputs, unused_inputs in loader:
+            yield None, model_inputs, unused_inputs
+
+    def device_batch(self, source, model_inputs: Dict[str, Any],
+                     out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+        """The device batch of an item of :meth:`batches`; with ``out`` (a
+        step graph's slots) written into its tensors."""
+        if source is None:
+            return self.to_device(model_inputs, out=out)
+        if isinstance(source, PoolRows):
+            return source.gather(out)
+        if out is not None:
+            for k, v in source.items():
+                if torch.is_tensor(v):
+                    out[k].copy_(v)
+            return out
+        return source
+
+    @staticmethod
+    def batch_signature(source, model_inputs: Dict[str, Any]) -> tuple:
+        """The signature (keys, shapes, dtypes) of an item of :meth:`batches`."""
+        if source is None:
+            return batch_signature(model_inputs)
+        if isinstance(source, PoolRows):
+            return batch_signature(source.signature_batch())
+        return batch_signature(source)
 
     def _metrics(self, metric_fns, model_inputs, unused_inputs, outputs,
                  prepared: Dict[str, np.ndarray]) -> Dict[str, float]:
@@ -530,6 +616,16 @@ class Trainer:
     def train_step(self, dev_batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """One forward/backward on a device batch; an optimizer update every
         ``gradient_accumulation_steps`` calls. Returns the outputs dict."""
+        split = self._batch_split
+        update = (self.n_micro + 1) % self.grad_accum == 0
+        outputs = self.backward(dev_batch, update)
+        self._advance(update)
+        return self.global_outputs(outputs, split, gather=bool(self.metric_fns))
+
+    def backward(self, dev_batch: Dict[str, Any], update: bool) -> Dict[str, Any]:
+        """The device work of a train step up to the update (what a step
+        graph captures): forward and backward, and where the step closes an
+        update the clip. Returns the rank's outputs, detached."""
         self.model.train()
         split = self._batch_split
         with self.autocast():
@@ -547,19 +643,80 @@ class Trainer:
         if self._seq_shard is not None and self.model.sequence_outputs()[1]:
             loss = loss * self.mesh_sizes["sp"]
         loss.backward()
+        if update and self.grad_clip_norm:
+            self.grad_norm = clip_by_global_norm(
+                self.trainable, self.grad_clip_norm, self.tp_split,
+                fsdp_group=self.plan.fsdp_group, tp_group=self.plan.tp_group)
+        return {k: (v.detach() if torch.is_tensor(v) else v) for k, v in out.to_dict().items()}
+
+    def _advance(self, update: bool) -> None:
+        """The host's step counts after a step, and the AdamW update where it
+        closes one (eager: its learning rate and bias corrections are host
+        floats, so a chained step's update is the single step's)."""
         self.n_micro += 1
-        if self.n_micro % self.grad_accum == 0:
-            if self.grad_clip_norm:
-                self.grad_norm = clip_by_global_norm(
-                    self.trainable, self.grad_clip_norm, self.tp_split,
-                    fsdp_group=self.plan.fsdp_group, tp_group=self.plan.tp_group)
+        if update:
             for group in self.optimizer.param_groups:
                 group["lr"] = self.schedule(self.n_updates)
             self.optimizer.step()
-            self.optimizer.zero_grad(set_to_none=True)
+            # a captured step's gradients stay at their addresses
+            self.optimizer.zero_grad(set_to_none=not self.captured)
             self.n_updates += 1
-        outputs = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in out.to_dict().items()}
-        return self.global_outputs(outputs, split, gather=bool(self.metric_fns))
+
+    def chain(self, items: List[tuple]) -> Any:
+        """Train steps on ``items`` of :meth:`batches` (of one signature),
+        yielding each step's outputs as it is enqueued. In one process each
+        goes through the :class:`TrainStepGraph` of its signature and of
+        whether it closes an update (made at its first step): the batch into
+        its slots, the graph's outputs copied out, then the update. Under a
+        process group each is a :meth:`train_step`."""
+        for source, model_inputs, _ in items:
+            if self.distributed:
+                step_graph.count_eager_step()
+                yield self.train_step(self.device_batch(source, model_inputs))
+                continue
+            update = (self.n_micro + 1) % self.grad_accum == 0
+            key = (self.batch_signature(source, model_inputs), update)
+            graph = self.graphs.get(key)
+            if graph is None:
+                graph = self.graphs[key] = TrainStepGraph(partial(self.backward, update=update),
+                                                          self.generator)
+                graph.adopt(self.device_batch(source, model_inputs))
+            else:
+                self.device_batch(source, model_inputs, out=graph.slots)
+            if graph.grads:
+                self._attach_grads(graph.grads)
+            outputs = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in graph().items()}
+            if graph.graph is not None and graph.grads is None:
+                # the tensors a replay accumulates the gradients into
+                graph.grads = [(p, p.grad) for p in self.trainable if p.grad is not None]
+            self._advance(update)
+            yield outputs
+
+    @staticmethod
+    def _attach_grads(grads: List[tuple]) -> None:
+        """Make each ``(parameter, buffer)``'s gradient the buffer a step
+        graph accumulates into again, with the value the parameter's
+        gradient has now (zero where it was freed): anything that replaced
+        a gradient since the capture changes no result."""
+        for p, buf in grads:
+            if p.grad is not buf:
+                if p.grad is None:
+                    buf.zero_()
+                else:
+                    buf.copy_(p.grad)
+                p.grad = buf
+
+    def free_graphs(self) -> None:
+        """Free the step graphs (their pools hold a step's activations); a
+        run of captured steps also frees its gradients outside an
+        accumulation window."""
+        if self.captured:
+            torch.cuda.synchronize(self.device)
+        for graph in self.graphs.values():
+            graph.free()
+        self.graphs.clear()
+        if self.captured and self.n_micro % self.grad_accum == 0:
+            self.optimizer.zero_grad(set_to_none=True)
 
     def global_outputs(self, outputs: Dict[str, Any], split: bool, gather: bool
                        ) -> Dict[str, Any]:
@@ -596,8 +753,8 @@ class Trainer:
 
         readback = LaggedReadback(metric_fns, self.metric_lag, consume)
         loader = self.train_dataloader if eval_train_set else self.test_dataloader
-        for model_inputs, unused_inputs in loader:
-            batch = self.to_device(model_inputs)
+        for source, model_inputs, unused_inputs in self.batches(loader):
+            batch = self.device_batch(source, model_inputs)
             with self.autocast():
                 out = self.model(**batch, generator=self.eval_generator)
             readback.add((model_inputs, unused_inputs),
@@ -615,7 +772,9 @@ class Trainer:
         """Train to ``max_steps`` (or ``num_epochs``' worth of steps). After
         :meth:`resume_from` the step count continues from the restored step,
         which counts against the same budget; the interrupted epoch's order is
-        derived again from ``(seed, epoch)`` and its consumed batches skipped."""
+        derived again from ``(seed, epoch)`` and its consumed batches skipped.
+        With ``training.chain_steps: K > 1``, K batches of one signature run
+        as a chain (:meth:`chain`) wherever no boundary falls inside it."""
         cfg = self.config
         self.print_v(f"Starting run {cfg.savestring}", verbosity=0)
         max_steps = cfg.training.get("max_steps")
@@ -635,6 +794,11 @@ class Trainer:
         start_epoch = (step - 1) // steps_per_epoch + 1
         profile_cfg = cfg.get("profile") or {}
         profiler = None
+        K = self.chain_steps
+        if K > 1 and self.distributed:
+            self.print_v(f"chain_steps={K}: a chain's steps run eagerly under a process group "
+                         "(FSDP2's hooks and gloo's collectives are not captured; ROADMAP "
+                         "item 14b)", verbosity=0)
 
         train_loss, train_examples = [], []
         train_metrics: Dict[str, List[float]] = {name: [] for name in self.metric_fns}
@@ -655,6 +819,87 @@ class Trainer:
                     self.writer.add_scalar(f"{name}/train_iter", v, step)
 
         self.readback = readback = LaggedReadback(self.metric_fns, self.metric_lag, consume)
+
+        def chain_cap(g: int) -> int:
+            """The longest chain from step ``g`` whose inside crosses no eval,
+            save, profile or budget boundary (one may be its last step)."""
+            cap = min(K, budget - g + 1)
+            for cadence in (eval_every, save_every):
+                if cadence:
+                    cap = min(cap, int(cadence) - (g - 1) % int(cadence))
+            if profile_cfg and profile_cfg.get("start_step") is not None:
+                start = int(profile_cfg["start_step"])
+                if g < start:
+                    cap = min(cap, start - g)
+                elif g < start + int(profile_cfg.get("num_steps", 5)):
+                    cap = 1     # the profiled steps run singly
+            return max(cap, 1)
+
+        def after_step(g: int) -> bool:
+            """Preemption, eval, save and budget bookkeeping of step ``g``;
+            True when training stops."""
+            nonlocal train_metrics, window
+            preempted = self._preempt_flag
+            if self.distributed:
+                # every rank must stop (and save, a collective) at one
+                # step: agree every preemption_sync_every steps
+                preempted = g % preempt_sync == 0 and process.any_rank(self._preempt_flag)
+            if preempted:
+                # after a chain the state is that of its last step: the tag
+                # says the step the state holds
+                self.print_v(f"Preemption: saving at step {self.n_micro} and stopping",
+                             verbosity=0)
+                readback.flush()
+                self.save_checkpoint(f"STEP{self.n_micro}")
+                self._preempt_flag = False
+                return True
+            if eval_every and g % eval_every == 0:
+                readback.flush()
+                dt = time.perf_counter() - window["t0"]
+                test_loss, test_metrics = self.evaluate(self.eval_metric_fns)
+                n = float(sum(train_examples))
+                train_avg = float(sum(train_loss)) / n if n else 0.0
+                train_avg_metrics = {
+                    k: (sum(v) / len(v) if v else 0.0) for k, v in train_metrics.items()
+                }
+                throughput = window["samples"] / dt if dt > 0 else 0.0
+                self.eval_history.append({
+                    "step": g, "train_avg_loss": train_avg,
+                    "train_avg_metrics": train_avg_metrics, "test_avg_loss": test_loss,
+                    "test_avg_metrics": test_metrics, "samples_per_sec": throughput,
+                })
+                self.print_v(
+                    f"savestring={cfg.savestring} global_step={g}:\n"
+                    f"train_avg_loss={train_avg} train_avg_metrics={train_avg_metrics}\n"
+                    f"test_avg_loss={test_loss} test_avg_metrics={test_metrics}\n"
+                    f"throughput={throughput:.1f} samples/s (train steps and metric fns, "
+                    f"device {self.device})",
+                    verbosity=1,
+                )
+                self.log_eval(g, train_avg, train_avg_metrics, test_loss, test_metrics,
+                              throughput)
+                train_loss.clear()
+                train_examples.clear()
+                train_metrics = {name: [] for name in self.metric_fns}
+                window = {"t0": time.perf_counter(), "samples": 0}
+                if halt_on_nonfinite and not (np.isfinite(train_avg)
+                                              and np.isfinite(test_loss)):
+                    if self.writer is not None:
+                        self.writer.flush()
+                    raise FloatingPointError(
+                        f"Non-finite loss at step {g} (train={train_avg}, "
+                        f"test={test_loss}); halting. Resume from the last finite "
+                        "checkpoint with training.resume=true.")
+            if save_every and g % save_every == 0:
+                readback.flush()
+                self.save_checkpoint(f"STEP{g}")
+            if g >= budget:
+                readback.flush()
+                self.print_v("Reached max_steps" if max_steps else "Step budget done",
+                             verbosity=1)
+                return True
+            return False
+
         previous_handler = None
         if bool(cfg.training.get("save_on_preemption", True)):
             try:
@@ -667,73 +912,42 @@ class Trainer:
                 self.print_v(f"Epoch {epoch}", verbosity=1)
                 self.train_dataloader.set_epoch(
                     epoch, skip_batches=(step - 1) % steps_per_epoch)
-                for model_inputs, unused_inputs in self.train_dataloader:
+                stream = self.batches(self.train_dataloader, epoch)
+                buf: List[tuple] = []
+                exhausted = False
+                while True:
+                    want = K if K > 1 and chain_cap(step) >= K else 1
+                    while len(buf) < want and not exhausted:
+                        item = next(stream, None)
+                        exhausted = item is None
+                        if not exhausted:
+                            buf.append(item)
+                    if not buf:
+                        break
+                    if want > 1 and len(buf) >= K and len(
+                            {self.batch_signature(*item[:2]) for item in buf[:K]}) == 1:
+                        # only exact-K groups chain; shorter runs take the single step
+                        group, buf = buf[:K], buf[K:]
+                        for j, outputs in enumerate(self.chain(group)):
+                            readback.add((step + j, group[j][1], group[j][2]), outputs)
+                        for _ in group:
+                            if after_step(step):
+                                return
+                            step += 1
+                        continue
+
+                    source, model_inputs, unused_inputs = buf.pop(0)
                     if profile_cfg and step == profile_cfg.get("start_step"):
                         profiler = self.start_profiler()
-                    outputs = self.train_step(self.to_device(model_inputs))
+                    if K > 1:
+                        step_graph.count_eager_step()
+                    outputs = self.train_step(self.device_batch(source, model_inputs))
                     readback.add((step, model_inputs, unused_inputs), outputs)
                     if profiler is not None and step == (
                             profile_cfg.get("start_step") + profile_cfg.get("num_steps", 5) - 1):
                         self.stop_profiler(profiler, profile_cfg)
                         profiler = None
-
-                    preempted = self._preempt_flag
-                    if self.distributed:
-                        # every rank must stop (and save, a collective) at one
-                        # step: agree every preemption_sync_every steps
-                        preempted = (step % preempt_sync == 0
-                                     and process.any_rank(self._preempt_flag))
-                    if preempted:
-                        self.print_v(f"Preemption: saving at step {step} and stopping",
-                                     verbosity=0)
-                        readback.flush()
-                        self.save_checkpoint(f"STEP{step}")
-                        self._preempt_flag = False
-                        return
-                    if eval_every and step % eval_every == 0:
-                        readback.flush()
-                        dt = time.perf_counter() - window["t0"]
-                        test_loss, test_metrics = self.evaluate(self.eval_metric_fns)
-                        n = float(sum(train_examples))
-                        train_avg = float(sum(train_loss)) / n if n else 0.0
-                        train_avg_metrics = {
-                            k: (sum(v) / len(v) if v else 0.0) for k, v in train_metrics.items()
-                        }
-                        throughput = window["samples"] / dt if dt > 0 else 0.0
-                        self.eval_history.append({
-                            "step": step, "train_avg_loss": train_avg,
-                            "train_avg_metrics": train_avg_metrics, "test_avg_loss": test_loss,
-                            "test_avg_metrics": test_metrics, "samples_per_sec": throughput,
-                        })
-                        self.print_v(
-                            f"savestring={cfg.savestring} global_step={step}:\n"
-                            f"train_avg_loss={train_avg} train_avg_metrics={train_avg_metrics}\n"
-                            f"test_avg_loss={test_loss} test_avg_metrics={test_metrics}\n"
-                            f"throughput={throughput:.1f} samples/s (train steps and metric fns, "
-                            f"device {self.device})",
-                            verbosity=1,
-                        )
-                        self.log_eval(step, train_avg, train_avg_metrics, test_loss, test_metrics,
-                                      throughput)
-                        train_loss.clear()
-                        train_examples.clear()
-                        train_metrics = {name: [] for name in self.metric_fns}
-                        window = {"t0": time.perf_counter(), "samples": 0}
-                        if halt_on_nonfinite and not (np.isfinite(train_avg)
-                                                      and np.isfinite(test_loss)):
-                            if self.writer is not None:
-                                self.writer.flush()
-                            raise FloatingPointError(
-                                f"Non-finite loss at step {step} (train={train_avg}, "
-                                f"test={test_loss}); halting. Resume from the last finite "
-                                "checkpoint with training.resume=true.")
-                    if save_every and step % save_every == 0:
-                        readback.flush()
-                        self.save_checkpoint(f"STEP{step}")
-                    if step >= budget:
-                        readback.flush()
-                        self.print_v("Reached max_steps" if max_steps else "Step budget done",
-                                     verbosity=1)
+                    if after_step(step):
                         return
                     step += 1
             readback.flush()
@@ -745,6 +959,7 @@ class Trainer:
                 self.writer.flush()
             if previous_handler is not None:
                 signal.signal(signal.SIGTERM, previous_handler)
+            self.free_graphs()
 
     def start_profiler(self):
         """A started ``torch.profiler.profile``: CPU activities, and CUDA ones
