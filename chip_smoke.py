@@ -280,9 +280,27 @@ Phases, a few lines each; any failure raises and the exit code is non-zero:
    rank at the ``tp=2`` shares and 0 ``cluster``, losses and trained
    parameters against leg C's in-process run (rtol 1e-3), the LoRA factors
    the same on every rank, each rank's peak memory, ``sp`` and ``tp``
-   collective calls and wall time in a JSON line of its own. Steps' ms
-   beside the in-process trainer's, collective calls and peak memory in a
-   JSON line of its own; no time of D, S or T is a speed.
+   collective calls and wall time in a JSON line of its own. Chains and the
+   batch pool under a group, the flagship on 256 trials (4 steps of B=64 an
+   epoch): AK. in A-C's NCCL rank, ``chain_steps: 4`` for 8 steps, each
+   chain's steps replayed from one step captured with FSDP2's collectives:
+   eager steps, captures and replays (1, 1, 7), ``ctc_alpha_beta_kernel`` 2
+   host launches (8 on the device), losses and trained leaves against AK1,
+   the same run unchained (rtol 1e-5 / 2e-4; bit-equal expected), then one
+   replayed step bit-equal to the same step run eagerly under the plan (loss,
+   parameters, AdamW moments and steps, generator) and the step timed eager
+   and replayed with its device-busy share and host launch calls; BK. in the
+   same rank, the BCI of leg C chained (``chain_steps: 2``, 4 steps): (1, 1,
+   3), 450 ``tiled`` host launches (900 on the device), its first 2 losses
+   against leg C's, its frozen leaves' word sums equal to leg C's; DP. in
+   D's two gloo ranks at ``data=2`` and SP. in S's at ``sp=2``: 12 steps over
+   3 epochs with ``cache_device_batches`` and ``chain_steps: 4`` against the
+   streaming unchained run, losses and trained leaves bit-equal, 4 batches
+   from the host a rank against 12, every step eager on the step graphs'
+   slots and 12 ``ctc_alpha_beta_kernel`` launches a rank either way, the
+   pool's bytes a rank. Steps' ms beside the in-process trainer's,
+   collective calls and peak memory in a JSON line of its own; no time of D,
+   S, T, DP or SP is a speed.
 
 19. ``training.chain_steps`` and ``training.cache_device_batches`` (``chain``,
    run right after phase 9, whose trainer leg B reuses; ``training/step_graph.py``,
@@ -2891,9 +2909,10 @@ class IndexSpy:
 
 
 class spied_trainer:
-    """Within the block every ``Trainer`` records, a training step each, its
-    global step, the indices of its batch and its loss in ``log``; ``stop_at``
-    asks for preemption after that step."""
+    """Within the block every ``Trainer`` records, a training step each
+    (single or chained), its global step, the indices of its batch and its
+    loss in ``log``; ``stop_at`` asks for preemption after that (single)
+    step."""
 
     def __init__(self, log: list, stop_at=None):
         self.log, self.stop_at = log, stop_at
@@ -2902,8 +2921,8 @@ class spied_trainer:
     def __enter__(self):
         from llm_bci_tpu_torch.training.trainer import Trainer
 
-        self.saved = Trainer.build_dataloaders, Trainer.train_step
-        build, step = self.saved
+        self.saved = Trainer.build_dataloaders, Trainer.train_step, Trainer.chain
+        build, step, chain = self.saved
         log, stop_at, trainers = self.log, self.stop_at, self.trainers
 
         def spy_build(trainer):
@@ -2911,23 +2930,34 @@ class spied_trainer:
             trainer.train_dataloader.dataset = IndexSpy(trainer.train_dataloader.dataset)
             trainers.append(trainer)
 
-        def spy_step(trainer, batch):
-            out = step(trainer, batch)
+        def record(trainer, out):
             preds = out.get("preds")
             log.append({"step": trainer.n_micro, "indices": trainer.train_dataloader.dataset.take(),
                         "loss": float(out["loss"]),
                         "preds_shape": list(preds.shape) if hasattr(preds, "shape") else None})
+
+        def spy_step(trainer, batch):
+            out = step(trainer, batch)
+            record(trainer, out)
             if trainer.n_micro == stop_at:
                 trainer.request_preemption()
             return out
 
-        Trainer.build_dataloaders, Trainer.train_step = spy_build, spy_step
+        def spy_chain(trainer, items):
+            # a chain reads its K batches first: the first step holds their
+            # indices
+            for out in chain(trainer, items):
+                record(trainer, out)
+                yield out
+
+        Trainer.build_dataloaders, Trainer.train_step, Trainer.chain = (spy_build, spy_step,
+                                                                        spy_chain)
         return self
 
     def __exit__(self, *exc):
         from llm_bci_tpu_torch.training.trainer import Trainer
 
-        Trainer.build_dataloaders, Trainer.train_step = self.saved
+        Trainer.build_dataloaders, Trainer.train_step, Trainer.chain = self.saved
         return False
 
 
@@ -4284,6 +4314,9 @@ MD_SP_LAYERS = 3               # leg S2: the mlm's depth (width kept)
 MD_SP_PT_STEPS = 2             # leg S5: PatchTST ctc steps (each gathers K / V of 64 x 256
                                # sequences through the host); leg D2's too
 MD_RUNNING_RTOL = 1e-5         # leg D2: BatchNorm's running averages against one process's
+MD_CHAIN = 4                   # legs AK, DP, SP: chain_steps (one chain an epoch)
+MD_POOL_EPOCHS = 3             # legs DP / SP: epochs of CHAIN_TRAIN trials, 4 steps each
+MD_BCI_CHAIN, MD_BCI_CHAIN_STEPS = 2, 4     # leg BK: chain_steps, steps
 MD_T_MESH = {"data": 1, "fsdp": 1, "sp": 2, "tp": 2}     # leg T: four gloo ranks on the card
 # leg D2: PatchTST ctc at data=2 without its stochastic parts (a data rank
 # other than 0 draws a stream of its own, so one process could not match)
@@ -4411,11 +4444,14 @@ def md_legs(spec: dict, records: dict, counter, ctc_shapes: list, int8_shapes: d
     from llm_bci_tpu_torch.parallel.mesh import fsdp_groups
     from llm_bci_tpu_torch.training import distributed as tdist
 
+    from llm_bci_tpu_torch.training import step_graph
+
     for leg in spec["legs"]:
         log: list = []
         ctc_shapes.clear()
         int8_shapes.clear()
         reset_kernel_counters()
+        step_graph.reset_counters()
         counter.take()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -4437,7 +4473,13 @@ def md_legs(spec: dict, records: dict, counter, ctc_shapes: list, int8_shapes: d
                "running": running_averages(trainer.model),
                "coords": dict(trainer.coords),
                "fsdp_groups": len(fsdp_groups(trainer.model, int(
-                   (trainer.config.get("parallelism") or {}).get("fsdp_min_size", 1 << 20))))}
+                   (trainer.config.get("parallelism") or {}).get("fsdp_min_size", 1 << 20)))),
+               "graph": graph_counts(), "host_batches": trainer.host_batches,
+               "lr": float(trainer.config.optimizer.lr),
+               "pool_bytes": (trainer.batch_cache.bytes if trainer.batch_cache is not None
+                              else None)}
+        if leg.get("frozen_sum"):
+            rec["frozen_sum"] = frozen_checksum(trainer)
         if leg.get("step_reps"):
             rec["step_ms"] = steady_step_ms(trainer, leg["step_reps"])[0]
             rec["step_collectives"] = {k: v / (leg["step_reps"] + 3)
@@ -4470,10 +4512,66 @@ def md_legs(spec: dict, records: dict, counter, ctc_shapes: list, int8_shapes: d
             state = trainer.whole_state()["model"]
             if trainer.is_main_process:
                 torch.save(state, leg["state_out"])
+        if leg.get("chain_check"):
+            # after the run's state is kept: these steps train on
+            rec["chain_check"] = md_chain_check(trainer, leg["chain_check"], spec["power_line"])
         records[leg["name"]] = rec
         del trainer, spy
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def frozen_checksum(trainer) -> list:
+    """Two sums of each frozen leaf's 32-bit words (plain, and weighted by
+    their position mod 1009), taken on the device, in the leaves' order: a
+    leaf that changed in any bit changes them (short of a collision)."""
+    import torch
+
+    leaves = {**dict(trainer.model.named_parameters()), **dict(trainer.model.named_buffers())}
+    out = []
+    for name in sorted(trainer.frozen_state_keys()):
+        t = local(leaves[name]).detach().contiguous().reshape(-1)
+        words = t.view(torch.uint8)
+        words = (words[:words.numel() // 4 * 4].view(torch.int32).to(torch.int64)
+                 if words.numel() >= 4 else words.to(torch.int64))
+        weight = torch.arange(words.numel(), device=words.device) % 1009 + 1
+        out.append([name, int(words.sum()), int((words * weight).sum())])
+    return out
+
+
+def md_chain_check(trainer, K: int, power_line: str) -> dict:
+    """A chained rank's checks after its run: one replayed step against the
+    same step run eagerly under the same plan, bit for bit
+    (``replay_against_eager``), then the step timed eager and replayed on
+    one batch on the device, each with its device-busy share and host launch
+    calls (``device_profile``)."""
+    import torch
+
+    items = [(None, mi, ui) for mi, ui in trainer.train_dataloader][:3]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        differ = replay_against_eager(trainer, items)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if differ:
+        raise AssertionError(f"the replayed step differs from the eager one in {differ[:8]} "
+                             f"({len(differ)} in all)")
+    mi, ui = items[0][1], items[0][2]
+    batch = trainer.to_device(mi)
+    pooled = [(trainer.to_device(mi, every_row=True), mi, ui)] * K
+    eager_ms = steady_step_ms_on(trainer, batch, 10)
+    eager = device_profile(lambda: [trainer.train_step(batch) for _ in range(K)],
+                           f"{K} eager steps under the plan", power_line, None, K * eager_ms,
+                           phase="multi")
+    chain_ms = steady_chain_ms(trainer, pooled, 5)
+    chained = device_profile(lambda: list(trainer.chain(pooled)),
+                             f"{K} replayed steps under the plan (one chain)", power_line, None,
+                             K * chain_ms, phase="multi")
+    trainer.free_graphs()
+    return {"differ": differ, "params": len(trainer.trainable), "eager_ms": eager_ms,
+            "chain_ms": chain_ms,
+            "busy": [eager["busy_ms"] / K / eager_ms, chained["busy_ms"] / K / chain_ms],
+            "host_launches": [eager["host_launches"] / K, chained["host_launches"] / K]}
 
 
 def running_averages(model) -> dict:
@@ -4590,8 +4688,17 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
                f"training.train_batch_size={BCI_B}", f"training.test_batch_size={BCI_B}",
                "training.max_steps=2", "training.eval_every=null", *common]
         ck = lambda leg: f"dirs.checkpoint_dir={os.path.join(tmp, 'ck' + leg)}"
+        # the chained and pooled legs: the flagship on CHAIN_TRAIN trials,
+        # 4 steps an epoch
+        mat_pool = write_mat_dataset(os.path.join(tmp, "mat_pool"), n_train=CHAIN_TRAIN,
+                                     n_test=4)
+        pooled = ["-c", os.path.join(REPO, "configs", "trainer_ctc_ndt1.yaml"), "-k",
+                  f"data.data_dir={mat_pool}", "training.eval_every=null", *common]
+        ak = [*pooled, "training.max_steps=8", "training.num_epochs=2", "parallelism.data=1",
+              "parallelism.fsdp=1"]
 
-        # A-C: one rank, one NCCL group, the plan on trivial axes
+        # A-C: one rank, one NCCL group, the plan on trivial axes; AK / BK
+        # chained under it (captured), AK1 AK unchained
         legs = [
             {"name": "A", "argv": [*flagship, ck("A"), "parallelism.data=1",
                                    "parallelism.fsdp=1"], "step_reps": 10},
@@ -4600,10 +4707,19 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
                                    f"parallelism.fsdp_min_size={MD_ONE_GROUP}"], "step_reps": 10},
             {"name": "B", "argv": [*mlm, ck("B"), "parallelism.data=1", "parallelism.fsdp=1"]},
             {"name": "C", "argv": [*bci, ck("C"), "parallelism.fsdp=1", "parallelism.tp=1"],
-             "step_reps": 5, "decode": MD_DECODE,
+             "step_reps": 5, "decode": MD_DECODE, "frozen_sum": True,
              "trained_out": os.path.join(tmp, "C_trained.pt")},
+            {"name": "AK1", "argv": [*ak, ck("AK1"), "training.chain_steps=1"],
+             "trained_out": os.path.join(tmp, "AK1_trained.pt")},
+            {"name": "AK", "argv": [*ak, ck("AK"), f"training.chain_steps={MD_CHAIN}"],
+             "trained_out": os.path.join(tmp, "AK_trained.pt"), "chain_check": MD_CHAIN},
+            {"name": "BK", "argv": [*bci, ck("BK"), "parallelism.fsdp=1", "parallelism.tp=1",
+                                    f"training.max_steps={MD_BCI_CHAIN_STEPS}",
+                                    f"training.chain_steps={MD_BCI_CHAIN}"],
+             "frozen_sum": True},
         ]
-        rank_a_c = torchrun(tmp, "A-C", 1, {"legs": legs}, timeout=600)[0]
+        rank_a_c = torchrun(tmp, "A-C", 1, {"legs": legs, "power_line": power_line},
+                            timeout=900)[0]
         a, r, b, c = rank_a_c["A"], rank_a_c["R"], rank_a_c["B"], rank_a_c["C"]
         for name, rec in rank_a_c.items():
             if rec["backend"] != "nccl" or rec["world"] != 1:
@@ -4678,6 +4794,7 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
+        report["AK"], report["BK"] = nccl_chain_legs(tmp, rank_a_c, power_line)
 
         pt = ["-c", trainer_yaml(tmp, "trainer_ctc_ndt1.yaml", "patchtst.yaml"), "-k",
               f"data.data_dir={mat}", f"training.train_batch_size={PATCHTST_CTC_BATCH}",
@@ -4696,8 +4813,8 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
         d2_trained = os.path.join(tmp, "D2_trained.pt")
         ranks_d = torchrun(tmp, "D", 2, {"backend": "gloo", "device": "cuda:0", "legs": [
             {"name": "D", "argv": [*d_args, ck("D"), *data2], "state_out": state_out},
-            {"name": "D2", "argv": [*d2_args, ck("D2"), *data2], "trained_out": d2_trained}]},
-            timeout=600)
+            {"name": "D2", "argv": [*d2_args, ck("D2"), *data2], "trained_out": d2_trained},
+            *pool_legs("D", pooled, data2, tmp, ck)]}, timeout=900)
         d0, d1 = ranks_d[0]["D"], ranks_d[1]["D"]
         if losses(d0["steps"]) != losses(d1["steps"]) or d0["mesh"]["data"] != 2:
             raise AssertionError(f"leg D: ranks disagree: {losses(d0['steps'])} / "
@@ -4732,6 +4849,7 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         report["D2"] = patchtst_data_parallel_leg(ranks_d, d2_args, d2_trained, ck)
+        report["DP"] = check_pool_legs("D", ranks_d, tmp)
 
         # F: the port's dry run entry point at its default, one rank a card
         from llm_bci_tpu_torch.entry import dryrun_multichip
@@ -4746,8 +4864,8 @@ def multi_device_phase(power_line: str, profile=None) -> dict:
                f"data.data_dir={mat}", "model.encoder.embed_region=false",
                "training.max_steps=4", "training.eval_every=4", *common]
         report["S"] = sequence_parallel_legs(
-            tmp, {"flagship": flagship, "mlm": mlm, "bci": bci, "itr": itr, "pt": pt},
-            bci_ref, ck, launches)
+            tmp, {"flagship": flagship, "mlm": mlm, "bci": bci, "itr": itr, "pt": pt,
+                  "pooled": pooled}, bci_ref, ck, launches)
         report["T"] = sequence_tensor_parallel_leg(tmp, bci, bci_ref, ck, launches, power_line)
         report = {**report, "A": {"step_ms": a["step_ms"], "in_process_step_ms": ms_a,
                         "peak_gib": a["peak_gib"], "in_process_peak_gib": peak_a, "rel": rel_a,
@@ -4811,10 +4929,12 @@ def sequence_parallel_legs(tmp: str, argv: dict, bci_ref: dict, ck, launches: di
             "S5": argv["pt"]}
     trained_out = {name: os.path.join(tmp, f"{name}_trained.pt")
                    for name in ("S1", "S3", "S4", "S5")}
+    sp_args = [*sp, "--device", "cuda:0"]
     ranks = torchrun(tmp, "S", 2, {"backend": "gloo", "device": "cuda:0", "legs": [
-        {"name": name, "argv": [*args, ck(name), *sp, "--device", "cuda:0"],
-         **({"trained_out": trained_out[name]} if name in trained_out else {})}
-        for name, args in legs.items()]}, timeout=900)
+        *({"name": name, "argv": [*args, ck(name), *sp_args],
+           **({"trained_out": trained_out[name]} if name in trained_out else {})}
+          for name, args in legs.items()),
+        *pool_legs("S", argv["pooled"], sp_args, tmp, ck)]}, timeout=1200)
     flash = (FWD_WG, DQ_WG, DKV_WG, "flash_delta_kernel")
     for rank, rec in enumerate(ranks):
         s1, s2, s3 = rec["S1"], rec["S2"], rec["S3"]
@@ -4967,10 +5087,145 @@ def sequence_parallel_legs(tmp: str, argv: dict, bci_ref: dict, ck, launches: di
                         "peak_gib": [r[name]["peak_gib"] for r in ranks],
                         "in_process_peak_gib": peak, "launches": ref_launches,
                         "collectives": rec["collectives"], "wall_s": rec["wall_s"]}
+    report["SP"] = check_pool_legs("S", ranks, tmp)
+    for rec in ranks:
+        for name in ("SP1", "SP"):
+            add_launches(launches, {k: v for k, v in rec[name]["launches"].items() if v})
     wall = time.perf_counter() - t0
     say("multi", f"S in {wall:.1f} s with the process start of its two ranks and the "
         "in-process references")
     return {**report, "wall_s": wall}
+
+
+def nccl_chain_legs(tmp: str, rank: dict, power_line: str) -> tuple:
+    """Legs AK and BK of phase 18, chained on one NCCL rank under the plan
+    (FSDP2's module groups), each step of a chain replayed from the graph
+    captured with the step's collectives: AK the flagship (``MD_CHAIN``, 8
+    steps on ``CHAIN_TRAIN`` trials) against AK1, the same run unchained,
+    and one replayed step against the eager one; BK the 7B-width int8
+    fine-tune against leg C's unchained steps and frozen leaves."""
+    import torch
+
+    ak, ak1, bk, c = rank["AK"], rank["AK1"], rank["BK"], rank["C"]
+    steps = len(ak1["steps"])
+    eager_steps, captures, replays = ak["graph"]
+    if (eager_steps, captures, replays) != (1, 1, steps - 1):
+        raise AssertionError(f"leg AK: eager steps, captures, replays {ak['graph']}, want "
+                             f"(1, 1, {steps - 1})")
+    fused, fused1 = ak["launches"]["ctc_alpha_beta_kernel"], ak1["launches"][
+        "ctc_alpha_beta_kernel"]
+    if fused != eager_steps + captures or fused1 != steps:
+        raise AssertionError(f"leg AK: ctc_alpha_beta_kernel host launches {fused} (want eager "
+                             f"steps + captures = {eager_steps + captures}), {fused1} "
+                             f"unchained (want {steps})")
+    rel = check_losses("leg AK chained against AK1", losses(ak["steps"]), losses(ak1["steps"]),
+                       CHAIN_LOSS_RTOL)
+    worst = check_params("leg AK chained against AK1",
+                         torch.load(os.path.join(tmp, "AK_trained.pt"), weights_only=True),
+                         torch.load(os.path.join(tmp, "AK1_trained.pt"), weights_only=True),
+                         noise_atol=2 * ak["lr"] * steps)
+    chk = ak["chain_check"]
+    say("multi", f"AK flagship chained (chain_steps {MD_CHAIN}, {steps} steps) on one NCCL rank "
+        f"under FSDP2's {ak['fsdp_groups']} module groups, each chain's steps replayed from one "
+        f"captured step: losses within {rel:.3g} of AK1 unchained (bit-equal: "
+        f"{losses(ak['steps']) == losses(ak1['steps'])}), trained leaves within {worst:.3g}; "
+        f"ctc_alpha_beta_kernel {fused} host launches = eager steps {eager_steps} + captures "
+        f"{captures}, {eager_steps + replays} on the device = eager steps + replays {replays}; "
+        f"one replayed step bit-equal to the eager one under the same plan (loss, "
+        f"{chk['params']} parameters, AdamW moments and steps, generator); step "
+        f"{chk['eager_ms']:.2f} ms eager against {chk['chain_ms']:.2f} replayed, device busy "
+        f"{chk['busy'][0]:.3f} against {chk['busy'][1]:.3f}, host launch calls a step "
+        f"{chk['host_launches'][0]:.0f} against {chk['host_launches'][1]:.0f}; card {power_line}")
+    say("time", f"multi legs AK1 {ak1['wall_s']:.1f} s, AK {ak['wall_s']:.1f} s in the rank")
+
+    eager_steps, captures, replays = bk["graph"]
+    if (eager_steps, captures, replays) != (1, 1, MD_BCI_CHAIN_STEPS - 1):
+        raise AssertionError(f"leg BK: eager steps, captures, replays {bk['graph']}")
+    want = {INT8_CLUSTER: 0, INT8_TILED: INT8_PER_FORWARD * (eager_steps + captures)}
+    got = {k: bk["launches"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"leg BK: int8 host launches {got}, want {want}")
+    n_ref = len(c["steps"])
+    rel_b = check_losses("leg BK chained against leg C", losses(bk["steps"])[:n_ref],
+                         losses(c["steps"]), CHAIN_LOSS_RTOL)
+    if bk["frozen_sum"] != c["frozen_sum"] or not bk["frozen_sum"]:
+        bad = [x[0] for x, y in zip(bk["frozen_sum"], c["frozen_sum"]) if x != y]
+        raise AssertionError(f"leg BK: frozen leaves differ from leg C's: {bad[:5]}")
+    say("multi", f"BK BCI int8 LoRA fine-tune at 32 layers x Llama-2-7B width chained "
+        f"(chain_steps {MD_BCI_CHAIN}, {MD_BCI_CHAIN_STEPS} steps) on one NCCL rank: the first "
+        f"{n_ref} losses within {rel_b:.3g} of leg C's unchained (bit-equal: "
+        f"{losses(bk['steps'])[:n_ref] == losses(c['steps'])}); {len(bk['frozen_sum'])} frozen "
+        f"leaves bit-equal to leg C's (word sums); {INT8_TILED} {got[INT8_TILED]} host launches "
+        f"= {INT8_PER_FORWARD} x (eager steps {eager_steps} + captures {captures}), "
+        f"{INT8_PER_FORWARD * (eager_steps + replays)} on the device; peak "
+        f"{bk['peak_gib']:.2f} GiB; {bk['wall_s']:.1f} s")
+    say("time", f"multi leg BK {bk['wall_s']:.1f} s in the rank")
+    return ({"rel": rel, "params_max_abs": worst, "graph": ak["graph"], "launches": fused,
+             **{k: v for k, v in chk.items() if k != "differ"}, "wall_s": ak["wall_s"]},
+            {"rel": rel_b, "graph": bk["graph"], "launches": got, "peak_gib": bk["peak_gib"],
+             "wall_s": bk["wall_s"]})
+
+
+def pool_legs(tag: str, argv: list, par: list, tmp: str, ck) -> list:
+    """Legs ``<tag>P1`` and ``<tag>P`` of phase 18 for ranks under ``par``:
+    the flagship on ``CHAIN_TRAIN`` trials for ``MD_POOL_EPOCHS`` epochs,
+    streaming and unchained, then with ``training.cache_device_batches`` and
+    ``chain_steps`` ``MD_CHAIN``."""
+    steps = MD_POOL_EPOCHS * CHAIN_TRAIN // B
+    run = [*argv, f"training.max_steps={steps}", f"training.num_epochs={MD_POOL_EPOCHS}"]
+    return [{"name": f"{tag}P1", "argv": [*run, ck(f"{tag}P1"), *par],
+             "trained_out": os.path.join(tmp, f"{tag}P1_trained.pt")},
+            {"name": f"{tag}P", "argv": [*run, ck(f"{tag}P"), "training.cache_device_batches=true",
+                                        f"training.chain_steps={MD_CHAIN}", *par],
+             "trained_out": os.path.join(tmp, f"{tag}P_trained.pt")}]
+
+
+def check_pool_legs(tag: str, ranks: list, tmp: str) -> dict:
+    """The pooled and chained run of :func:`pool_legs` against the
+    streaming one on gloo ranks sharing the card: the same losses on every
+    rank and trained leaves, bit for bit; batches copied from the host in
+    the first epoch only; every step eager on the step graphs' slots (gloo's
+    collectives are not captured), the CTC kernel launched once a step."""
+    import torch
+
+    steps = MD_POOL_EPOCHS * CHAIN_TRAIN // B
+    first_epoch = CHAIN_TRAIN // B
+    for rank, rec in enumerate(ranks):
+        pooled, stream = rec[f"{tag}P"], rec[f"{tag}P1"]
+        if losses(pooled["steps"]) != losses(stream["steps"]) or len(pooled["steps"]) != steps:
+            raise AssertionError(f"leg {tag}P rank {rank}: losses {losses(pooled['steps'])} "
+                                 f"against streaming {losses(stream['steps'])}")
+        if losses(pooled["steps"]) != losses(ranks[0][f"{tag}P"]["steps"]):
+            raise AssertionError(f"leg {tag}P: the ranks' losses differ")
+        if pooled["host_batches"] != first_epoch or stream["host_batches"] != steps:
+            raise AssertionError(f"leg {tag}P rank {rank}: {pooled['host_batches']} batches "
+                                 f"from the host pooled (want {first_epoch}), "
+                                 f"{stream['host_batches']} streaming (want {steps})")
+        fused = {k: r["launches"]["ctc_alpha_beta_kernel"] for k, r in (("pooled", pooled),
+                                                                       ("stream", stream))}
+        if tuple(pooled["graph"]) != (steps, 0, 0) or fused != {"pooled": steps,
+                                                                  "stream": steps}:
+            raise AssertionError(f"leg {tag}P rank {rank}: eager steps, captures, replays "
+                                 f"{pooled['graph']} (want ({steps}, 0, 0)), "
+                                 f"ctc_alpha_beta_kernel {fused}")
+    got = torch.load(os.path.join(tmp, f"{tag}P_trained.pt"), weights_only=True)
+    want = torch.load(os.path.join(tmp, f"{tag}P1_trained.pt"), weights_only=True)
+    unequal = [k for k, v in want.items() if not torch.equal(got[k], v)]
+    if unequal or set(got) != set(want):
+        raise AssertionError(f"leg {tag}P: trained leaves differ from streaming: {unequal[:5]}")
+    rec = ranks[0][f"{tag}P"]
+    pool = [r[f"{tag}P"]["pool_bytes"] for r in ranks]
+    say("multi", f"{tag}P flagship at {rec['mesh']} on {len(ranks)} gloo ranks of the one card, "
+        f"{CHAIN_TRAIN} trials, {steps} steps over {MD_POOL_EPOCHS} epochs, "
+        f"cache_device_batches and chain_steps {MD_CHAIN} against streaming unchained: losses "
+        f"and {len(want)} trained leaves bit-equal on every rank; batches from the host "
+        f"{first_epoch} a rank against {steps}; every step eager on the step graphs' slots "
+        f"(graph {rec['graph']}), ctc_alpha_beta_kernel {steps} a rank either way; the pool "
+        f"{' / '.join(str(b) for b in pool)} bytes a rank ({pool[0] / 2 ** 20:.1f} MiB)")
+    say("time", f"multi legs {tag}P1 {ranks[0][tag + 'P1']['wall_s']:.1f} s, {tag}P "
+        f"{rec['wall_s']:.1f} s in the ranks")
+    return {"pool_bytes": pool, "host_batches": [first_epoch, steps],
+            "wall_s": [ranks[0][f"{tag}P1"]["wall_s"], rec["wall_s"]]}
 
 
 def patchtst_data_parallel_leg(ranks: list, argv: list, trained_out: str, ck) -> dict:
@@ -5193,16 +5448,23 @@ def flagship_chain_trainer(mat: str, ckpt: str, chain: int, steps: int, epochs: 
     return port_main.build_trainer(args, dataset=dataset)
 
 
+def local(t):
+    """The rank's local tensor of a DTensor (FSDP2's parameters, gradients
+    and moments), the tensor itself otherwise: what a step graph writes."""
+    return getattr(t, "_local_tensor", t)
+
+
 def trainer_snapshot(trainer) -> dict:
     """Parameters, AdamW state, gradients, generator state and step counts,
-    copied."""
+    copied (the rank's shards under a process group)."""
     opt = trainer.optimizer.state
     return {
-        "params": {n: p.detach().clone() for n, p in zip(trainer.trainable_names,
-                                                          trainer.trainable)},
-        "opt": {n: {k: v.clone() for k, v in opt[p].items()}
+        "params": {n: local(p).detach().clone() for n, p in zip(trainer.trainable_names,
+                                                                 trainer.trainable)},
+        "opt": {n: {k: local(v).clone() for k, v in opt[p].items()}
                 for n, p in zip(trainer.trainable_names, trainer.trainable) if p in opt},
-        "grads": {n: p.grad.clone() for n, p in zip(trainer.trainable_names, trainer.trainable)
+        "grads": {n: local(p.grad).clone() for n, p in zip(trainer.trainable_names,
+                                                            trainer.trainable)
                   if p.grad is not None},
         "generator": trainer.generator.get_state(),
         "counts": (trainer.n_micro, trainer.n_updates),
@@ -5215,11 +5477,11 @@ def restore_snapshot(trainer, snap: dict) -> None:
 
     with torch.no_grad():
         for n, p in zip(trainer.trainable_names, trainer.trainable):
-            p.copy_(snap["params"][n])
+            local(p).copy_(snap["params"][n])
             if n in snap["grads"]:
-                p.grad.copy_(snap["grads"][n])
+                local(p.grad).copy_(snap["grads"][n])
             for k, v in snap["opt"].get(n, {}).items():
-                trainer.optimizer.state[p][k].copy_(v)
+                local(trainer.optimizer.state[p][k]).copy_(v)
     trainer.generator.set_state(snap["generator"])
     trainer.n_micro, trainer.n_updates = snap["counts"]
 

@@ -28,13 +28,9 @@ reference's PyTorch checkpoint format (``interop/torch_import.py``,
 decodes and forwards as ``torch.export`` archives (``serving.py``). Slice 8
 trains on several devices with ``torch.distributed`` (``parallel/``: the
 ``(data, fsdp, sp, tp)`` mesh, FSDP2, Megatron tensor parallelism of the
-Llama decoder, ``torchrun`` launch); slice 12 adds sequence parallelism
-(``sp > 1``) for NDT1 (``parallel/sequence.py``), and the other families
-raise ``NotImplementedError`` naming its ROADMAP item under it.
+Llama decoder, ``torchrun`` launch); slices 12-14 add sequence parallelism
+(``sp > 1``, ``parallel/sequence.py``) for every family. Slices 15 and 16
+add chained train steps replayed from CUDA graphs (``training/step_graph.py``,
+captured under NCCL too) and the device batch pool
+(``training/batch_cache.py``), in one process and under a process group.
 """
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error raised by an option whose port is still an open item of
-    ``ROADMAP.md``."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")

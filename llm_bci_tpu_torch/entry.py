@@ -193,7 +193,7 @@ def dryrun_meshes(n: int) -> Tuple[dict, dict]:
             {"data": n // (fsdp_bci * tp), "fsdp": fsdp_bci, "tp": tp})
 
 
-def dryrun_steps(tmp: str, device="cpu") -> str:
+def dryrun_steps(tmp: str, device) -> str:
     """The dry run's two training steps on this rank of an initialized
     process group (every rank calls it), on this rank's ``device``; returns
     its report line."""

@@ -5,30 +5,42 @@ trainer's ``_prefetch`` pool and ``_build_cache_columns``,
 
 :meth:`DeviceBatchCache.batches` yields ``(source, model_inputs,
 unused_inputs)`` for each batch of a pass, ``source`` being what the
-trainer turns into the device batch:
+trainer turns into the rank's device batch (``Trainer.device_batch``):
 
 * ``None`` — stream it: the host arrays of ``model_inputs`` go through
   ``Trainer.to_device``;
-* a ``dict`` — the device batch of the caching pass, kept as it is;
+* a ``dict`` — the pool's tensors of the batch, kept from the caching pass;
 * :class:`PoolRows` — rows of the pool's device columns, gathered on the
   device (``torch.index_select``, into a step graph's slots where given).
 
-The first pass over a loader streams and keeps each device batch. Only a
-pass that ran to its end defines the pool; one cut short (``max_steps`` in
-mid-epoch, a break) is rebuilt at the next pass, and says so. A loader that
-does not shuffle (eval) then replays the kept batches as they are. A
-shuffled loader's later epochs stack the kept batches into one column a key
-(batches are freed) and re-batch them by a device gather in the order the
-streaming path would visit: the epoch's ``epoch_order`` composed with the
-inverse of the caching pass's order (``epoch=None``: a permutation of its
-own). The epoch's order goes to the device once; no batch is copied from the
-host. Host columns (numpy), list columns and unused columns replay per
-example, in the same order. A pool that does not cover the dataset
-(``drop_last`` with a ragged tail: the first epoch's shuffle chose which
-examples were dropped) streams instead, and says so once; so does a caching
-pass that began in mid-epoch (a resume). A mid-epoch resume's skip
-(``set_epoch(e, skip_batches=k)``) is honoured in replay. One process only:
-the trainer refuses the option under a process group.
+What the pool keeps of a batch is ``to_device(..., every_row=True)``'s form:
+every row of the global batch, each time-dim key in this rank's ``sp``
+range. One process keeps the device batch itself. Under a process group
+every rank reads the same host batches (the loaders share their seed), so
+every rank keeps every row, and the trainer cuts the rank's ``data`` rows at
+each step from the layout of the batch's host arrays
+(``Trainer.pooled_batch``): a reshuffled epoch draws rows that another rank
+held in the caching pass, and the gathered batch equals what ``to_device``
+cuts from the same host batch, bit for bit. So the whole dataset (its rank's
+time range) is on every card, where the JAX pool is sharded over ``data``
+and XLA's gather moves rows between devices; :attr:`DeviceBatchCache.bytes`
+counts a rank's pool.
+
+The first pass over a loader streams and keeps each batch. Only a pass that
+ran to its end defines the pool; one cut short (``max_steps`` in mid-epoch,
+a break) is rebuilt at the next pass, and says so. A loader that does not
+shuffle (eval) then replays the kept batches as they are. A shuffled
+loader's later epochs stack the kept batches into one column a key (batches
+are freed) and re-batch them by a device gather in the order the streaming
+path would visit: the epoch's ``epoch_order`` composed with the inverse of
+the caching pass's order (``epoch=None``: a permutation of its own). The
+epoch's order goes to the device once; no batch is copied from the host.
+Host columns (numpy), list columns and unused columns replay per example, in
+the same order. A pool that does not cover the dataset (``drop_last`` with a
+ragged tail: the first epoch's shuffle chose which examples were dropped)
+streams instead, and says so once (rank 0 prints); so does a caching pass
+that began in mid-epoch (a resume). A mid-epoch resume's skip
+(``set_epoch(e, skip_batches=k)``) is honoured in replay.
 """
 from __future__ import annotations
 
@@ -39,27 +51,17 @@ import torch
 
 
 class PoolRows:
-    """Rows ``idx`` (a device index) of the pool's device columns."""
+    """Rows ``idx`` (a device index, a global batch's rows in order) of the
+    pool's device columns."""
 
-    def __init__(self, columns: Dict[str, torch.Tensor], constants: Dict[str, Any],
-                 idx: torch.Tensor):
-        self.columns, self.constants, self.idx = columns, constants, idx
+    def __init__(self, columns: Dict[str, torch.Tensor], idx: torch.Tensor):
+        self.columns, self.idx = columns, idx
 
     def signature_batch(self) -> Dict[str, Any]:
-        """Meta tensors of the gathered batch's shapes and dtypes."""
+        """Meta tensors of the gathered rows' shapes and dtypes."""
         n = self.idx.shape[0]
         return {k: torch.empty((n,) + tuple(c.shape[1:]), dtype=c.dtype, device="meta")
                 for k, c in self.columns.items()}
-
-    def gather(self, out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-        """The device batch; with ``out``, written into its tensors."""
-        batch = dict(self.constants)
-        for k, col in self.columns.items():
-            if out is None:
-                batch[k] = torch.index_select(col, 0, self.idx)
-            else:
-                batch[k] = torch.index_select(col, 0, self.idx, out=out[k])
-        return batch
 
 
 class _Entry:
@@ -73,15 +75,26 @@ class _Entry:
 
 
 class DeviceBatchCache:
-    """The pools of one trainer, one a dataloader. ``to_device(model_inputs)``
-    makes a device batch from host columns; ``say(msg)`` prints."""
+    """The pools of one trainer, one a dataloader. ``keep(model_inputs)``
+    copies a batch's host columns to the device in the pool's form (the
+    tensors alone); ``say(msg)`` prints."""
 
-    def __init__(self, seed: int, to_device: Callable[[Dict], Dict[str, Any]],
+    def __init__(self, seed: int, keep: Callable[[Dict], Dict[str, torch.Tensor]],
                  say: Callable[[str], None]):
-        self.to_device = to_device
+        self.keep = keep
         self.say = say
         self.entries: Dict[int, _Entry] = {}
         self.order_rng = np.random.default_rng(int(seed) + 7)
+
+    @property
+    def bytes(self) -> int:
+        """Device bytes the pools hold."""
+        total = 0
+        for entry in self.entries.values():
+            batches = (entry.columns.values() if entry.columns is not None else
+                       [t for b, _, _ in entry.items for t in b.values()])
+            total += sum(t.numel() * t.element_size() for t in batches)
+        return total
 
     def batches(self, loader, epoch: Optional[int] = None
                 ) -> Iterator[Tuple[Any, Dict, Dict]]:
@@ -93,7 +106,7 @@ class DeviceBatchCache:
                          "after the first complete pass over the dataloader.")
             entry = self.entries[id(loader)] = _Entry()
             for model_inputs, unused_inputs in loader:
-                item = (self.to_device(model_inputs), model_inputs, unused_inputs)
+                item = (self.keep(model_inputs), model_inputs, unused_inputs)
                 entry.items.append(item)
                 yield item
             entry.n_cached = sum(_rows(batch) for batch, _, _ in entry.items)
@@ -117,6 +130,8 @@ class DeviceBatchCache:
             return
         if entry.columns is None:
             self._stack(entry)
+            self.say(f"cache_device_batches: {int(entry.sizes.sum())} examples pooled on the "
+                     f"device, {self.bytes} bytes on each rank")
         n = int(entry.sizes.sum())
         if epoch is not None and entry.dataset_order is not None:
             # the streaming path's order: this epoch's dataset indices, mapped
@@ -133,7 +148,7 @@ class DeviceBatchCache:
         start = 0
         for bi, bs in enumerate(entry.sizes):
             idx = order[start:start + bs]
-            rows = PoolRows(entry.columns, entry.constants, dev_order[start:start + bs])
+            rows = PoolRows(entry.columns, dev_order[start:start + bs])
             start += bs
             if bi < skip:
                 continue
@@ -148,9 +163,7 @@ class DeviceBatchCache:
         0); the batches themselves are freed."""
         items = entry.items
         first_batch, first_inputs, first_unused = items[0]
-        entry.columns = {k: torch.cat([b[k] for b, _, _ in items]) for k, v in
-                         first_batch.items() if torch.is_tensor(v)}
-        entry.constants = {k: v for k, v in first_batch.items() if not torch.is_tensor(v)}
+        entry.columns = {k: torch.cat([b[k] for b, _, _ in items]) for k in first_batch}
         entry.host_columns = {k: np.concatenate([np.asarray(mi[k]) for _, mi, _ in items])
                               for k, v in first_inputs.items() if isinstance(v, np.ndarray)}
         entry.list_columns = {k: [row for _, mi, _ in items for row in mi[k]]
@@ -161,5 +174,5 @@ class DeviceBatchCache:
         entry.items = None
 
 
-def _rows(batch: Dict[str, Any]) -> int:
-    return next(v.shape[0] for v in batch.values() if torch.is_tensor(v))
+def _rows(batch: Dict[str, torch.Tensor]) -> int:
+    return next(iter(batch.values())).shape[0]

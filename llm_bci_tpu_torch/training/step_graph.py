@@ -43,8 +43,15 @@ state at that moment and moves it as far. Kernels launched inside the
 capture count once in their wrappers' launch counters, when captured, so a
 run reconciles its counts as ``models/decode_graph.py``'s do: launches a
 step x (``EAGER_STEPS`` + ``CAPTURES``) on the host, x (``EAGER_STEPS`` +
-``REPLAYS``) on the device. On a CPU tensor the step function runs eagerly
-on the slots every step.
+``REPLAYS``) on the device. Under an NCCL process group the capture holds
+the step's collectives too (FSDP2's all-gathers and reduce-scatters on their
+own streams, joined back by its events; the ``tp`` / ``sp`` collectives; the
+clip's all-reduces), captured in ``thread_local`` mode, so that another
+thread's CUDA calls (a process group's watchdog queries its events) cannot
+invalidate the capture. On a CPU tensor, and with
+``capture=False`` (the trainer's choice for gloo ranks on the card, whose
+collectives run on the host), the step function runs eagerly on the slots
+every step.
 """
 from __future__ import annotations
 
@@ -91,14 +98,16 @@ def batch_signature(batch: Dict[str, Any]) -> tuple:
 class TrainStepGraph:
     """The slots, outputs and graph of one train step (see the module
     docstring). ``step_fn(batch)`` runs a step on a batch dict and returns
-    its outputs dict; ``generator`` is the training generator it draws from.
+    its outputs dict; ``generator`` is the training generator it draws from;
+    ``capture=False`` runs every step eagerly on the slots, on the card too.
     Call :meth:`adopt` once with a first device batch, fill :attr:`slots`
     before each later step, and call the object for the step's outputs."""
 
     def __init__(self, step_fn: Callable[[Dict[str, Any]], Dict[str, Any]],
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], capture: bool = True):
         self.step_fn = step_fn
         self.generator = generator
+        self.capture = capture
         self.slots: Optional[Dict[str, Any]] = None
         self.outputs: Optional[Dict[str, Any]] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -132,7 +141,7 @@ class TrainStepGraph:
 
     def __call__(self) -> Dict[str, Any]:
         global EAGER_STEPS, CAPTURES, CAPTURE_SECONDS
-        if self.device.type != "cuda":
+        if not self.capture or self.device.type != "cuda":
             EAGER_STEPS += 1
             return self.step_fn(self.slots)
         if self.graph is not None:
@@ -163,7 +172,10 @@ class TrainStepGraph:
         self.remat_states = [torch.Generator(self.device) for _ in self.remat_offsets]
         for gen in self.remat_states:
             graph.register_generator_state(gen)
-        with remat.capturing(self.remat_states), torch.cuda.graph(graph):
+        # thread_local: another thread's CUDA calls (a process group's
+        # watchdog queries its events) do not invalidate the capture
+        with remat.capturing(self.remat_states), \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self.outputs = self.step_fn(self.slots)
         self.graph = graph
         CAPTURES += 1

@@ -134,28 +134,34 @@ step); shorter runs (near a boundary, a shape change, an epoch's tail, the
 profiled steps) take the single step. Each step of a chain keeps its own
 bookkeeping: its outputs reach the readback with their own step label, the
 eval / save / budget logic runs for each, and a preemption is honoured at
-the chain's end, saved under the true step. On the card, in one process,
-each step of a chain replays the forward and backward (and at an update the
-clip) of one captured step of its signature and of its place in
-``gradient_accumulation_steps`` (closing an update or not) from a CUDA graph
-(``training/step_graph.py``): the batch is copied into the graph's slots,
-the outputs are copied out of the graph's before the readback holds them,
-and the AdamW update then runs eagerly, as a single step's does (its
-learning rate and bias corrections are host floats; an AdamW captured with
-them on the device moved the flagship's bf16 losses by up to 1.3e-4 in 8
-steps on an NVIDIA H100 80GB HBM3 at 700 W). Such a run keeps its gradients
-at fixed addresses (zeroed after an update instead of freed), which changes
-no value. The graphs, and the activations their pools hold, are freed at the
-end of :meth:`train`. On the CPU a chain's steps run eagerly on the graph's
-slots; under a process group they run eagerly through :meth:`train_step`
-(FSDP2's hooks and gloo's collectives are not captured: ROADMAP item 14b).
-Either way a chained run equals the unchained one.
+the chain's end, saved under the true step. Each step of a chain goes
+through the step graph of its signature and of its place in
+``gradient_accumulation_steps`` (closing an update or not,
+``training/step_graph.py``): the batch is copied into the graph's slots,
+the graph's outputs are copied out before the readback holds them, and the
+AdamW update then runs eagerly, as a single step's does (its learning rate
+and bias corrections are host floats; an AdamW captured with them on the
+device moved the flagship's bf16 losses by up to 1.3e-4 in 8 steps on an
+NVIDIA H100 80GB HBM3 at 700 W). On the card, in one process or under an
+NCCL group, the forward and backward (and at an update the clip) of the
+graph's second step are captured and replayed by every later step, FSDP2's
+all-gathers and reduce-scatters, the ``tp`` / ``sp`` collectives and the
+clip's all-reduces inside; such a run keeps its gradients at fixed addresses
+(zeroed after an update instead of freed), which changes no value. On the
+CPU, and on gloo ranks (whose collectives run on the host and cannot be
+captured; decided from the backend, and said once), the slots run eagerly.
+Either way a chained run equals the unchained one. The graphs, and the
+activations their pools hold, are freed at the end of :meth:`train`.
 ``training.cache_device_batches: true`` keeps a loader's collated columns on
 the device after its first complete pass and re-batches later epochs by a
 device gather in the streaming order (``training/batch_cache.py``); with
 chains the gather writes into the step graph's slots, so such an epoch
-copies no batch from the host. One process only (``not_ported`` under a
-process group: ROADMAP item 14b).
+copies no batch from the host. Under a process group every rank pools every
+row of the global batches in its own time range (every rank reads the same
+host batches), and gathers its ``data`` rows of each replayed batch
+(:meth:`pooled_batch`), equal bit for bit to what :meth:`to_device` cuts from
+the same host batch; the whole dataset is on every card (the JAX pool is
+sharded over ``data``).
 """
 from __future__ import annotations
 
@@ -172,7 +178,6 @@ import numpy as np
 import torch
 import yaml
 
-from llm_bci_tpu_torch import not_ported
 from llm_bci_tpu_torch.config import (
     DictConfig,
     config_from_kwargs,
@@ -314,9 +319,6 @@ class Trainer:
         self.config = update_config(default_trainer_config(), config)
         cfg = self.config
         self.setup_parallel(device)
-        if cfg.training.get("cache_device_batches") and self.distributed:
-            raise not_ported("training.cache_device_batches with several ranks",
-                             "Queue 1 item 14b")
         prec = cfg.get("precision") or {}
         if DTYPES[prec.get("param_dtype")] != torch.float32:
             raise ValueError("precision.param_dtype must be float32 (master weights)")
@@ -356,11 +358,12 @@ class Trainer:
             steps_per_epoch=len(self.train_dataloader),
             num_epochs=int(cfg.training.num_epochs),
         )
-        # training.chain_steps on the card in one process: captured steps,
-        # whose gradients stay at fixed addresses
+        # training.chain_steps on the card, in one process or under NCCL:
+        # captured steps, whose gradients stay at fixed addresses (gloo's
+        # collectives run on the host: its ranks run the slots eagerly)
         self.chain_steps = max(1, int(cfg.training.get("chain_steps", 1) or 1))
         self.captured = (self.chain_steps > 1 and self.device.type == "cuda"
-                         and not self.distributed)
+                         and self.backend in (None, "nccl"))
         self.graphs: Dict[tuple, TrainStepGraph] = {}
         self.n_updates = 0      # optimizer updates (the schedule's count)
         self.n_micro = 0        # train steps (micro-batches)
@@ -373,7 +376,8 @@ class Trainer:
         self.batch_cache: Optional[DeviceBatchCache] = None
         if cfg.training.get("cache_device_batches"):
             self.batch_cache = DeviceBatchCache(
-                self.seed, self.to_device, lambda msg: self.print_v(msg, verbosity=1))
+                self.seed, partial(self.to_device, every_row=True),
+                lambda msg: self.print_v(msg, verbosity=1))
         n_params = sum(p.numel() for p in trainable)
         self.print_v(f"Model number of trainable parameters: {n_params:,}", verbosity=0)
 
@@ -391,6 +395,7 @@ class Trainer:
         if (par.get("multihost") or process.launcher_env()) and not dist.is_initialized():
             process.init_process(device)
         self.distributed = dist.is_available() and dist.is_initialized()
+        self.backend = dist.get_backend() if self.distributed else None
         if not self.distributed:
             try:
                 self.mesh_sizes = pmesh.mesh_shape(1, **sizes)
@@ -510,40 +515,64 @@ class Trainer:
             seed=self.seed + 1,
         )
 
-    def to_device(self, batch: Dict[str, Any], out: Optional[Dict[str, Any]] = None
-                  ) -> Dict[str, Any]:
-        """Numpy columns -> tensors on the device (other columns stay out).
-        float64 columns (a JSON dataset's lists) arrive as float32, as JAX
-        without 64-bit mode places them. With several ``data`` ranks, the
-        rank's rows of the global batch (``parallel/mesh.py::batch_rows``).
-        With several ``sp`` ranks and a time dim that ``sp`` divides, each key
-        that the model's ``sequence_layout`` gives a range is cut to this
-        rank's (its tokens' bins and their halo, read from the host batch
-        that every rank holds), and the layout goes to the model as
-        ``seq_shard``; an indivisible time dim (or a batch without
-        ``spikes``) stays whole and the ``sp`` ranks compute the same, as the
-        JAX trainer keeps such a key whole. A model that takes
-        ``batch_group`` gets the group whose ranks' parts make up the global
-        batch: ``data x sp``, ``sp`` or ``data``, whichever cut this batch
-        (``None`` when none did: the rank holds it whole). With ``out`` (a
-        step graph's slots) each tensor is copied into ``out``'s."""
-        self.host_batches += 1
-        arrays = {k: v for k, v in batch.items() if isinstance(v, np.ndarray)}
-        n = next(iter(arrays.values())).shape[0] if arrays else 0
+    def batch_layout(self, batch: Dict[str, Any]) -> tuple:
+        """This rank's part of a global host batch, ``(start, stop, shard,
+        batch_group)``, and the step state that :meth:`backward` and
+        :meth:`global_outputs` read (``_batch_split``, ``_seq_shard``). With
+        several ``data`` ranks the rows ``start:stop`` are the rank's
+        (``parallel/mesh.py::batch_rows``; a batch the axis does not divide
+        is held whole). With several ``sp`` ranks and a time dim that ``sp``
+        divides, ``shard`` is the model's ``sequence_layout`` for the rank
+        (its tokens' bins and their halo); an indivisible time dim (or a
+        batch without ``spikes``) is ``None``: the ``sp`` ranks compute the
+        same, as the JAX trainer keeps such a key whole. ``batch_group`` is
+        the group whose ranks' parts make up the global batch: ``data x
+        sp``, ``sp`` or ``data``, whichever cut this batch (``None`` when
+        none did)."""
+        arrays = [v for v in batch.values() if isinstance(v, np.ndarray)]
+        n = arrays[0].shape[0] if arrays else 0
         start, stop = pmesh.batch_rows(n, self.mesh_sizes["data"], self.coords["data"])
         split = self._batch_split = stop - start < n
         shard = None
         n_sp = self.mesh_sizes["sp"]
-        spikes = arrays.get(SP_KEYS[0])
-        if n_sp > 1 and spikes is not None and spikes.shape[1] % n_sp == 0:
+        spikes = batch.get(SP_KEYS[0])
+        if n_sp > 1 and isinstance(spikes, np.ndarray) and spikes.shape[1] % n_sp == 0:
             shard = self.model.sequence_layout(spikes.shape[1], n_sp, self.coords["sp"])
             shard = shard.with_group(self.mesh["sp"].get_group())
         self._seq_shard = shard
         # FSDP2's replicate dim is data x sp (parallel/mesh.py::fsdp_mesh)
         batch_group = (self.plan.dp_mesh.get_group(0) if split
                        else None if shard is None else shard.group)
+        return start, stop, shard, batch_group
+
+    def _with_layout(self, dev: Dict[str, Any], shard, batch_group) -> Dict[str, Any]:
+        """``dev`` with the layout entries the model takes."""
+        if shard is not None:
+            dev["seq_shard"] = shard
+        if self._takes_batch_group:
+            dev["batch_group"] = batch_group
+        return dev
+
+    def to_device(self, batch: Dict[str, Any], out: Optional[Dict[str, Any]] = None,
+                  every_row: bool = False) -> Dict[str, Any]:
+        """Numpy columns -> tensors on the device (other columns stay out):
+        this rank's part of the global batch (:meth:`batch_layout`), each
+        key that the rank's ``seq_shard`` gives a range cut to it, read from
+        the host batch that every rank holds; the layout goes to the model
+        as ``seq_shard`` and ``batch_group``. float64 columns (a JSON
+        dataset's lists) arrive as float32, as JAX without 64-bit mode places
+        them. With ``out`` (a step graph's slots) each tensor is copied into
+        ``out``'s. With ``every_row`` the tensors alone, of every row of the
+        batch in the rank's time range: what the device batch pool keeps
+        (:meth:`pooled_batch` cuts the rank's rows from it)."""
+        self.host_batches += 1
+        start, stop, shard, batch_group = self.batch_layout(batch)
+        if every_row:
+            start, stop = 0, None
         dev: Dict[str, Any] = {}
-        for k, v in arrays.items():
+        for k, v in batch.items():
+            if not isinstance(v, np.ndarray):
+                continue
             v = (v.astype(np.float32) if v.dtype == np.float64 else v)[start:stop]
             if shard is not None and k in shard.slices:
                 lo, hi = shard.slices[k]
@@ -551,11 +580,28 @@ class Trainer:
             v = torch.from_numpy(np.ascontiguousarray(v))
             dev[k] = (v.to(self.device, non_blocking=True) if out is None
                       else out[k].copy_(v, non_blocking=True))
-        if shard is not None:
-            dev["seq_shard"] = shard
-        if self._takes_batch_group:
-            dev["batch_group"] = batch_group
-        return dev
+        return dev if every_row else self._with_layout(dev, shard, batch_group)
+
+    def pooled_batch(self, columns: Dict[str, torch.Tensor], batch: Dict[str, Any],
+                     idx: Optional[torch.Tensor] = None, out: Optional[Dict[str, Any]] = None
+                     ) -> Dict[str, Any]:
+        """This rank's device batch from the pool's device ``columns``
+        (``to_device(..., every_row=True)``'s form): the rows ``idx`` of
+        them (a device index, the global batch's rows in order), or all of
+        them; the rank's rows cut by the layout of ``batch``, the host
+        arrays of the same global batch. Equal, bit for bit, to
+        :meth:`to_device` of ``batch``. With ``out``, written into its
+        tensors."""
+        start, stop, shard, batch_group = self.batch_layout(batch)
+        rows = None if idx is None else idx[start:stop]
+        dev: Dict[str, Any] = {}
+        for k, col in columns.items():
+            if rows is not None:
+                dev[k] = (torch.index_select(col, 0, rows) if out is None
+                          else torch.index_select(col, 0, rows, out=out[k]))
+            else:
+                dev[k] = col[start:stop] if out is None else out[k].copy_(col[start:stop])
+        return self._with_layout(dev, shard, batch_group)
 
     def autocast(self):
         """``torch.autocast`` to ``precision.compute_dtype`` (off for float32)."""
@@ -577,22 +623,21 @@ class Trainer:
 
     def device_batch(self, source, model_inputs: Dict[str, Any],
                      out: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-        """The device batch of an item of :meth:`batches`; with ``out`` (a
-        step graph's slots) written into its tensors."""
+        """This rank's device batch of an item of :meth:`batches`; with
+        ``out`` (a step graph's slots) written into its tensors. Sets the
+        step state of its layout (:meth:`batch_layout`) whatever its
+        source."""
         if source is None:
             return self.to_device(model_inputs, out=out)
         if isinstance(source, PoolRows):
-            return source.gather(out)
-        if out is not None:
-            for k, v in source.items():
-                if torch.is_tensor(v):
-                    out[k].copy_(v)
-            return out
-        return source
+            return self.pooled_batch(source.columns, model_inputs, source.idx, out)
+        return self.pooled_batch(source, model_inputs, out=out)
 
     @staticmethod
     def batch_signature(source, model_inputs: Dict[str, Any]) -> tuple:
-        """The signature (keys, shapes, dtypes) of an item of :meth:`batches`."""
+        """The signature (keys, shapes, dtypes) of an item of :meth:`batches`:
+        of its host arrays when it streams, else of its pool rows (every
+        row of the global batch, the rank's time range)."""
         if source is None:
             return batch_signature(model_inputs)
         if isinstance(source, PoolRows):
@@ -664,25 +709,23 @@ class Trainer:
 
     def chain(self, items: List[tuple]) -> Any:
         """Train steps on ``items`` of :meth:`batches` (of one signature),
-        yielding each step's outputs as it is enqueued. In one process each
-        goes through the :class:`TrainStepGraph` of its signature and of
-        whether it closes an update (made at its first step): the batch into
-        its slots, the graph's outputs copied out, then the update. Under a
-        process group each is a :meth:`train_step`."""
+        yielding each step's outputs as it is enqueued. Each goes through
+        the :class:`TrainStepGraph` of its signature and of whether it
+        closes an update (made at its first step): the batch into its
+        slots, the graph's outputs copied out (over the global batch, as
+        :meth:`train_step` gives them), then the update."""
         for source, model_inputs, _ in items:
-            if self.distributed:
-                step_graph.count_eager_step()
-                yield self.train_step(self.device_batch(source, model_inputs))
-                continue
             update = (self.n_micro + 1) % self.grad_accum == 0
             key = (self.batch_signature(source, model_inputs), update)
             graph = self.graphs.get(key)
             if graph is None:
-                graph = self.graphs[key] = TrainStepGraph(partial(self.backward, update=update),
-                                                          self.generator)
+                graph = self.graphs[key] = TrainStepGraph(
+                    partial(self.backward, update=update), self.generator,
+                    capture=self.captured)
                 graph.adopt(self.device_batch(source, model_inputs))
             else:
                 self.device_batch(source, model_inputs, out=graph.slots)
+            split = self._batch_split
             if graph.grads:
                 self._attach_grads(graph.grads)
             outputs = {k: (v.clone() if torch.is_tensor(v) else v) for k, v in graph().items()}
@@ -690,7 +733,7 @@ class Trainer:
                 # the tensors a replay accumulates the gradients into
                 graph.grads = [(p, p.grad) for p in self.trainable if p.grad is not None]
             self._advance(update)
-            yield outputs
+            yield self.global_outputs(outputs, split, gather=bool(self.metric_fns))
 
     @staticmethod
     def _attach_grads(grads: List[tuple]) -> None:
@@ -796,9 +839,12 @@ class Trainer:
         profiler = None
         K = self.chain_steps
         if K > 1 and self.distributed:
-            self.print_v(f"chain_steps={K}: a chain's steps run eagerly under a process group "
-                         "(FSDP2's hooks and gloo's collectives are not captured; ROADMAP "
-                         "item 14b)", verbosity=0)
+            how = ("captured once a batch signature and replayed" if self.captured else
+                   "run eagerly on the step graphs' slots (gloo's collectives run on the host "
+                   "and cannot be captured)" if self.device.type == "cuda" else
+                   "run eagerly on the step graphs' slots (CPU)")
+            self.print_v(f"chain_steps={K} under a {self.backend} process group: a chain's "
+                         f"steps are {how}", verbosity=0)
 
         train_loss, train_examples = [], []
         train_metrics: Dict[str, List[float]] = {name: [] for name in self.metric_fns}

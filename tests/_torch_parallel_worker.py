@@ -1,7 +1,8 @@
 """Ranks of the port's multi-rank CPU tests (``tests/test_torch_port_parallel*.py``,
 ``tests/test_torch_port_sequence_parallel*.py``,
 ``tests/test_torch_port_sequence_tensor_parallel.py``,
-``tests/test_torch_port_patchtst_data_parallel.py``).
+``tests/test_torch_port_patchtst_data_parallel.py``,
+``tests/test_torch_port_cache_batches_parallel.py``).
 
 ``python tests/_torch_parallel_worker.py <job.pt>`` is started as every rank
 of one gloo group (``llm_bci_tpu_torch.parallel.process.spawn``); it runs the
@@ -93,7 +94,7 @@ def train(plain, parallelism, dataset_path, weights_path, **training):
     buffers = {n: b.detach().clone() for n, b in trainer.model.named_buffers()
                if n.endswith(("running_mean", "running_var"))}
     return {"losses": losses, "model": state["model"], "n_micro": trainer.n_micro,
-            "buffers": buffers, "first_moments": first_moments(state["optimizer"]),
+            "host_batches": trainer.host_batches, "buffers": buffers, "first_moments": first_moments(state["optimizer"]),
             "pred_shapes": pred_shapes, "eval": trainer.eval_history,
             "flash_fallback": getattr(encoder, "flash_fallback", None),
             "shard": (None if getattr(trainer, "_seq_shard", None) is None else
@@ -101,6 +102,47 @@ def train(plain, parallelism, dataset_path, weights_path, **training):
             "shapes": {n: tuple(v.shape) for n, v in trainer.model.state_dict().items()},
             "local": local, "lora": lora, "flash": flash, "draws": draws,
             "coords": dict(trainer.coords), "groups": groups}
+
+
+def train_pooled(plain, parallelism, dataset_path, weights_path, **training):
+    """``train`` with every device batch that does not stream held against
+    ``Trainer.to_device`` of the same host batch, bit for bit: ``sources``
+    counts the batches by their source's kind (``NoneType``: streamed,
+    ``dict``: kept by the caching pass, ``PoolRows``: gathered), ``unequal``
+    names each key that differed, ``shapes`` the rank's batch shapes seen;
+    with the pool's bytes on this rank and the step graphs' counts."""
+    from llm_bci_tpu_torch.training import step_graph
+    from llm_bci_tpu_torch.training.trainer import Trainer
+
+    sources, unequal, shapes, pool = {}, [], set(), {}
+    real = Trainer.device_batch
+
+    def checked(self, source, model_inputs, out=None):
+        dev = real(self, source, model_inputs, out)
+        kind = type(source).__name__
+        sources[kind] = sources.get(kind, 0) + 1
+        shapes.update((k, tuple(v.shape)) for k, v in dev.items() if torch.is_tensor(v))
+        if source is not None:
+            host_batches = self.host_batches
+            want = self.to_device(model_inputs)
+            self.host_batches = host_batches
+            for k, v in want.items():
+                same = torch.equal(dev[k], v) if torch.is_tensor(v) else dev.get(k) == v
+                if not same:
+                    unequal.append((sources[kind], kind, k))
+        if self.batch_cache is not None:
+            pool["bytes"] = self.batch_cache.bytes
+        return dev
+
+    Trainer.device_batch = checked
+    step_graph.reset_counters()
+    try:
+        out = train(plain, parallelism, dataset_path, weights_path, **training)
+    finally:
+        Trainer.device_batch = real
+    return {**out, "sources": sources, "unequal": unequal, "shapes": sorted(shapes),
+            "pool_bytes": pool.get("bytes"),
+            "graph": (step_graph.EAGER_STEPS, step_graph.CAPTURES, step_graph.REPLAYS)}
 
 
 def first_moments(optimizer_state) -> dict:
@@ -311,7 +353,7 @@ def dryrun(tmp):
     report line."""
     from llm_bci_tpu_torch.entry import dryrun_steps
 
-    report = dryrun_steps(tmp, "cpu")
+    report = dryrun_steps(tmp, device="cpu")
     return {"report": report if _rank() == 0 else None}
 
 
@@ -334,7 +376,7 @@ def mesh_groups(meshes):
     return out
 
 
-CASES = {f.__name__: f for f in (train, train_fixed_noise, train_hooked_by_tree_flatten, resume,
+CASES = {f.__name__: f for f in (train, train_pooled, train_fixed_noise, train_hooked_by_tree_flatten, resume,
                                   resume_train, preempt, clip, decode, dryrun, collectives,
                                   mesh_groups)}
 

@@ -14,7 +14,8 @@ JAX trainer's own pool (``_prefetch``, the cases of
 * list columns and unused columns replay with their rows;
 * chained and cached, a run equals the chained uncached run bit for bit and
   copies batches from the host in its first epoch only;
-* under a process group the option is refused (``not_ported``).
+* under a gloo group of one rank a cached run equals one process's (groups
+  of several ranks: ``tests/test_torch_port_cache_batches_parallel.py``).
 """
 import numpy as np
 import pytest
@@ -223,16 +224,33 @@ def test_cached_chain_equals_the_uncached_chain(tmp_path):
     assert runs[True][2] == runs[False][2] == 6
 
 
-def test_cache_is_refused_under_a_process_group(tmp_path):
+def test_cache_under_a_one_rank_group_equals_one_process(tmp_path):
+    """A gloo group of one rank (the plan applied: FSDP2 over a mesh of
+    one) pools and replays as one process does: the same losses and example
+    order over three epochs, and batches copied from the host in the first
+    epoch only. Groups of 2 and 4 ranks: ``_cache_batches_parallel.py``."""
     import torch.distributed as dist
 
-    from llm_bci_tpu_torch.training.trainer import Trainer
+    dataset = synth_dataset()
+    runs = {}
+    for group in (False, True):
+        cfg = cache_config(tmp_path / f"group{group}", num_epochs=3, max_steps=6)
+        log = []
 
-    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
-                            world_size=1)
-    try:
-        with pytest.raises(NotImplementedError, match="cache_device_batches.*item 14b"):
-            Trainer(PortDictConfig(to_plain_dict(cache_config(tmp_path))),
-                    dataset=synth_dataset(), device="cpu")
-    finally:
-        dist.destroy_process_group()
+        def record(model, model_inputs, unused_inputs, outputs, log=log, **kwargs):
+            log.append((float(outputs["loss"]), float(np.sum(model_inputs["spikes"]))))
+            return 0.0
+
+        if group:
+            dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                                    rank=0, world_size=1)
+        try:
+            trainer = port_trainer(cfg, dataset, metric_fns={"rec": record})
+            assert trainer.distributed == group
+            trainer.train()
+        finally:
+            if group:
+                dist.destroy_process_group()
+        runs[group] = (log, trainer.host_batches, trainer.n_micro)
+    assert runs[True][0] == runs[False][0] and len(runs[True][0]) == 6
+    assert runs[True][1:] == runs[False][1:] == (2, 6)

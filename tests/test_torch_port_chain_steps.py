@@ -14,8 +14,8 @@ boundaries, per-step readback and bookkeeping):
 * a CTC model's ``None`` output fields survive a chain;
 * a preemption requested inside a chain saves at the chain's end, tagged
   with the step the state holds;
-* under a gloo group of 2 ranks a chain's steps run eagerly and equal
-  ``chain_steps: 1``'s.
+* under a gloo group of 2 ranks a chain's steps run eagerly on the step
+  graph's slots and equal ``chain_steps: 1``'s.
 """
 import os
 
@@ -217,7 +217,8 @@ def test_preemption_inside_a_chain_saves_at_its_end(tmp_path):
 
 def test_chain_under_a_gloo_group_runs_eagerly(tmp_path):
     """Two gloo ranks at ``data=2``: ``chain_steps: 2`` runs its chains'
-    steps eagerly and ends where ``chain_steps: 1`` does, bit for bit."""
+    steps eagerly on the step graph's slots and ends where ``chain_steps:
+    1`` does, bit for bit."""
     from llm_bci_tpu_torch.training.trainer import build_model
 
     dataset = {"train": speechbci_rows(16, 0), "test": speechbci_rows(4, 1)}
